@@ -1,10 +1,10 @@
-"""Model configuration for the PyTorch / CUDA port.
+"""Configuration for the PyTorch / CUDA port.
 
-A field-for-field copy of the JAX package's ``ModelConfig`` (same names,
-same defaults), so ``ModelConfig(**dataclasses.asdict(jax_cfg.model))``
-builds the same model here.  Only the model section is needed by the
-no-grad render; the loss, train, data and parallel sections come with the
-training slice.
+Field-for-field copies of the JAX package's ``ModelConfig``, ``LossConfig``
+and ``TrainConfig`` (same names, same defaults), so
+``LossConfig(**dataclasses.asdict(jax_cfg.loss))`` builds the same section
+here; :class:`Config` groups them.  The data and parallel sections come with
+the slices that need them.
 
 Fields that select TPU kernel variants (``pallas_*``) keep their names so
 that a JAX config loads unchanged; :class:`~gazenerf_tpu_torch.models.
@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+from typing import Any
 
 
 @dataclasses.dataclass(frozen=True)
@@ -52,10 +53,11 @@ class ModelConfig:
     pred_img_size: int = 512
     min_feat: int = 32
 
-    # compute dtype of the field MLPs ("float32" | "bfloat16"); bfloat16
-    # with use_pallas runs the fused field kernel
+    # compute dtype of the field MLPs ("float32" | "bfloat16" | "float64");
+    # bfloat16 with use_pallas runs the fused field kernel; float64 (with
+    # float64 parameters) serves exact comparisons
     compute_dtype: str = "float32"
-    # compute dtype of the neural renderer
+    # compute dtype of the neural renderer (the same choices)
     renderer_dtype: str = "float32"
     remat_fields: bool = True
     # run the fused field kernel (bfloat16 fields only)
@@ -125,6 +127,78 @@ class ModelConfig:
         return int(math.log2(self.pred_img_size) - math.log2(self.featmap_size))
 
 
+@dataclasses.dataclass(frozen=True)
+class LossConfig:
+    """Loss-stack knobs (upstream ``GazeNeRFLoss``); the defaults are the
+    upstream training recipe."""
+
+    eye_loss_importance: float = 10.0
+    vgg_importance: float = 1.0
+    use_vgg_loss: bool = True
+    # pretrained frozen-net checkpoints (torchvision-format state dicts);
+    # empty = random init (tests only)
+    vgg_ckpt: str = ""
+    gaze_ckpt: str = ""
+    use_l1_loss: bool = True
+    use_angular_loss: bool = False
+    use_patch_gan_loss: bool = False
+    is_gradual_loss: bool = False
+    # run the three pred images through one VGG call and the three gt
+    # images through another (no gradient): the same values as six calls
+    vgg_batched: bool = True
+    # compute dtype of the frozen VGG16 in the loss ("float32" | "bfloat16")
+    vgg_dtype: str = "float32"
+
+    # regulariser weights
+    w_cam_delta: float = 0.001
+    w_iden_code: float = 0.001
+    w_expr_code: float = 1.0
+    w_appea_code: float = 0.001
+    w_bg_code: float = 0.01
+    angular_scale: float = 1.0 / 60000.0
+    gan_warmup_steps: int = 200000
+    gan_warmup_cap: float = 0.1
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Training-loop knobs (upstream ``train.py`` and trainer)."""
+
+    lr: float = 1e-4
+    step_decay: int = 1000  # lr = lr0 * 0.1 ** (epoch / step_decay)
+    optimizer: str = "adam"
+    adam_b1: float = 0.9
+    adam_b2: float = 0.999
+    batch_size: int = 2
+    num_epochs: int = 2000
+    seed: int = 45
+    opt_cam: bool = True
+    disc_lr_weight_decay: float = 1e-4
+
+    # per-group learning-rate multipliers
+    lr_mult_iden: float = 1.0
+    lr_mult_expr: float = 0.1
+    lr_mult_appea: float = 1.0
+    lr_mult_euler: float = 0.1
+    lr_mult_tvec: float = 0.1
+
+    checkpoint_dir: str = "checkpoints"
+    checkpoint_every: int = 1  # epochs
+    log_every: int = 300  # batches
+    # train steps per device dispatch; the port runs one step per call
+    steps_per_dispatch: int = 1
+
+
+@dataclasses.dataclass(frozen=True)
+class Config:
+    model: ModelConfig = dataclasses.field(default_factory=ModelConfig)
+    loss: LossConfig = dataclasses.field(default_factory=LossConfig)
+    train: TrainConfig = dataclasses.field(default_factory=TrainConfig)
+
+    def replace(self, **sections: Any) -> "Config":
+        return dataclasses.replace(self, **sections)
+
+
 def small_test_config() -> ModelConfig:
     """The JAX package's tiny CPU test model (16x16 featmap, 8 samples)."""
     return ModelConfig(
@@ -136,3 +210,9 @@ def small_test_config() -> ModelConfig:
         mlp_hidden=64,
         use_pallas=False,
     )
+
+
+def small_train_config() -> Config:
+    """:func:`small_test_config` with the default loss stack and B=2: the
+    JAX package's ``small_test_config()`` ``Config``."""
+    return Config(model=small_test_config(), train=TrainConfig(batch_size=2))

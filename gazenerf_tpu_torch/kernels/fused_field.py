@@ -2,15 +2,17 @@
 
 Counterpart of the JAX package's ``kernels/fused_field.py`` (its Pallas
 ``_field_kernel``, launched by ``_pallas_forward``) in the no-stash forward
-configuration that a no-grad render runs.  The kernel is hand-written CUDA
-for Hopper (``csrc/fused_field_fwd.cu``; its header states its bound and
-design); :func:`fused_field_reference` is its plain PyTorch version with
-the same rounding points.
+configuration that the render and the recompute-mode training step run.
+The kernel is hand-written CUDA for Hopper (``csrc/fused_field_fwd.cu``;
+its header states its bound and design); :func:`fused_field_reference` is
+its plain PyTorch version with the same rounding points.
 
 Call chain: :func:`split_params` and :func:`prepare_operands` (once per
-weight set) -> :func:`fused_field_render` (the per-request conditioning
+weight set) -> :func:`fused_field_render` (the per-call conditioning
 prologue) -> :func:`fused_field_forward` (the wrapper: the kernel for CUDA
-tensors, the plain version for CPU tensors).
+tensors, the plain version for CPU tensors), called through the autograd
+:class:`FusedField`, whose backward is the backward kernel
+(``kernels/fused_field_bwd.py``).
 """
 
 from __future__ import annotations
@@ -29,8 +31,8 @@ KERNEL = "fused_field_fwd"
 TILE_POINTS = 128
 DEFINES = {"TILE_POINTS": TILE_POINTS}
 
-# kernel launches since import (or since a caller reset it); the no-grad
-# render makes two per image, one per field branch
+# kernel launches since import (or since a caller reset it); a render and
+# a training step each make two, one per field branch
 launch_count = 0
 
 
@@ -162,7 +164,9 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
-def _check(name, t, device, dtype, shape):
+def check_tensor(name, t, device, dtype, shape):
+    """Raise unless ``t`` is a contiguous ``dtype`` tensor of ``shape`` on
+    ``device``: what a kernel launch takes."""
     if t.device != device:
         raise ValueError(f"{name}: on {t.device}, expected {device}")
     if t.dtype != dtype:
@@ -209,7 +213,7 @@ def _launch(embed, zvals, zdists, cb0, cb5, cbr1, w: FieldOperands):
         "br2": (w.br2, f32, (C,)),
     }
     for name, (t, dtype, shape) in expected.items():
-        _check(name, t, dev, dtype, shape)
+        check_tensor(name, t, dev, dtype, shape)
     if Kp % 16 or Kp < De:
         raise ValueError(f"padded embedding width {Kp} for De={De}")
     lib = _library()
@@ -235,14 +239,8 @@ def fused_field_forward(
 ) -> Tuple[torch.Tensor, ...]:
     """The kernel's wrapper.  CUDA tensors launch the kernel (on the current
     stream, no synchronisation); CPU tensors take
-    :func:`fused_field_reference`.  Forward only: the kernel has no
-    backward yet, so it refuses inputs that need gradients."""
-    if torch.is_grad_enabled() and any(
-        t.requires_grad for t in (embed, zvals, zdists, cb0, cb5, cbr1, *w)
-    ):
-        raise NotImplementedError(
-            "the fused field kernel has no backward yet; call it under torch.no_grad()"
-        )
+    :func:`fused_field_reference`.  No autograd: :func:`fused_field_render`
+    wraps it in :class:`FusedField`, whose backward is the backward kernel."""
     if embed.device.type == "cpu":
         return fused_field_reference(embed, zvals, zdists, cb0, cb5, cbr1, w)
     if embed.device.type != "cuda":
@@ -250,18 +248,68 @@ def fused_field_forward(
     return _launch(embed, zvals, zdists, cb0, cb5, cbr1, w)
 
 
+# the split_params blocks that carry gradients, in FusedField's input order
+WEIGHT_KEYS = (
+    "W0e", "Wmid", "bmid", "W5e", "W5x", "Wd", "bd", "Wr0", "br0", "Wr1x", "Wr2", "br2",
+)
+
+
+class FusedField(torch.autograd.Function):
+    """Field + integration with the backward kernel as its gradient (the
+    JAX package's ``custom_vjp`` around the two Pallas kernels, recompute
+    mode).
+
+    Inputs: the bf16 kernel operands (values), then the embedding, z values,
+    segment lengths, conditioning rows and the :data:`WEIGHT_KEYS` blocks
+    (f32 views of the parameters, which receive the weight gradients).  The
+    forward launches the forward kernel and saves its inputs, no
+    activations; the backward recomputes them.  The embedding's cotangent
+    comes back in the embedding's dtype."""
+
+    @staticmethod
+    def forward(ctx, ops: FieldOperands, embed, zvals, zdists, cb0, cb5, cbr1, *weights):
+        e = embed.to(torch.bfloat16).contiguous()
+        out = fused_field_forward(e, zvals, zdists, cb0, cb5, cbr1, ops)
+        ctx.save_for_backward(e, zvals, zdists, cb0, cb5, cbr1, *ops)
+        ctx.embed_dtype = embed.dtype
+        return out
+
+    @staticmethod
+    def backward(ctx, gfeat, gbga, gdepth, gw):
+        from gazenerf_tpu_torch.kernels import fused_field_bwd
+
+        e, zvals, zdists, cb0, cb5, cbr1, *ops = ctx.saved_tensors
+        B, R, S, _ = e.shape
+
+        def cot(g, shape):  # an output no loss reads has no cotangent
+            if g is None:
+                return torch.zeros(shape, dtype=torch.float32, device=e.device)
+            return g.to(torch.float32).contiguous()
+
+        C = ops[-1].shape[0]
+        g = fused_field_bwd.fused_field_backward(
+            e, zvals, zdists, cb0, cb5, cbr1, FieldOperands(*ops),
+            cot(gfeat, (B, R, C)), cot(gbga, (B, R)), cot(gdepth, (B, R)), cot(gw, (B, R, S)),
+        )
+        return (
+            None, g.dembed.to(ctx.embed_dtype), g.dzvals, g.dzdists, g.dcb0, g.dcb5, g.dcbr1,
+            g.dW0e, g.dWmid, g.dbmid, g.dW5e, g.dW5x, g.dWd, g.dbd,
+            g.dWr0, g.dbr0, g.dWr1x, g.dWr2, g.dbr2,
+        )
+
+
 def fused_field_render(p, ops: FieldOperands, embed, sc, ac, zvals, zdists):
     """Field evaluation + integration for one branch.
 
     ``p``: the field's :func:`split_params` blocks and ``ops`` its
-    :func:`prepare_operands`, both built once per weight set; only the
-    conditioning rows are computed per call.  Returns ``(feat_int [B,R,C],
-    bg_alpha [B,R], depth [B,R], weights [B,R,S])``.
+    :func:`prepare_operands` (the bf16 values the kernels read, built once
+    per weight set).  The call goes through :class:`FusedField`: under
+    autograd the gradients reach ``p``'s blocks, the codes and the
+    embedding.  Returns ``(feat_int [B,R,C], bg_alpha [B,R], depth [B,R],
+    weights [B,R,S])``.
     """
     cb0, cb5, cbr1 = conditioning_rows(p, sc, ac)
-    return fused_field_forward(
-        embed.to(torch.bfloat16).contiguous(),
-        zvals.to(torch.float32).contiguous(),
-        zdists.to(torch.float32).contiguous(),
-        cb0, cb5, cbr1, ops,
+    return FusedField.apply(
+        ops, embed, zvals.to(torch.float32).contiguous(), zdists.to(torch.float32).contiguous(),
+        cb0, cb5, cbr1, *(p[k] for k in WEIGHT_KEYS),
     )

@@ -1,0 +1,150 @@
+"""The GazeNeRF training loss, static-shape.
+
+Port of the JAX package's ``losses/gazenerf_loss.py`` for the loss stack
+the default recipe runs: per-region L1 (or L2) losses, background and
+non-head constancy, the VGG16 perceptual loss (batched), and the camera and
+code regularisers.  Every masked mean is ``sum(x * mask) / sum(mask)``, the
+value and gradient of upstream's boolean gather.  Images are NHWC in
+[0, 1]; masks ``[B, H, W, 1]`` floats.
+
+Not ported yet, raising ``NotImplementedError``: the angular gaze loss
+(``use_angular_loss``), the PatchGAN loss (``use_patch_gan_loss``) and the
+unbatched VGG path (``vgg_batched=False``).
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, List, Optional
+
+import torch
+
+from gazenerf_tpu_torch.config import LossConfig
+from gazenerf_tpu_torch.models.vgg import normalize_imagenet
+from gazenerf_tpu_torch.ops.image import resize_bilinear
+
+
+def check_ported(cfg: LossConfig) -> None:
+    """Raise for loss settings the port does not run yet."""
+    for name in ("use_angular_loss", "use_patch_gan_loss"):
+        if getattr(cfg, name):
+            raise NotImplementedError(f"{name}=True is not ported yet")
+    if cfg.use_vgg_loss and not cfg.vgg_batched:
+        raise NotImplementedError("vgg_batched=False is not ported yet")
+
+
+def masked_mean(err: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Mean of ``err`` over the pixels where ``mask`` is 1 (the mask
+    broadcast over channels)."""
+    mask3 = torch.broadcast_to(mask, err.shape)
+    denom = torch.clamp(mask3.sum(), min=1.0)
+    return (err * mask3).sum() / denom
+
+
+def region_masks(
+    head_mask: torch.Tensor,
+    left_eye_mask: torch.Tensor,
+    right_eye_mask: torch.Tensor,
+    full_eye_mask: Optional[torch.Tensor] = None,
+) -> Dict[str, torch.Tensor]:
+    """Region decomposition into {0, 1} float masks ``[B, H, W, 1]``;
+    ``full_eye_mask`` defaults to zeros, as upstream's dataset sets it."""
+    if full_eye_mask is None:
+        full_eye_mask = torch.zeros_like(head_mask)
+    head = (head_mask >= 0.5) & (full_eye_mask < 0.5)
+    face = (head_mask >= 0.5) & (left_eye_mask < 0.5) & (right_eye_mask < 0.5)
+    eyes = (left_eye_mask >= 0.5) | (right_eye_mask >= 0.5)
+    nonhead = head_mask < 0.5
+    f = lambda m: m.to(torch.float32)  # noqa: E731
+    return {"head": f(head), "face": f(face), "eyes": f(eyes), "nonhead": f(nonhead)}
+
+
+def compute_losses(
+    cfg: LossConfig,
+    pred: Dict,
+    gt_rgb: torch.Tensor,
+    head_mask: torch.Tensor,
+    left_eye_mask: torch.Tensor,
+    right_eye_mask: torch.Tensor,
+    *,
+    bg_value: float = 1.0,
+    vgg_capture_fn: Optional[Callable[[torch.Tensor], List[torch.Tensor]]] = None,
+    opt_code_dict: Optional[Dict] = None,
+    delta_cam: Optional[Dict] = None,
+) -> Dict[str, torch.Tensor]:
+    """The data and regulariser losses; ``total_loss`` is the training
+    target.  ``vgg_capture_fn(x)`` returns the captured VGG16 features of a
+    ``[N, 224, 224, 3]`` ImageNet-normalised batch."""
+    check_ported(cfg)
+    cd = pred["coarse_dict"] if "coarse_dict" in pred else pred
+    res_img = cd["merge_img"]
+    res_face = cd["merge_img_face"]
+    res_eyes = cd["merge_img_eyes"]
+    bg_img = cd["bg_img"]
+
+    masks = region_masks(head_mask, left_eye_mask, right_eye_mask)
+
+    def pix_err(a, b):
+        d = a - b
+        return d.abs() if cfg.use_l1_loss else d * d
+
+    losses: Dict[str, torch.Tensor] = {}
+    losses["bg_loss"] = ((bg_img - bg_value) ** 2).mean()
+    losses["head_loss"] = masked_mean(pix_err(res_img, gt_rgb), masks["head"])
+    losses["face_loss"] = masked_mean(pix_err(res_face, gt_rgb), masks["face"])
+    losses["eyes_loss"] = masked_mean(pix_err(res_eyes, gt_rgb), masks["eyes"])
+    losses["nonhead_loss"] = masked_mean((res_img - bg_value) ** 2, masks["nonhead"])
+
+    if cfg.use_vgg_loss and vgg_capture_fn is not None:
+
+        def prep(img):
+            return resize_bilinear(normalize_imagenet(img), (224, 224))
+
+        def keep(m, img):  # img where the mask is set, the background elsewhere
+            return torch.where(torch.broadcast_to(m, gt_rgb.shape) > 0, img, bg_value)
+
+        gt_face = keep(masks["face"], gt_rgb)
+        gt_eyes = keep(masks["eyes"], gt_rgb)
+        gt_head = torch.where(torch.broadcast_to(masks["nonhead"], gt_rgb.shape) > 0,
+                              bg_value, gt_rgb)
+        # two 3B-row calls: the pred rows with gradient, the gt rows without
+        B = gt_rgb.shape[0]
+        fp = vgg_capture_fn(torch.cat([prep(x) for x in (res_face, res_eyes, res_img)], 0))
+        with torch.no_grad():
+            fg = vgg_capture_fn(torch.cat([prep(x) for x in (gt_face, gt_eyes, gt_head)], 0))
+
+        def dist(i):
+            a = i * B
+            return sum(
+                (p[a : a + B] - g[a : a + B]).abs().to(torch.float32).mean()
+                for p, g in zip(fp, fg)
+            )
+
+        losses["vgg_face_loss"] = dist(0)
+        losses["vgg_eyes_loss"] = dist(1)
+        losses["vgg"] = dist(2) * cfg.vgg_importance
+
+    total = sum(losses.values())
+
+    if delta_cam is not None:
+        losses["delta_eular"] = (delta_cam["delta_eulur"] ** 2).mean()
+        losses["delta_tvec"] = (delta_cam["delta_tvec"] ** 2).mean()
+        total = total + cfg.w_cam_delta * (losses["delta_eular"] + losses["delta_tvec"])
+
+    if opt_code_dict is not None:
+        losses["iden_code"] = (opt_code_dict["iden"] ** 2).mean()
+        losses["expr_code"] = (opt_code_dict["expr"] ** 2).mean()
+        losses["appea_code"] = (opt_code_dict["appea"] ** 2).mean()
+        bg_code = opt_code_dict.get("bg")
+        losses["bg_code"] = (
+            (bg_code**2).mean() if bg_code is not None
+            else torch.zeros((), device=gt_rgb.device)
+        )
+        total = total + (
+            cfg.w_iden_code * losses["iden_code"]
+            + cfg.w_expr_code * losses["expr_code"]
+            + cfg.w_appea_code * losses["appea_code"]
+            + cfg.w_bg_code * losses["bg_code"]
+        )
+
+    losses["total_loss"] = total
+    return losses

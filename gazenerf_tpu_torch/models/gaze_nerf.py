@@ -1,4 +1,4 @@
-"""GazeNeRF: the two-stream conditional NeRF, no-grad render.
+"""GazeNeRF: the two-stream conditional NeRF.
 
 A face field and an eye field each predict a 258-channel feature + density
 volume, alpha-composited into 64x64 feature maps; the eye feature planes are
@@ -7,16 +7,19 @@ renderer upsamples to the 512x512 RGB image.  One positional embedding is
 shared by both branches.
 
 With ``compute_dtype="bfloat16"`` and ``use_pallas`` the fields run through
-the fused field kernel (``kernels/fused_field``); otherwise through
-:class:`NeRFFieldMLP` in the compute dtype, then :func:`integrate_rays`.
+the fused field kernels (``kernels/fused_field``: the forward kernel, and
+under autograd the backward kernel as its gradient, recompute mode);
+otherwise through :class:`NeRFFieldMLP` in the compute dtype, then
+:func:`integrate_rays`.
 
-This slice ports the render (``train=False``) in the default renderer
-configuration; the options below raise ``NotImplementedError``.
+The port runs the render and the training forward (``train=True``: jittered
+samples) in the default configuration; the options below raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import torch
 from torch import nn
@@ -29,7 +32,7 @@ from gazenerf_tpu_torch.ops.integrate import Integrated, integrate_rays
 from gazenerf_tpu_torch.ops.rays import SampleSet, sample_coarse
 from gazenerf_tpu_torch.ops.rotation import rotate_feature_planes
 
-_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float64": torch.float64}
 
 # settings outside this slice: (field, value the port runs)
 _PORTED = (
@@ -39,6 +42,11 @@ _PORTED = (
     ("pallas_dual_branch", False),
     ("pallas_fuse_embed", False),
     ("pallas_dens_vpu", False),
+    ("pallas_stash_acts", False),
+    ("pallas_stash_every", 1),
+    ("pallas_stash_dtype", "bfloat16"),
+    ("pallas_split_dw", False),
+    ("pallas_embed_bf16", False),
     ("batch_renderer_passes", False),
     ("batch_fg_passes", False),
     ("shuffle_mode", "phase_gm"),
@@ -127,8 +135,9 @@ class GazeNeRF(nn.Module):
             )
             return Integrated(features=feat_int, bg_alpha=bg_alpha, depth=depth, weights=w)
         feat, density = field(embed, shape_ext_code, appea_code)
+        acc = torch.promote_types(feat.dtype, torch.float32)  # bf16 fields integrate in f32
         return integrate_rays(
-            feat.float(), density[..., 0].float(), samples.z_dists, samples.zvals
+            feat.to(acc), density[..., 0].to(acc), samples.z_dists, samples.zvals
         )
 
     def render_featmaps(
@@ -140,6 +149,9 @@ class GazeNeRF(nn.Module):
         Rmats: torch.Tensor,
         Tvecs: torch.Tensor,
         inv_inmats: torch.Tensor,
+        train: bool = False,
+        generator: Optional[torch.Generator] = None,
+        t_rand: Optional[torch.Tensor] = None,
     ) -> Dict[str, Any]:
         """Everything before the renderer: both field branches, the
         background merge, the gaze rotation of the eye planes and the max.
@@ -151,10 +163,14 @@ class GazeNeRF(nn.Module):
         B = batch_xy.shape[0]
         Fs = cfg.featmap_size
 
+        if train and generator is None and t_rand is None:
+            raise ValueError("train=True draws jitter: pass a generator or t_rand")
         samples = sample_coarse(
             batch_xy, Rmats, Tvecs.reshape(B, 3), inv_inmats,
             num_samples=cfg.num_sample_coarse,
             world_z1=cfg.world_z1, world_z2=cfg.world_z2,
+            generator=generator if train else None,
+            t_rand=t_rand if train else None,
         )
         # one positional embedding for both branches
         embed = positional_encoding(samples.pts, cfg.vp_n_freqs, cfg.include_input_vp)
@@ -197,6 +213,9 @@ class GazeNeRF(nn.Module):
         Rmats: torch.Tensor,
         Tvecs: torch.Tensor,
         inv_inmats: torch.Tensor,
+        train: bool = False,
+        generator: Optional[torch.Generator] = None,
+        t_rand: Optional[torch.Tensor] = None,
     ) -> Dict[str, Any]:
         """Render a batch.
 
@@ -207,13 +226,16 @@ class GazeNeRF(nn.Module):
           gaze_code: ``[B, 2]`` (pitch, yaw).
           Rmats/Tvecs/inv_inmats: camera-to-world extrinsics and inverse
             intrinsics at featmap resolution.
+          train: jitter the samples (stratified), drawing ``[B, R, S+1]``
+            uniforms from ``generator``, or taking the draws ``t_rand``.
 
         Returns the JAX model's dict: ``coarse_dict`` (``merge_img``,
         ``merge_img_face``, ``merge_img_eyes``, ``bg_img``, NHWC),
         ``featmaps``, ``weights`` and ``depth``.
         """
         out = self.render_featmaps(
-            batch_xy, shape_code, appea_code, gaze_code, Rmats, Tvecs, inv_inmats
+            batch_xy, shape_code, appea_code, gaze_code, Rmats, Tvecs, inv_inmats,
+            train=train, generator=generator, t_rand=t_rand,
         )
         fm = out["featmaps"]
         # four sequential renderer passes

@@ -103,15 +103,17 @@ class NeRFFieldMLP(nn.Module):
         return self._operands[1], self._operands[2]
 
     def fused_render(self, embed_vp, shape_cond, appea_cond, zvals, zdists):
-        """Field + integration through the fused field kernel (bf16).
+        """Field + integration through the fused field kernels (bf16).
+
+        Under autograd the weight blocks are views of the parameters, so the
+        backward kernel's gradients reach them; the bf16 operands come from
+        the per-weight-set cache either way.
 
         Returns ``(feat_int [B,R,C], bg_alpha [B,R], depth [B,R], w [B,R,S])``.
         """
-        if torch.is_grad_enabled() and any(t.requires_grad for t in self.parameters()):
-            raise NotImplementedError(
-                "the fused field kernel has no backward yet; call it under torch.no_grad()"
-            )
         p, ops = self.kernel_operands()
+        if torch.is_grad_enabled():
+            p = split_params(self.flat(), self.embed_dims)
         return fused_field_render(p, ops, embed_vp, shape_cond, appea_cond, zvals, zdists)
 
     def forward(

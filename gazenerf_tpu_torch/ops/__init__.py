@@ -1,5 +1,9 @@
 from gazenerf_tpu_torch.ops.embedding import positional_encoding
-from gazenerf_tpu_torch.ops.image import pixel_shuffle2_blur_gm, upsample2x_blur_cf
+from gazenerf_tpu_torch.ops.image import (
+    pixel_shuffle2_blur_gm,
+    resize_bilinear,
+    upsample2x_blur_cf,
+)
 from gazenerf_tpu_torch.ops.integrate import (
     Integrated,
     exclusive_transmittance,
@@ -14,6 +18,7 @@ from gazenerf_tpu_torch.ops.rays import (
     stratified_zvals,
 )
 from gazenerf_tpu_torch.ops.rotation import (
+    euler_to_rotation,
     gaze_rotation_matrices,
     rotate_feature_planes,
 )
@@ -21,6 +26,7 @@ from gazenerf_tpu_torch.ops.rotation import (
 __all__ = [
     "positional_encoding",
     "pixel_shuffle2_blur_gm",
+    "resize_bilinear",
     "upsample2x_blur_cf",
     "Integrated",
     "exclusive_transmittance",
@@ -31,6 +37,7 @@ __all__ = [
     "pixel_grid",
     "sample_coarse",
     "stratified_zvals",
+    "euler_to_rotation",
     "gaze_rotation_matrices",
     "rotate_feature_planes",
 ]

@@ -4,7 +4,9 @@
   group-major NHWC input, computed as shifted FMAs of the four phase
   images (the renderer's ``phase_gm`` mode);
 * :func:`upsample2x_blur_cf` — the rgb skip chain's x2 bilinear upsample
-  plus binomial blur on channel-first ``[B, C, H, W]`` tensors.
+  plus binomial blur on channel-first ``[B, C, H, W]`` tensors;
+* :func:`resize_bilinear` — NHWC bilinear resize (the perceptual loss's
+  224x224 input).
 
 The blur is the 3x3 binomial ``[1,2,1] x [1,2,1] / 16`` with a reflect
 boundary (kornia ``filter2d`` semantics, as upstream).
@@ -102,3 +104,14 @@ def blur3x3_cf(x: torch.Tensor) -> torch.Tensor:
 def upsample2x_blur_cf(x: torch.Tensor) -> torch.Tensor:
     """x2 bilinear upsample then blur, channel-first ``[B, C, H, W]``."""
     return blur3x3_cf(_up2_axis_cf(_up2_axis_cf(x, 2), 3))
+
+
+def resize_bilinear(x: torch.Tensor, out_hw) -> torch.Tensor:
+    """``[B, H, W, C]`` -> ``[B, H', W', C]`` bilinear resize with half-pixel
+    centres and no antialiasing (``jax.image.resize(..., "bilinear",
+    antialias=False)``)."""
+    y = F.interpolate(
+        x.permute(0, 3, 1, 2), size=tuple(out_hw), mode="bilinear",
+        align_corners=False, antialias=False,
+    )
+    return y.permute(0, 2, 3, 1)

@@ -2,14 +2,15 @@
 
 Port of the JAX package's ``ops/rays.py``: channels-last rays ``[B, R, 3]``
 and sample points ``[B, R, S, 3]``, the upstream ``ray_l = -1/d_z``
-normalisation and the plane-relative z parameterisation.  The render path
-samples without jitter; the stratified jitter (and the hierarchical
-sampler) come with the training slice.
+normalisation and the plane-relative z parameterisation.  The render
+samples evenly spaced edges; training jitters each edge within its
+mid-point bounds (draws from a ``torch.Generator``, or handed in).  The
+hierarchical sampler is not ported yet.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -56,9 +57,9 @@ def generate_rays(
       inv_inmats: ``[B, 3, 3]`` inverse intrinsics at featmap resolution.
     """
     B, R, _ = batch_xy.shape
-    ones = torch.ones((B, R, 1), dtype=batch_xy.dtype, device=batch_xy.device)
-    xyz = torch.cat([batch_xy, ones], dim=-1)  # [B, R, 3]
     M = torch.bmm(Rmats, inv_inmats)  # [B, 3, 3]
+    ones = torch.ones((B, R, 1), dtype=M.dtype, device=batch_xy.device)
+    xyz = torch.cat([batch_xy.to(M.dtype), ones], dim=-1)  # [B, R, 3], the camera's dtype
     d = torch.bmm(xyz, M.transpose(1, 2))  # [B, R, 3]
     d = d / torch.linalg.norm(d, dim=-1, keepdim=True)
     # upstream computes ray_l = |d| and then overwrites it with -1/d_z;
@@ -79,15 +80,27 @@ def _samples_from_zvals(zvals: torch.Tensor, rays: RayBundle) -> SampleSet:
 
 
 def stratified_zvals(
-    rays: RayBundle, num_samples: int, world_z1: float, world_z2: float
+    rays: RayBundle,
+    num_samples: int,
+    world_z1: float,
+    world_z2: float,
+    t_rand: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """``[B, R, S+1]`` z-plane sample edges, linear in plane-relative depth
-    ``rela_z = o_z - world_z`` between the two bounding planes."""
+    ``rela_z = o_z - world_z`` between the two bounding planes.  With
+    ``t_rand`` (uniform draws in [0, 1), shape ``[B, R, S+1]``) each edge
+    moves within its mid-point bounds, the upstream stratified jitter."""
     oz = rays.origins[..., 2]  # [B, R]
     rela_z1 = (oz - world_z1)[..., None]
     rela_z2 = (oz - world_z2)[..., None]
     t = torch.linspace(0.0, 1.0, num_samples + 1, dtype=oz.dtype, device=oz.device)
-    return rela_z1 * (1.0 - t) + rela_z2 * t  # [B, R, S+1]
+    zvals = rela_z1 * (1.0 - t) + rela_z2 * t  # [B, R, S+1]
+    if t_rand is not None:
+        mids = 0.5 * (zvals[..., 1:] + zvals[..., :-1])
+        upper = torch.cat([mids, zvals[..., -1:]], dim=-1)
+        lower = torch.cat([zvals[..., :1], mids], dim=-1)
+        zvals = lower + (upper - lower) * t_rand
+    return zvals
 
 
 def sample_coarse(
@@ -98,8 +111,18 @@ def sample_coarse(
     num_samples: int,
     world_z1: float,
     world_z2: float,
+    generator: Optional[torch.Generator] = None,
+    t_rand: Optional[torch.Tensor] = None,
 ) -> SampleSet:
-    """Rays, then evenly spaced samples between the two z planes."""
+    """Rays, then samples between the two z planes: evenly spaced, or
+    jittered when ``generator`` (draws ``t_rand`` on the rays' device) or
+    the draws ``t_rand`` themselves are given."""
     rays = generate_rays(batch_xy, Rmats, Tvecs, inv_inmats)
-    zvals = stratified_zvals(rays, num_samples, world_z1, world_z2)
+    if t_rand is None and generator is not None:
+        B, R = rays.ray_l.shape
+        t_rand = torch.rand(
+            (B, R, num_samples + 1), generator=generator,
+            dtype=rays.ray_l.dtype, device=rays.ray_l.device,
+        )
+    zvals = stratified_zvals(rays, num_samples, world_z1, world_z2, t_rand)
     return _samples_from_zvals(zvals, rays)

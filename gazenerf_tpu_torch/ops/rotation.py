@@ -1,6 +1,7 @@
-"""Gaze rotation of the eye feature planes.
+"""Gaze rotation of the eye feature planes, and the camera offsets' Euler
+rotation.
 
-Both functions compute in true float32: the caller keeps TF32 off on the
+Every function computes in true float32: the caller keeps TF32 off on the
 card (``torch.backends.cuda.matmul.allow_tf32 = False``, PyTorch's
 default), the counterpart of ``precision="highest"`` in the JAX package.
 """
@@ -39,3 +40,17 @@ def rotate_feature_planes(
     R = gaze_rotation_matrices(gaze, inverse=inverse)  # [B, 3, 3]
     v = featmap.reshape(B, H * W * (C // 3), 3)
     return torch.bmm(v, R).reshape(B, H, W, C)
+
+
+def euler_to_rotation(angles: torch.Tensor) -> torch.Tensor:
+    """``[B, 3]`` XYZ Euler angles -> ``[B, 3, 3]`` rotations ``Rz @ Ry @ Rx``
+    (upstream's batched camera-offset rotation)."""
+    sx, sy, sz = (torch.sin(angles[:, i]) for i in range(3))
+    cx, cy, cz = (torch.cos(angles[:, i]) for i in range(3))
+    zeros = torch.zeros_like(sx)
+    ones = torch.ones_like(sx)
+    rx = torch.stack([ones, zeros, zeros, zeros, cx, -sx, zeros, sx, cx], dim=-1)
+    ry = torch.stack([cy, zeros, sy, zeros, ones, zeros, -sy, zeros, cy], dim=-1)
+    rz = torch.stack([cz, -sz, zeros, sz, cz, zeros, zeros, zeros, ones], dim=-1)
+    rx, ry, rz = (m.reshape(-1, 3, 3) for m in (rx, ry, rz))
+    return torch.bmm(torch.bmm(rz, ry), rx)

@@ -4,7 +4,9 @@ The port's modules carry the upstream module names and layouts
 (``fg_CD_predictor_face.FeaExt_module_0.weight`` as a 1x1 conv ``[out, in,
 1, 1]``, ``neural_render.bg_featmap`` as ``[1, C, H, W]``), so an upstream
 ``.pth`` loads into it directly and a JAX variable tree loads through
-:func:`params_from_jax`.
+:func:`params_from_jax`.  :func:`vgg_params_from_jax` carries the loss
+stack's VGG16 across, :func:`load_train_state_from_jax` a JAX training
+state's parameters and offset tables.
 
 The numpy converters are a copy of the JAX package's ``utils/transplant``
 (the port imports nothing from that package); flax stores a Dense kernel
@@ -155,3 +157,28 @@ def params_from_jax(variables: Mapping, n_blocks: int = 3) -> Dict[str, torch.Te
         k: torch.from_numpy(np.array(v, np.float32))
         for k, v in gazenerf_params_to_torch(variables, n_blocks).items()
     }
+
+
+def vgg_params_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX ``VGG16Features`` variables (flax ``conv_i`` kernels ``[3, 3,
+    in, out]``) -> the port's ``VGG16Features`` ``state_dict`` (torchvision
+    layout ``[out, in, 3, 3]``)."""
+    params = variables["params"] if "params" in variables else variables
+    out = {}
+    for i in range(len([k for k in params if k.startswith("conv_")])):
+        p = params[f"conv_{i}"]
+        out[f"convs.{i}.weight"] = torch.from_numpy(
+            np.ascontiguousarray(np.asarray(p["kernel"], np.float32).transpose(3, 2, 0, 1))
+        )
+        out[f"convs.{i}.bias"] = torch.from_numpy(np.array(p["bias"], np.float32))
+    return out
+
+
+def load_train_state_from_jax(trainer, state, n_blocks: int) -> None:
+    """Copy a JAX ``TrainState``'s network parameters and per-sample offset
+    tables (``state.params``, ``state.offsets``) into the port's
+    ``Trainer`` (its model and offsets; the optimiser state stays fresh)."""
+    trainer.model.load_state_dict(params_from_jax(state.params, n_blocks), strict=True)
+    with torch.no_grad():
+        for k, v in state.offsets.items():
+            trainer.offsets[k].copy_(torch.from_numpy(np.array(v, np.float32)))

@@ -141,16 +141,31 @@ def test_prepare_operands_layout(case):
     )
 
 
-def test_wrapper_refuses_gradients(case):
+@pytest.mark.parametrize("entry", ["wrapper", "module"])
+def test_gradients_flow_through_the_function(case, entry):
+    """Under autograd the render goes through ``FusedField`` (on the CPU its
+    backward is the plain backward): every field parameter, both codes and
+    the embedding get a finite, nonzero gradient, through the wrapper with
+    the split weight blocks and through ``NeRFFieldMLP.fused_render``."""
     _, params, inputs = case
-    flat = {k: v.requires_grad_(True) for k, v in _torch_flat(params).items()}
-    p = ff.split_params(flat, DE)
-    with torch.no_grad():
-        ops = ff.prepare_operands(p)
-    with pytest.raises(NotImplementedError, match="no backward"):
-        ff.fused_field_render(p, ops, *map(torch.from_numpy, inputs))
-    with pytest.raises(NotImplementedError, match="no backward"):
-        _port_field(params).fused_render(*map(torch.from_numpy, inputs))
+    embed, sc, ac, zvals, zdists = (torch.from_numpy(np.array(x)) for x in inputs)
+    for t in (embed, sc, ac):
+        t.requires_grad_(True)
+    if entry == "wrapper":
+        leaves = {k: v.requires_grad_(True) for k, v in _torch_flat(params).items()}
+        p = ff.split_params(leaves, DE)
+        with torch.no_grad():
+            ops = ff.prepare_operands(p)
+        out = ff.fused_field_render(p, ops, embed, sc, ac, zvals, zdists)
+    else:
+        field = _port_field(params)
+        leaves = dict(field.named_parameters())
+        out = field.fused_render(embed, sc, ac, zvals, zdists)
+    assert out[0].grad_fn is not None and "FusedField" in type(out[0].grad_fn).__name__
+    (out[0].square().sum() + out[1].square().sum()).backward()
+    for name, t in {**leaves, "sc": sc, "ac": ac, "embed": embed}.items():
+        assert t.grad is not None and torch.isfinite(t.grad).all(), name
+        assert t.grad.abs().max() > 0, name
 
 
 def test_kernel_operands_built_once_per_weight_set(case):

@@ -8,7 +8,13 @@ from pathlib import Path
 import pytest
 import torch
 
-from gazenerf_tpu_torch import GazeNeRF, ViewerApp, small_test_config
+from gazenerf_tpu_torch import (
+    GazeNeRF,
+    Trainer,
+    ViewerApp,
+    small_test_config,
+    small_train_config,
+)
 
 REPO = Path(__file__).resolve().parents[1]
 
@@ -20,17 +26,30 @@ for name in names:
     __import__(name)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "gazenerf_tpu"))
-print(len(names), bad)
+missing = sorted(set(EXPECTED) - set(names))
+print(len(names), bad, missing)
 """
+
+# the modules of both slices: the render and the training step
+EXPECTED = [
+    "gazenerf_tpu_torch.kernels.checks",
+    "gazenerf_tpu_torch.kernels.fused_field",
+    "gazenerf_tpu_torch.kernels.fused_field_bwd",
+    "gazenerf_tpu_torch.losses.gazenerf_loss",
+    "gazenerf_tpu_torch.models.vgg",
+    "gazenerf_tpu_torch.train.state",
+    "gazenerf_tpu_torch.train.trainer",
+    "gazenerf_tpu_torch.viewer.server",
+]
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
     out = subprocess.run(
-        [sys.executable, "-c", _IMPORT_ALL], cwd=REPO, capture_output=True,
-        text=True, timeout=120, check=True,
+        [sys.executable, "-c", f"EXPECTED = {EXPECTED!r}\n" + _IMPORT_ALL], cwd=REPO,
+        capture_output=True, text=True, timeout=120, check=True,
     ).stdout.split(maxsplit=1)
-    assert int(out[0]) >= 15  # every submodule was imported
-    assert out[1].strip() == "[]"
+    assert int(out[0]) >= 22  # every submodule was imported
+    assert out[1].strip() == "[] []"
 
 
 @pytest.mark.parametrize("entry", [GazeNeRF, ViewerApp])
@@ -39,3 +58,10 @@ def test_entry_points_need_a_card_unless_asked_for_the_cpu(monkeypatch, entry):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         entry(small_test_config())
     assert entry(small_test_config(), device="cpu") is not None
+
+
+def test_trainer_needs_a_card_unless_asked_for_the_cpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Trainer(small_train_config(), train_len=2, steps_per_epoch=1)
+    assert Trainer(small_train_config(), train_len=2, steps_per_epoch=1, device="cpu") is not None

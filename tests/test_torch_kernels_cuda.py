@@ -8,21 +8,23 @@ the repository's conftest:
 """
 
 import dataclasses
+import json
 
 import pytest
 import torch
 
-from gazenerf_tpu_torch import GazeNeRF, small_test_config
+from gazenerf_tpu_torch import Config, GazeNeRF, LossConfig, Trainer, small_test_config
+from gazenerf_tpu_torch.data.cameras import base_inv_inmat
+from gazenerf_tpu_torch.kernels import checks
 from gazenerf_tpu_torch.kernels import fused_field as ff
+from gazenerf_tpu_torch.kernels import fused_field_bwd as ffb
 from gazenerf_tpu_torch.models.mlp_nerf import NeRFFieldMLP
 from gazenerf_tpu_torch.ops.rays import pixel_grid
 from gazenerf_tpu_torch.viewer.server import lookat_camera
 
 pytestmark = pytest.mark.cuda
 NAMES = ("feat_int", "bg_alpha", "depth", "weights")
-# max |kernel - plain| over max |plain|, per output (chip_smoke.py states
-# the same limit and the readings it was set from)
-REL_ERR = 1e-2
+TEST_CASES = ("narrow", "wide", "medium")
 
 
 @pytest.fixture
@@ -34,38 +36,71 @@ def card():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("hidden, samples, rays", [(64, 8, 64), (384, 64, 256), (128, 32, 8)])
-def test_fused_field_matches_plain_version(card, hidden, samples, rays):
+def _hold(name, got, want, limit):
+    err, scale = float((got - want).abs().max()), float(want.abs().max())
+    rel = float((got - want).norm() / want.norm())
+    print(f"{name}: max abs err {err:.3e}, |plain| max {scale:.3e}, ratio {err / scale:.3e}, "
+          f"rel L2 {rel:.3e}")
+    assert torch.isfinite(got).all(), name
+    assert scale > 0 and err <= limit * scale, (name, err, scale)
+
+
+@pytest.mark.parametrize("case", TEST_CASES)
+def test_fused_field_matches_plain_version(card, case):
     """Same rounding points, other summation order: now and then a bf16
-    activation rounds the other way, a step of 2^-8 of it.  Every bias is
-    random, so a dropped or misplaced bias shows."""
-    gen = torch.Generator().manual_seed(hidden)
-    field = NeRFFieldMLP(63, 181, 127, hidden=hidden, res_nfeat=258)
-    field.reset_parameters(gen)
+    activation rounds the other way, a step of 2^-8 of it."""
+    args, _ = checks.field_case(*checks.K2_CASES[case], card)
     with torch.no_grad():
-        for name, t in field.named_parameters():
-            if name.endswith("bias"):
-                t.copy_(0.1 * torch.randn(t.shape, generator=gen))
-    field.to(card)
-    embed = (0.5 * torch.randn(2, rays, samples, 63, generator=gen)).to(card)
-    zvals = torch.sort(torch.randn(2, rays, samples, generator=gen), -1)[0].to(card)
-    zdists = (0.2 * torch.rand(2, rays, samples, generator=gen)).to(card)
-    sc = (0.1 * torch.randn(2, 181, generator=gen)).to(card)
-    ac = (0.1 * torch.randn(2, 127, generator=gen)).to(card)
-    with torch.no_grad():
-        p = ff.split_params(field.flat(), 63)
-        cb0, cb5, cbr1 = ff.conditioning_rows(p, sc, ac)
-        args = (embed.to(torch.bfloat16).contiguous(), zvals, zdists,
-                cb0, cb5, cbr1, ff.prepare_operands(p))
         before = ff.launch_count
         got = ff.fused_field_forward(*args)
         torch.cuda.synchronize()
         assert ff.launch_count == before + 1
         want = ff.fused_field_reference(*args)
     for n, a, b in zip(NAMES, got, want):
-        err, scale = float((a - b).abs().max()), float(b.abs().max())
-        print(f"{n}: max abs err {err:.3e}, |plain| max {scale:.3e}, ratio {err / scale:.3e}")
-        assert scale > 0 and err <= REL_ERR * scale, (n, err, scale)
+        _hold(n, a, b, checks.K1_REL_ERR)
+
+
+@pytest.mark.parametrize("case", TEST_CASES)
+def test_fused_field_backward_matches_plain_version(card, case):
+    """The backward kernel against its plain version on random cotangents,
+    every output within its case's limits (``kernels/checks.py``).  The
+    kernel folds the feature head per ray and keeps f32 data gradients as
+    two bf16 halves; the plain version follows the Pallas kernel.  Two
+    launches give the same bits (no atomics)."""
+    args, cot = checks.field_case(*checks.K2_CASES[case], card)
+    with torch.no_grad():
+        before = ffb.launch_count
+        got = ffb.fused_field_backward(*args, *cot)
+        torch.cuda.synchronize()
+        assert ffb.launch_count == before + 1
+        want = ffb.fused_field_backward_reference(*args, *cot)
+        again = ffb.fused_field_backward(*args, *cot)
+    readings, fails = checks.k2_failures(case, got, want)
+    print(json.dumps({"k2_case": case, "readings": readings}))
+    assert not fails, fails
+    for n, a, c in zip(ffb.FieldGrads._fields, got, again):
+        assert torch.equal(a, c), f"{n}: two launches differ"  # no atomics
+
+
+@pytest.mark.parametrize("case, seed", [("wide", s) for s in range(8)] + [("training", 0), ("training", 1)])
+def test_fused_field_backward_as_close_to_unrounded_as_plain(card, case, seed):
+    """At hidden 384 the kernel and its plain version each lie a few percent
+    from the unrounded float64 gradient; per output the kernel lies at most
+    ``K2_TRUTH_RATIO`` times as far as the farther of the plain version and
+    the plain version computed in float64 (``kernels/checks.py``).  The
+    kernel's and the plain version's distances from the float32 unrounded
+    gradient are printed beside them."""
+    args, cot = checks.field_case(*checks.K2_CASES[case], card, seed=seed)
+    with torch.no_grad():
+        got = ffb.fused_field_backward(*args, *cot)
+        want = ffb.fused_field_backward_reference(*args, *cot)
+        want64 = ffb.fused_field_backward_reference(*args, *cot, dtype=torch.float64)
+    exact = ffb.fused_field_backward_unrounded(*args, *cot)
+    f32 = ffb.fused_field_backward_unrounded(*args, *cot, dtype=torch.float32)
+    dist, fails = checks.k2_truth_failures(got, want, want64, exact)
+    print(json.dumps({"k2_truth": case, "seed": seed, "float64": dist,
+                      "float32": checks.k2_truth_failures(got, want, want64, f32)[0]}))
+    assert not fails, fails
 
 
 def test_cuda_tensors_never_take_the_plain_version(card):
@@ -79,6 +114,60 @@ def test_cuda_tensors_never_take_the_plain_version(card):
         field.fused_render(torch.zeros(1, 8, 7, 63, device=card),
                            torch.zeros(1, 181, device=card),
                            torch.zeros(1, 127, device=card), z, z)
+
+
+def test_backward_cuda_tensors_never_take_the_plain_version(card):
+    """The backward's CUDA inputs that the kernel cannot take raise too."""
+    args, _ = checks.field_case(64, 8, 8, card)
+    bad = (args[0][:, :, :7].contiguous(), args[1][:, :, :7].contiguous(),
+           args[2][:, :, :7].contiguous(), *args[3:])
+    cot = [torch.zeros(s, device=card) for s in ((2, 8, 258), (2, 8), (2, 8), (2, 8, 7))]
+    with pytest.raises(ValueError, match="whole rays"):
+        ffb.fused_field_backward(*bad, *cot)
+
+
+def test_training_step_on_card_goes_through_both_kernels(card):
+    """One step of the small bf16 model on the card: two launches of each
+    kernel, finite losses and gradients, and the same step's losses with the
+    plain versions in the kernels' place within 1e-3 (relative)."""
+    model = dataclasses.replace(small_test_config(), compute_dtype="bfloat16",
+                                renderer_dtype="bfloat16", use_pallas=True)
+    trainer = Trainer(Config(model=model, loss=LossConfig(use_vgg_loss=False)),
+                      train_len=4, steps_per_epoch=1)  # the card: no device given
+    gen = torch.Generator().manual_seed(0)
+    size, fs = model.pred_img_size, model.featmap_size
+    inmat = torch.linalg.inv(torch.from_numpy(base_inv_inmat(fs)))  # the base camera
+    inmat[:2] *= size / fs
+    batch = {
+        "image": torch.rand(2, size, size, 3, generator=gen),
+        "head_mask": (torch.rand(2, size, size, generator=gen) > 0.3).float(),
+        "left_eye_mask": (torch.rand(2, size, size, generator=gen) > 0.9).float(),
+        "right_eye_mask": (torch.rand(2, size, size, generator=gen) > 0.9).float(),
+        "code": 0.1 * torch.randn(2, 306, generator=gen),
+        "sample_idx": torch.tensor([0, 3]),
+        "pitchyaw": 0.2 * torch.randn(2, 2, generator=gen),
+        "c2w_Rmat": torch.diag(torch.tensor([1.0, -1.0, -1.0])).expand(2, 3, 3),
+        "c2w_Tvec": torch.tensor([[0.0, 0.0, 12.0]]).expand(2, 3),
+        "inmat": inmat.expand(2, 3, 3),
+    }
+    t_rand = torch.rand(2, model.num_rays, model.num_sample_coarse + 1, device=card)
+    before = (ff.launch_count, ffb.launch_count)
+    losses = trainer.train_step(batch, t_rand=t_rand, update=False)
+    torch.cuda.synchronize()
+    assert (ff.launch_count - before[0], ffb.launch_count - before[1]) == (2, 2)
+    for g in trainer.optimizer.param_groups:
+        for p in g["params"]:
+            assert p.grad is not None and torch.isfinite(p.grad).all(), g["name"]
+    kernel_fwd, kernel_bwd = ff.fused_field_forward, ffb.fused_field_backward
+    ff.fused_field_forward = ff.fused_field_reference
+    ffb.fused_field_backward = ffb.fused_field_backward_reference
+    try:
+        plain = trainer.train_step(batch, t_rand=t_rand, update=False)
+    finally:
+        ff.fused_field_forward, ffb.fused_field_backward = kernel_fwd, kernel_bwd
+    for k, v in losses.items():
+        assert torch.isfinite(v), k
+        torch.testing.assert_close(v, plain[k], rtol=1e-3, atol=1e-6, msg=k)
 
 
 def test_render_on_card_goes_through_the_kernel(card):
