@@ -11,20 +11,27 @@ Phases (each raises on failure, so any failed phase exits non-zero):
 3. kernels: the field forward (K1) against its plain PyTorch version at the
    render's shapes; the field backward (K2) against its plain version in a
    narrow case (hidden 64) and at the training step's shape, where it is also
-   held against the unrounded float64 gradient; each timed (CUDA events)
-   beside its bound.  The limits are in ``kernels/checks.py``;
-4. serving: a full-width bf16 ``ViewerApp`` with seeded random weights
-   answers ``--requests`` render requests (512x512 PNGs) with launch counts
-   read around them; one request is rendered again with the plain version
-   in place of the kernel and the two images compared;
+   held against the unrounded float64 gradient; the renderer's blur-shuffle
+   stencil (K5, K6) at its three levels and fused upsampler block (K7, K8)
+   at its three blocks (bf16, B=2) against their plain versions, K8 also
+   against the unrounded float64 gradient and for equal bits over two
+   launches; each timed (CUDA events) beside its bound.  The limits are in
+   ``kernels/checks.py``;
+4. serving: per renderer mode (``phase_gm``, ``pallas``, ``fused``), a
+   full-width bf16 ``ViewerApp`` with the same seeded random weights answers
+   ``--requests`` render requests (512x512 PNGs) with launch counts read
+   around them; one request is rendered again with the plain versions in
+   place of the kernels and the two images compared, and each kernel mode's
+   image is compared with ``phase_gm``'s;
 5. breakdown: where a request's time goes (host-clock parts, device time
    by kernel under ``torch.profiler``), and the renderer's share: the
-   viewer's one pass against the model forward's four;
-6. training: a full-width bf16 ``Trainer`` (B=2, 512x512, the default loss
-   stack) takes 2 warm-up and ``--steps`` timed steps on a seeded synthetic
-   batch, with launch counts read around the timed steps; one step's
-   gradients with the kernels are held against the same step with the plain
-   versions; then where a step's time goes.
+   viewer's one pass against the model forward's four; one renderer pass
+   per mode;
+6. training: per renderer mode, a full-width bf16 ``Trainer`` (B=2,
+   512x512, the default loss stack) takes 2 warm-up and ``--steps`` timed
+   steps on a seeded synthetic batch, with launch counts read around the
+   timed steps; one step's gradients with the kernels are held against the
+   same step with the plain versions; then where a step's time goes.
 
 Prints ``serving``, ``training`` and ``kernels`` JSON lines, the
 ``nvidia-smi`` line and, last, the device JSON line.  Exits non-zero without
@@ -39,13 +46,27 @@ import subprocess
 import sys
 import time
 
-# published dense peaks of one H100 SXM (NVIDIA data sheet)
+# published dense peaks of one H100 SXM (NVIDIA data sheet): bf16 on the
+# tensor cores, f32 outside them, device memory
 PEAK_BF16_FLOPS = 989e12
+PEAK_F32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
+
+# the renderer's modes: the default in PyTorch ops, the blur-shuffle stencil
+# kernels (K5, K6), the fused upsampler kernels (K7, K8)
+MODES = ("phase_gm", "pallas", "fused")
+# the kernels' counters, in the order of the ``kernels`` line
+KERNELS = ("fused_field_fwd", "fused_field_bwd", "shuffle_blur_fwd", "shuffle_blur_bwd",
+           "fused_upsampler_fwd", "fused_upsampler_bwd")
 
 # whole image with the kernel vs with its plain version: the bf16 image
 # bound of the JAX package's fused-vs-XLA model test
 IMAGE_ATOL = 3e-2
+# a kernel mode's image against phase_gm's on the same weights (the kernel
+# modes round to bf16 where phase_gm keeps f32): about 2x the largest
+# reading, which was the same in four runs, 1.374e-3 (pallas) and 2.368e-3
+# (fused)
+MODE_IMAGE_ATOL = 5e-3
 # one training step's gradients, kernels vs plain versions, relative L2 per
 # parameter group; readings over two runs 3.3e-4 to 3.6e-4 (net), 1.7e-4 to
 # 2.7e-4 (codes), 5.2e-3 and 1.1e-2 (euler), 1.1e-2 (tvec).  The camera
@@ -55,6 +76,14 @@ IMAGE_ATOL = 3e-2
 # backward kernels sum in a different order on every run (PERF.md, Findings)
 GRAD_REL_L2 = {"net": 2e-3, "iden": 2e-3, "expr": 2e-3, "appea": 2e-3,
                "euler": 5e-2, "tvec": 5e-2}
+# per renderer mode, where it differs.  In "fused" K7 rounds the block's
+# output where its plain version does but sums in another order, so the
+# images differ by a bf16 step here and there (in pallas K5 and K6 equal
+# their plain versions to the bit), and the net group, nearly all of it
+# renderer weights, reads more and spreads more from run to run: 1.675e-4,
+# 1.570e-4, 1.558e-4, 5.109e-4 and 1.562e-3 over five runs; the limit is
+# about 2x the largest (pallas 2.769e-4 to 3.931e-4 over the same runs)
+GRAD_REL_L2_MODE = {"fused": {"net": 3.2e-3}}
 
 
 def check(cond, msg):
@@ -87,6 +116,40 @@ def random_biases_(module, gen):
         for name, t in module.named_parameters():
             if name.endswith("bias"):
                 t.copy_(0.1 * torch.randn(t.shape, generator=gen))
+
+
+def kernel_modules():
+    from gazenerf_tpu_torch.kernels import fused_field as ff
+    from gazenerf_tpu_torch.kernels import fused_field_bwd as ffb
+    from gazenerf_tpu_torch.kernels import fused_upsampler as fu
+    from gazenerf_tpu_torch.kernels import shuffle_blur as sb
+
+    return ff, ffb, sb, fu
+
+
+def launch_counts():
+    """Every kernel's launch count, by the names of the ``kernels`` line."""
+    ff, ffb, sb, fu = kernel_modules()
+    return dict(zip(KERNELS, (ff.launch_count, ffb.launch_count, sb.launch_count_fwd,
+                              sb.launch_count_bwd, fu.launch_count_fwd, fu.launch_count_bwd)))
+
+
+def reset_launch_counts():
+    ff, ffb, sb, fu = kernel_modules()
+    ff.launch_count = ffb.launch_count = 0
+    sb.launch_count_fwd = sb.launch_count_bwd = 0
+    fu.launch_count_fwd = fu.launch_count_bwd = 0
+
+
+def expected_launches(mode, fields_fwd, fields_bwd, renderer_fwd, renderer_bwd):
+    """The launch counts a run should show: the field kernels', and the
+    mode's renderer kernels' (none in ``phase_gm``)."""
+    out = dict.fromkeys(KERNELS, 0)
+    out["fused_field_fwd"], out["fused_field_bwd"] = fields_fwd, fields_bwd
+    prefix = {"pallas": "shuffle_blur", "fused": "fused_upsampler"}.get(mode)
+    if prefix:
+        out[f"{prefix}_fwd"], out[f"{prefix}_bwd"] = renderer_fwd, renderer_bwd
+    return out
 
 
 def k1_bound(B, R, S, De, H, C, operands):
@@ -122,6 +185,154 @@ def k2_bound(args, cot, grads):
     t_ops = ops_count / PEAK_BF16_FLOPS
     t_bytes = (bytes_in + bytes_out) / PEAK_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(t_ops, t_bytes):
+    """(ms, what bounds it) from the least times of the operations (seconds,
+    per type: the types' units run side by side) and of the bytes."""
+    t_max = max(t_ops)
+    return max(t_max, t_bytes) * 1e3, ("operations" if t_max >= t_bytes else "bytes")
+
+
+def stencil_bound(inp, out):
+    """The blur-shuffle stencil or its adjoint: nine f32 multiply-adds per
+    output element on the CUDA cores vs the input read and the output
+    written once."""
+    return bound([18 * out.numel() / PEAK_F32_FLOPS], nbytes(inp, out) / PEAK_BYTES_PER_S)
+
+
+def k7_bound(args, y):
+    """The fused block forward: the chain's bf16 products (x W1, h1 W2g and
+    the four z_k W3 per pixel) on the tensor cores and the f32 stencil, vs x,
+    the f32 weights and the output."""
+    x, W3 = args[0], args[5]
+    B, H, W, F = x.shape
+    F3 = W3.shape[1]
+    P = B * H * W
+    macs = P * (2 * F * F + 8 * F * F + 4 * F * F3)
+    return bound([2 * macs / PEAK_BF16_FLOPS, 18 * y.numel() / PEAK_F32_FLOPS],
+                 nbytes(*args, y) / PEAK_BYTES_PER_S)
+
+
+def k8_bound(args, dy, grads):
+    """The fused block backward: on the tensor cores in bf16 the recompute of
+    h1 and z, the three weight gradients, dh1 and dx; in f32 on the CUDA
+    cores the product dz3 W3^T of f32 operands and the stencil's adjoint; vs
+    x, dy and the weights in, dx and the weight gradients out."""
+    x, W3 = args[0], args[5]
+    B, H, W, F = x.shape
+    F3 = W3.shape[1]
+    P = B * H * W
+    bf16_macs = P * (30 * F * F + 4 * F * F3)
+    f32_flops = 2 * P * 4 * F * F3 + 18 * P * 4 * F3
+    return bound([2 * bf16_macs / PEAK_BF16_FLOPS, f32_flops / PEAK_F32_FLOPS],
+                 nbytes(*args, dy, *grads) / PEAK_BYTES_PER_S)
+
+
+def kernel_entry(name, source, replaces, err, ms, plain_ms, bound_ms, bound_by):
+    """A kernel's entry of the ``kernels`` line, printed on a line of its own;
+    its launches are filled in from the main path's run.  No single PyTorch
+    call computes any of the port's kernels' functions, so none has a
+    library time."""
+    print(f"{name}: {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
+          f"{100 * bound_ms / ms:.1f}% of bound")
+    return {"name": name, "route": "cuda", "source": f"gazenerf_tpu_torch/csrc/{source}",
+            "replaces": replaces, "launches": None, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None}
+
+
+def phase_renderer_kernels(seed, iters):
+    """The renderer's kernels at the shapes of one B=2 bf16 renderer pass:
+    K5 and K6 at the three stencil levels, to the bit against their plain
+    versions; K7 and K8 at the three upsample blocks against their plain
+    versions (``kernels/checks.py``), K8 also against the unrounded float64
+    gradient and for equal bits over two launches.  Each kernel's ms, plain
+    ms and bound are summed over the three levels: one renderer pass's
+    worth.  No single PyTorch call computes any of the four functions (the
+    stencil's reflect edge is no convolution's padding)."""
+    import torch
+
+    from gazenerf_tpu_torch.kernels import checks
+    from gazenerf_tpu_torch.kernels import fused_upsampler as fu
+    from gazenerf_tpu_torch.kernels import shuffle_blur as sb
+
+    dev = torch.device("cuda")
+    fails = []
+    # per kernel: max abs err, ms, plain ms, bound ms, bound ms by what bounds it
+    tot = {k: [0.0, 0.0, 0.0, 0.0, {"bytes": 0.0, "operations": 0.0}]
+           for k in ("k5", "k6", "k7", "k8")}
+
+    def timed(key, err, fn, plain, bnd):
+        t = tot[key]
+        t[0] = max(t[0], err)
+        t[1] += cuda_ms(fn, iters)
+        t[2] += cuda_ms(plain, max(2, iters // 4), warmup=1)
+        t[3] += bnd[0]
+        t[4][bnd[1]] += bnd[0]
+
+    for level in ("level0", "level1", "level2"):
+        x, dy = checks.stencil_case(checks.STENCIL_CASES[level], dev, seed=seed)
+        y, dx = sb.shuffle_blur_forward(x), sb.shuffle_blur_backward(dy)
+        torch.cuda.synchronize()
+        errs = []
+        for key, got, want in (("K5", y, sb.shuffle_blur_reference(x)),
+                               ("K6", dx, sb.shuffle_blur_backward_reference(dy))):
+            errs.append(float((got.float() - want.float()).abs().max()))
+            print(f"{key} {level} {tuple(got.shape)}: max abs err {errs[-1]:.3e} "
+                  f"(limit {checks.STENCIL_MAX_ABS_ERR})")
+            if not (got.dtype == want.dtype and errs[-1] <= checks.STENCIL_MAX_ABS_ERR):
+                fails.append(f"{key} {level}: max abs err {errs[-1]:.3e}, dtype {got.dtype}")
+        timed("k5", errs[0], lambda: sb.shuffle_blur_forward(x),
+              lambda: sb.shuffle_blur_reference(x), stencil_bound(x, y))
+        timed("k6", errs[1], lambda: sb.shuffle_blur_backward(dy),
+              lambda: sb.shuffle_blur_backward_reference(dy), stencil_bound(dy, dx))
+
+    for block in ("block0", "block1", "block2"):
+        args, dy = checks.block_case(checks.BLOCK_CASES[block], dev, seed=seed)
+        y = fu.fused_upsample_forward(*args)
+        torch.cuda.synchronize()
+        y_ref = fu.fused_upsample_reference(*args)
+        r7, f7 = checks.k7_failures(block, y, y_ref)
+        got = fu.fused_upsample_backward(*args, dy)
+        again = fu.fused_upsample_backward(*args, dy)
+        torch.cuda.synchronize()
+        want = fu.fused_upsample_backward_reference(*args, dy)
+        r8, f8 = checks.k8_failures(block, got, want)
+        want64 = fu.fused_upsample_backward_reference(*(a.double() for a in args), dy.double())
+        exact = fu.fused_upsample_backward_unrounded(*args, dy)
+        dist, ft = checks.truth_failures(got, want, want64, exact, checks.K8_TRUTH_RATIO,
+                                         floor=checks.K8_TRUTH_FLOOR)
+        del want64, exact
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            f8.append("two launches on the same inputs differ")
+        print(json.dumps({"block_case": block, "seed": seed, "k7_reading": r7, "k8_readings": r8,
+                          "k8_unrounded_distance": dist}))
+        fails += [f"K7 {block}: {f}" for f in f7] + [f"K8 {block}: {f}" for f in f8 + ft]
+        timed("k7", float((y.float() - y_ref.float()).abs().max()),
+              lambda: fu.fused_upsample_forward(*args), lambda: fu.fused_upsample_reference(*args),
+              k7_bound(args, y))
+        timed("k8", float(max((a.float() - b.float()).abs().max() for a, b in zip(got, want))),
+              lambda: fu.fused_upsample_backward(*args, dy),
+              lambda: fu.fused_upsample_backward_reference(*args, dy), k8_bound(args, dy, got))
+    check(not fails, "\n".join(fails))
+
+    def entry(key, name, source, replaces):
+        err, ms, plain_ms, bnd, by = tot[key]
+        return kernel_entry(name, source, replaces, err, ms, plain_ms, bnd, max(by, key=by.get))
+
+    return [
+        entry("k5", "shuffle_blur_fwd", "shuffle_blur.cu", "gazenerf_tpu/kernels/shuffle_blur.py:55"),
+        entry("k6", "shuffle_blur_bwd", "shuffle_blur.cu", "gazenerf_tpu/kernels/shuffle_blur.py:145"),
+        entry("k7", "fused_upsampler_fwd", "fused_upsampler_fwd.cu",
+              "gazenerf_tpu/kernels/fused_upsampler.py:60"),
+        entry("k8", "fused_upsampler_bwd", "fused_upsampler_bwd.cu",
+              "gazenerf_tpu/kernels/fused_upsampler.py:179"),
+    ]
 
 
 def seeded_field(seed, cfg, dev):
@@ -183,21 +394,9 @@ def phase_kernels(seed, cfg, iters):
         plain_ms = cuda_ms(lambda: ff.fused_field_reference(*args), max(2, iters // 4), warmup=1)
     B, R, S, De = embed.shape
     bound_ms, bound_by = k1_bound(B, R, S, De, cfg.mlp_hidden, cfg.featmap_nc, ops)
-    print(f"K1 fused_field_fwd: {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
-          f"({bound_by}), {100 * bound_ms / ms:.1f}% of bound")
-    return {
-        "name": "fused_field_fwd",
-        "route": "cuda",
-        "source": "gazenerf_tpu_torch/csrc/fused_field_fwd.cu",
-        "replaces": "gazenerf_tpu/kernels/fused_field.py:216",
-        "launches": None,  # filled from the serving run
-        "max_abs_err": max_err,
-        "ms": ms,
-        "plain_ms": plain_ms,
-        "bound_ms": bound_ms,
-        "bound_by": bound_by,
-        "library_ms": None,  # no single PyTorch call computes this function
-    }
+    return kernel_entry("fused_field_fwd", "fused_field_fwd.cu",
+                        "gazenerf_tpu/kernels/fused_field.py:216", max_err, ms, plain_ms,
+                        bound_ms, bound_by)
 
 
 REQUESTS = [  # (pitch, yaw, azimuth, elevation, distance)
@@ -211,14 +410,20 @@ REQUESTS = [  # (pitch, yaw, azimuth, elevation, distance)
 
 
 def phase_serving(seed, cfg, n_requests):
-    """Full-width renders through ViewerApp, with launch counts."""
+    """Full-width renders through ViewerApp in ``cfg``'s renderer mode, with
+    launch counts: K1 twice a request and, in a kernel mode, its forward
+    kernel (K5 in ``pallas``, K7 in ``fused``) once per upsample block; the
+    image with the kernels against the same render with the plain versions.
+    Returns the app, the requests, the counts, the request times and the
+    first request's image."""
     import numpy as np
     import torch
 
     from gazenerf_tpu_torch import ViewerApp
-    from gazenerf_tpu_torch.kernels import fused_field as ff
+    from gazenerf_tpu_torch.kernels import checks
     from gazenerf_tpu_torch.utils.png import decode_png
 
+    mode = cfg.shuffle_mode
     app = ViewerApp(cfg, seed=seed)  # on the card: no device given
     random_biases_(app.model, torch.Generator().manual_seed(seed))
     check(app.model.fused, "the bf16 config must run the fused field kernel")
@@ -226,15 +431,15 @@ def phase_serving(seed, cfg, n_requests):
     app.render_png(*requests[0])  # warm-up: cuBLAS handles, allocator
     torch.cuda.synchronize()
 
-    ff.launch_count = 0  # counts from here on are the main path's
+    reset_launch_counts()  # counts from here on are the main path's
     pngs, times = [], []
     for q in requests:
         t0 = time.perf_counter()
         pngs.append(app.render_png(*q))
         times.append((time.perf_counter() - t0) * 1e3)
-    launches = ff.launch_count
-    check(launches == 2 * n_requests,
-          f"K1 launched {launches} times for {n_requests} requests (expected 2 each)")
+    launches = launch_counts()
+    want = expected_launches(mode, 2 * n_requests, 0, cfg.n_upsample_blocks * n_requests, 0)
+    check(launches == want, f"{mode}: {n_requests} requests launched {launches} (expected {want})")
 
     size = cfg.pred_img_size
     for q, png in zip(requests, pngs):
@@ -247,26 +452,46 @@ def phase_serving(seed, cfg, n_requests):
               f"request {q}: PNG differs from a second render")
 
     img_k = app.render_image(*requests[0]).float()
-    kernel_forward = ff.fused_field_forward
-    ff.fused_field_forward = ff.fused_field_reference  # the plain version
-    try:
+    with checks.plain_versions():
         img_p = app.render_image(*requests[0]).float()
-    finally:
-        ff.fused_field_forward = kernel_forward
     img_err = float((img_k - img_p).abs().max())
     check(img_err <= IMAGE_ATOL,
-          f"image with K1 vs with its plain version: max abs err {img_err:.3e} > {IMAGE_ATOL}")
-    print(f"serving: {n_requests} requests of {size}x{size}, ms per request "
-          f"{[round(t, 3) for t in times]}, median {float(np.median(times)):.3f}; "
-          f"image kernel vs plain max abs err {img_err:.3e} (atol {IMAGE_ATOL})")
-    return app, requests, launches, times
+          f"{mode}: image with the kernels vs the plain versions: max abs err {img_err:.3e} "
+          f"> {IMAGE_ATOL}")
+    print(f"serving {mode}: {n_requests} requests of {size}x{size}, ms per request "
+          f"{[round(t, 3) for t in times]}, median {float(np.median(times)):.3f}; launches "
+          f"{ {k: v for k, v in launches.items() if v} }; image kernels vs plain max abs err "
+          f"{img_err:.3e} (atol {IMAGE_ATOL})")
+    return app, requests, launches, times, img_k
 
 
-def device_profile(fn, top=0):
+def kernel_ms(rows, mode):
+    """Device ms per kernel of the ``kernels`` line from profiler rows (name,
+    count, ms); the stencil launches belong to the mode's renderer kernels."""
+    out = dict.fromkeys(KERNELS, 0.0)
+    renderer = {"pallas": "shuffle_blur", "fused": "fused_upsampler"}.get(mode)
+    for key, _, ms in rows:
+        if "field_fwd_kernel" in key:
+            name = "fused_field_fwd"
+        elif "field_bwd_kernel" in key or "reduce_slabs" in key:
+            name = "fused_field_bwd"
+        elif renderer and ("stencil::fwd_kernel" in key or "chain_kernel" in key):
+            name = f"{renderer}_fwd"
+        elif renderer and ("stencil::bwd_kernel" in key or "block_bwd_kernel" in key
+                           or "sum_slabs" in key):
+            name = f"{renderer}_bwd"
+        else:
+            continue
+        out[name] += ms
+    return {k: v for k, v in out.items() if v}
+
+
+def device_profile(fn, top=0, mode=None):
     """One call of ``fn`` (to a synchronize) under ``torch.profiler``: its
-    wall ms, the kernels it launched and their summed device ms, and the
-    ``top`` kernels by device time.  "not measured" where the profiler sees
-    no device time."""
+    wall ms, the kernels it launched and their summed device ms, the ``top``
+    kernels by device time and, given the renderer ``mode``, the device ms of
+    each of the port's kernels.  "not measured" where the profiler sees no
+    device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -285,16 +510,18 @@ def device_profile(fn, top=0):
         return {"wall_ms": wall_ms, "launches": "not measured", "device_ms": "not measured"}
     out = {"wall_ms": wall_ms, "launches": sum(r[1] for r in rows),
            "device_ms": sum(r[2] for r in rows)}
+    if mode is not None:
+        out["kernels_ms"] = kernel_ms(rows, mode)
     if top:
         out["top"] = [{"kernel": k[:80], "count": n, "ms": ms} for k, n, ms in rows[:top]]
     return out
 
 
-def phase_breakdown(app, requests, card):
-    """Where a request's time goes, and the renderer's share of it: the
-    viewer's one renderer pass against the model forward's four (the
-    forward also renders the face, eye and background images, which the
-    viewer does not show)."""
+def phase_breakdown(apps, requests, card):
+    """Where a request's time goes (``phase_gm``), and the renderer's share
+    of it: the viewer's one renderer pass against the model forward's four
+    (the forward also renders the face, eye and background images, which
+    the viewer does not show); then one renderer pass in every mode."""
     import statistics
 
     import torch
@@ -302,12 +529,14 @@ def phase_breakdown(app, requests, card):
     from gazenerf_tpu_torch.utils.png import encode_png
     from gazenerf_tpu_torch.viewer.server import lookat_camera
 
+    app = apps["phase_gm"]
+
     def host_ms(fn):
         t0 = time.perf_counter()
         out = fn()
         return out, (time.perf_counter() - t0) * 1e3
 
-    def forward_args(q):
+    def forward_args(app, q):
         R, T, K = (torch.from_numpy(a).to(app.device)
                    for a in lookat_camera(q[2], q[3], q[4], app.cfg.featmap_size))
         gaze = torch.tensor([q[:2]], dtype=torch.float32, device=app.device)
@@ -315,7 +544,7 @@ def phase_breakdown(app, requests, card):
 
     def model_forward(q):
         with torch.no_grad():
-            return app.model(*forward_args(q))
+            return app.model(*forward_args(app, q))
 
     fwd, fwd4, to_host, png = [], [], [], []
     for q in requests:
@@ -328,11 +557,14 @@ def phase_breakdown(app, requests, card):
         fwd4.append(host_ms(lambda: (model_forward(q), torch.cuda.synchronize()))[1])
 
     q = requests[0]
-    viewer = device_profile(lambda: app.render_image(*q), top=8)
+    viewer = device_profile(lambda: app.render_image(*q), top=8, mode="phase_gm")
     forward4 = device_profile(lambda: model_forward(q))
-    with torch.no_grad():
-        fm = app.model.render_featmaps(*forward_args(q))["featmaps"]["merge"]
-    renderer = device_profile(lambda: app.model.neural_render(fm))
+    renderer = {}
+    for mode, a in apps.items():
+        with torch.no_grad():
+            fm = a.model.render_featmaps(*forward_args(a, q))["featmaps"]["merge"]
+            a.model.neural_render(fm)  # warm
+            renderer[mode] = device_profile(lambda: a.model.neural_render(fm), mode=mode)
     if viewer["device_ms"] != "not measured":
         viewer["busy_unprofiled"] = viewer["device_ms"] / statistics.median(fwd)
     line = {
@@ -347,7 +579,6 @@ def phase_breakdown(app, requests, card):
         "model_forward_4_passes": forward4,
         "renderer_pass": renderer,
     }
-    print(json.dumps({"serving": line}))
     return line
 
 
@@ -375,7 +606,8 @@ def phase_k2(seed, iters):
             with torch.no_grad():
                 want64 = ffb.fused_field_backward_reference(*args, *cot, dtype=torch.float64)
             exact = ffb.fused_field_backward_unrounded(*args, *cot)
-            dist, truth_fails = checks.k2_truth_failures(got, want, want64, exact)
+            dist, truth_fails = checks.truth_failures(got, want, want64, exact,
+                                                      checks.K2_TRUTH_RATIO, checks.K2_TRUTH_EXEMPT)
             case_fails += truth_fails
             del want64, exact
         if not all(torch.equal(a, b) for a, b in zip(got, again)):
@@ -390,21 +622,9 @@ def phase_k2(seed, iters):
         plain_ms = cuda_ms(lambda: ffb.fused_field_backward_reference(*args, *cot),
                            max(2, iters // 4), warmup=1)
     bound_ms, bound_by = k2_bound(args, cot, got)
-    print(f"K2 fused_field_bwd: {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
-          f"({bound_by}), {100 * bound_ms / ms:.1f}% of bound")
-    return {
-        "name": "fused_field_bwd",
-        "route": "cuda",
-        "source": "gazenerf_tpu_torch/csrc/fused_field_bwd.cu",
-        "replaces": "gazenerf_tpu/kernels/fused_field_bwd.py:44",
-        "launches": None,  # filled from the training run
-        "max_abs_err": max_err,
-        "ms": ms,
-        "plain_ms": plain_ms,
-        "bound_ms": bound_ms,
-        "bound_by": bound_by,
-        "library_ms": None,  # no single PyTorch call computes this function
-    }
+    return kernel_entry("fused_field_bwd", "fused_field_bwd.cu",
+                        "gazenerf_tpu/kernels/fused_field_bwd.py:44", max_err, ms, plain_ms,
+                        bound_ms, bound_by)
 
 
 def synthetic_batch(seed, B, size, featmap_size):
@@ -441,17 +661,21 @@ def synthetic_batch(seed, B, size, featmap_size):
     }
 
 
-def phase_training(seed, cfg, n_steps, card):
-    """Full-width training steps with launch counts, then one step's
-    gradients with the kernels against the plain versions."""
+def phase_training(seed, cfg, n_steps):
+    """Full-width training steps in ``cfg``'s renderer mode with launch
+    counts (per step K1 and K2 twice; in a kernel mode the renderer's
+    forward and backward kernel once per upsample block and renderer pass:
+    four passes, all four with a gradient, as the background pass carries
+    ``bg_loss``), then one step's gradients with the kernels against the
+    plain versions, then where a step's time goes.  Returns the mode's part
+    of the ``training`` line."""
     import statistics
 
     import torch
 
     from gazenerf_tpu_torch import Config, Trainer
-    from gazenerf_tpu_torch.kernels import fused_field as ff
-    from gazenerf_tpu_torch.kernels import fused_field_bwd as ffb
 
+    mode = cfg.shuffle_mode
     tcfg = Config(model=cfg)
     trainer = Trainer(tcfg, train_len=8, steps_per_epoch=1000, seed=seed)  # the card
     check(trainer.model.fused, "the bf16 config must run the fused field kernels")
@@ -464,31 +688,30 @@ def phase_training(seed, cfg, n_steps, card):
     trainer.train_step(batch)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    ff.launch_count = ffb.launch_count = 0  # counts from here on are the main path's
+    reset_launch_counts()  # counts from here on are the main path's
     times = []
     for _ in range(n_steps):
         t0 = time.perf_counter()
         losses = trainer.train_step(batch)
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
-    k1, k2 = ff.launch_count, ffb.launch_count
+    launches = launch_counts()
     peak = torch.cuda.max_memory_allocated()
     last = read(losses)
     for name, v in {**first, **last}.items():
-        check(v == v and abs(v) != float("inf"), f"training loss {name} is not finite")
+        check(v == v and abs(v) != float("inf"), f"{mode}: training loss {name} is not finite")
     check(last["total_loss"] < first["total_loss"],
-          f"total loss did not fall: {first['total_loss']} -> {last['total_loss']}")
-    check(k1 == 2 * n_steps and k2 == 2 * n_steps,
-          f"{n_steps} steps launched K1 {k1} and K2 {k2} times (expected 2 each per step)")
+          f"{mode}: total loss did not fall: {first['total_loss']} -> {last['total_loss']}")
+    per_pass = 4 * cfg.n_upsample_blocks
+    want = expected_launches(mode, 2 * n_steps, 2 * n_steps, per_pass * n_steps, per_pass * n_steps)
+    check(launches == want, f"{mode}: {n_steps} steps launched {launches} (expected {want})")
 
     grads = phase_grad_check(trainer, batch, seed)
     parts = phase_step_breakdown(trainer, batch)
-    line = {
-        "card": card,
-        "config": "ModelConfig(compute_dtype=bfloat16, renderer_dtype=bfloat16), "
-                  "LossConfig(), TrainConfig(); B=2, 4096 rays x 64 samples, 512x512",
+    return {
         "step_ms": {"median": statistics.median(times), "samples": times},
-        "launches_per_step": {"fused_field_fwd": k1 / n_steps, "fused_field_bwd": k2 / n_steps},
+        "launches": {k: v for k, v in launches.items() if v},
+        "launches_per_step": {k: v / n_steps for k, v in launches.items() if v},
         "losses_first_step": first,
         "losses_last_step": last,
         "steps": 2 + n_steps,
@@ -496,8 +719,6 @@ def phase_training(seed, cfg, n_steps, card):
         "grad_rel_l2_kernel_vs_plain": grads,
         "breakdown": parts,
     }
-    print(json.dumps({"training": line}))
-    return k1, k2
 
 
 def phase_grad_check(trainer, batch, seed):
@@ -506,41 +727,41 @@ def phase_grad_check(trainer, batch, seed):
     per parameter group."""
     import torch
 
-    from gazenerf_tpu_torch.kernels import fused_field as ff
-    from gazenerf_tpu_torch.kernels import fused_field_bwd as ffb
+    from gazenerf_tpu_torch.kernels import checks
 
     cfg = trainer.cfg.model
+    mode = cfg.shuffle_mode
     gen = torch.Generator(device=trainer.device).manual_seed(seed + 7)
     t_rand = torch.rand((trainer.cfg.train.batch_size, cfg.num_rays, cfg.num_sample_coarse + 1),
                         generator=gen, device=trainer.device)
 
     def grads():
-        before = (ff.launch_count, ffb.launch_count)
+        reset_launch_counts()
         trainer.train_step(batch, t_rand=t_rand, update=False)
         torch.cuda.synchronize()
-        used = (ff.launch_count - before[0], ffb.launch_count - before[1])
         return {g["name"]: torch.cat([p.grad.reshape(-1).float() for p in g["params"]])
-                for g in trainer.optimizer.param_groups}, used
+                for g in trainer.optimizer.param_groups}, launch_counts()
 
     with_kernels, used = grads()
-    check(used == (2, 2), f"the kernel step launched K1/K2 {used} times")
-    kernel_fwd, kernel_bwd = ff.fused_field_forward, ffb.fused_field_backward
-    ff.fused_field_forward = ff.fused_field_reference
-    ffb.fused_field_backward = ffb.fused_field_backward_reference
-    try:
+    per_pass = 4 * cfg.n_upsample_blocks
+    want = expected_launches(mode, 2, 2, per_pass, per_pass)
+    check(used == want, f"{mode}: the kernel step launched {used} (expected {want})")
+    with checks.plain_versions():
         plain, used = grads()
-    finally:
-        ff.fused_field_forward, ffb.fused_field_backward = kernel_fwd, kernel_bwd
-    check(used == (0, 0), f"the plain step launched K1/K2 {used} times")
-    out = {}
+    check(not any(used.values()), f"{mode}: the plain step launched {used}")
+    limits = {**GRAD_REL_L2, **GRAD_REL_L2_MODE.get(mode, {})}
+    out, fails = {}, []
     for name, g in with_kernels.items():
         rel = float((g - plain[name]).norm() / plain[name].norm())
         out[name] = rel
-        print(f"step gradients, kernels vs plain, {name}: relative L2 {rel:.3e} "
-              f"(limit {GRAD_REL_L2[name]:.0e})")
-        check(bool(torch.isfinite(g).all()), f"gradient of {name} is not finite")
-        check(rel <= GRAD_REL_L2[name],
-              f"gradient of {name}: relative L2 {rel:.3e} above {GRAD_REL_L2[name]}")
+        print(f"{mode}: step gradients, kernels vs plain, {name}: relative L2 {rel:.3e} "
+              f"(limit {limits[name]:.1e})")
+        if not bool(torch.isfinite(g).all()):
+            fails.append(f"{mode}: gradient of {name} is not finite")
+        elif rel > limits[name]:
+            fails.append(f"{mode}: gradient of {name}: relative L2 {rel:.3e} above "
+                         f"{limits[name]}")
+    check(not fails, "\n".join(fails))
     trainer.optimizer.zero_grad(set_to_none=True)
     return out
 
@@ -550,7 +771,7 @@ def phase_step_breakdown(trainer, batch):
     stages each timed alone to a synchronize (fields forward with K1, the
     four renderer passes, the losses with VGG, then the backward in three
     parts and the optimizer), and the whole step under ``torch.profiler``
-    (device time by kernel, K1 and K2 apart)."""
+    (device time by kernel, the port's kernels apart)."""
     import numpy as np
     import torch
 
@@ -602,12 +823,9 @@ def phase_step_breakdown(trainer, batch):
 
     stages()  # warm
     stages()
-    profile = device_profile(lambda: trainer.train_step(batch), top=12)
+    profile = device_profile(lambda: trainer.train_step(batch), top=12,
+                             mode=cfg.model.shuffle_mode)
     if profile["device_ms"] != "not measured":
-        by_name = {r["kernel"]: r for r in profile["top"]}
-        profile["k1_ms"] = sum(r["ms"] for k, r in by_name.items() if "field_fwd_kernel" in k)
-        profile["k2_ms"] = sum(r["ms"] for k, r in by_name.items()
-                               if "field_bwd_kernel" in k or "reduce_slabs" in k)
         profile["busy_share"] = profile["device_ms"] / profile["wall_ms"]
     return {"stages_ms": ms, "step_profile": profile}
 
@@ -627,10 +845,12 @@ def main() -> int:
         return 1
     check(args.requests >= 1, "--requests must be at least 1")
     check(args.steps >= 5, "--steps must be at least 5")
+    import dataclasses
+
     from gazenerf_tpu_torch.config import ModelConfig
     from gazenerf_tpu_torch.kernels import build
-    from gazenerf_tpu_torch.kernels import fused_field as ff
-    from gazenerf_tpu_torch.kernels import fused_field_bwd as ffb
+
+    ff, ffb, sb, fu = kernel_modules()
 
     # 1. device
     smi = subprocess.run(
@@ -641,9 +861,10 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
 
-    # 2. build
+    # 2. build: every kernel at once, one nvcc each
     t0 = time.perf_counter()
-    logs = build.build({ff.KERNEL: ff.DEFINES, ffb.KERNEL: ffb.DEFINES})
+    logs = build.build({ff.KERNEL: ff.DEFINES, ffb.KERNEL: ffb.DEFINES, sb.KERNEL: sb.DEFINES,
+                        fu.KERNEL_FWD: fu.DEFINES, fu.KERNEL_BWD: fu.DEFINES})
     print(f"build: {time.perf_counter() - t0:.2f} s")
     for name, log in logs.items():
         for line in log.splitlines():
@@ -652,23 +873,52 @@ def main() -> int:
 
     # the render configuration the CLIs use: bf16 fields and renderer
     cfg = ModelConfig(compute_dtype="bfloat16", renderer_dtype="bfloat16")
+    configs = {mode: dataclasses.replace(cfg, shuffle_mode=mode) for mode in MODES}
 
     # 3. kernels vs plain versions
     k1 = phase_kernels(args.seed, cfg, args.iters)
     k2 = phase_k2(args.seed, max(4, args.iters // 4))
+    k5, k6, k7, k8 = phase_renderer_kernels(args.seed, args.iters)
 
-    # 4. serving
-    app, requests, launches, _ = phase_serving(args.seed, cfg, args.requests)
-    k1["launches"] = launches
+    # 4. serving, per renderer mode, on the same weights
+    apps, serving = {}, {}
+    for mode in MODES:
+        apps[mode], requests, launches, times, img = phase_serving(
+            args.seed, configs[mode], args.requests)
+        serving[mode] = {"launches": launches, "ms_per_request": times, "image": img}
+    for mode in MODES[1:]:
+        err = float((serving[mode].pop("image") - serving["phase_gm"]["image"]).abs().max())
+        serving[mode]["image_vs_phase_gm_max_abs_err"] = err
+        print(f"serving {mode}: image vs phase_gm's max abs err {err:.3e} "
+              f"(atol {MODE_IMAGE_ATOL})")
+        check(err <= MODE_IMAGE_ATOL, f"{mode}: image vs phase_gm's max abs err {err:.3e}")
+    del serving["phase_gm"]["image"]
+    k1["launches"] = serving["phase_gm"]["launches"]["fused_field_fwd"]
+    k5["launches"] = serving["pallas"]["launches"]["shuffle_blur_fwd"]
+    k7["launches"] = serving["fused"]["launches"]["fused_upsampler_fwd"]
 
     # 5. breakdown
-    phase_breakdown(app, requests, smi)
-    del app
+    line = phase_breakdown(apps, requests, smi)
+    line["modes"] = serving
+    print(json.dumps({"serving": line}))
+    del apps
 
-    # 6. training
-    _, k2["launches"] = phase_training(args.seed, cfg, args.steps, smi)
+    # 6. training, per renderer mode
+    training = {}
+    for mode in MODES:
+        training[mode] = phase_training(args.seed, configs[mode], args.steps)
+        torch.cuda.empty_cache()
+    print(json.dumps({"training": {
+        "card": smi,
+        "config": "ModelConfig(compute_dtype=bfloat16, renderer_dtype=bfloat16, shuffle_mode=...), "
+                  "LossConfig(), TrainConfig(); B=2, 4096 rays x 64 samples, 512x512",
+        "modes": training,
+    }}))
+    k2["launches"] = training["phase_gm"]["launches"]["fused_field_bwd"]
+    k6["launches"] = training["pallas"]["launches"]["shuffle_blur_bwd"]
+    k8["launches"] = training["fused"]["launches"]["fused_upsampler_bwd"]
 
-    print(json.dumps({"kernels": [k1, k2]}))
+    print(json.dumps({"kernels": [k1, k2, k5, k6, k7, k8]}))
     print(smi)
     print(json.dumps({
         "ok": True,

@@ -65,7 +65,8 @@ class ModelConfig:
     pallas_interpret: bool = False
     pallas_tile_rays: int = 0
     pallas_bwd_tile_rays: int = 0
-    # blur-shuffle variant of the neural renderer; the port runs "phase_gm"
+    # blur-shuffle variant of the neural renderer; the port runs "phase_gm",
+    # "pallas" (the stencil kernel) and "fused" (the fused upsampler kernel)
     shuffle_mode: str = "phase_gm"
     batch_renderer_passes: bool = False
     batch_fg_passes: bool = False

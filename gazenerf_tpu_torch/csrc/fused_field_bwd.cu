@@ -66,9 +66,7 @@
 //  * The integration backward runs one thread per ray over its S samples
 //    (transmittance forward, then the strict suffix sum backward).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "tile_mma.cuh"
 
 namespace {
 
@@ -171,29 +169,12 @@ struct Seg {
   int K;
 };
 
-__device__ __forceinline__ uint32_t lds32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t ldg32(const bf16* p) {
-  return __ldg(reinterpret_cast<const unsigned int*>(p));
-}
-
-// two 16-bit values into one fragment register, the lower k in the low half
-__device__ __forceinline__ uint32_t pack2(unsigned short lo, unsigned short hi) {
-  return (uint32_t)lo | ((uint32_t)hi << 16);
-}
-
-__device__ __forceinline__ float bf2f(bf16 v) { return __bfloat162float(v); }
-
-__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
+// the mma.sync fragment helpers (csrc/tile_mma.cuh)
+using tile::bf2f;
+using tile::ldg32;
+using tile::lds32;
+using tile::mma16816;
+using tile::pack2;
 
 // acc = sum over segments of act . w^T for all kRows rows and N <= kMaxCols
 // columns (N a multiple of 8).  Thread layout: warp (wr, wc) = (warp >> 3,

@@ -37,9 +37,7 @@
 //      sum_s w_s (y1_s Wr2 + br2) = (sum_s w_s y1_s) Wr2 + (sum_s w_s) br2,
 //    which is the same function with the head's operations cut by S.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "tile_mma.cuh"
 
 namespace {
 
@@ -95,22 +93,10 @@ struct Operand {
   int K;
 };
 
-__device__ __forceinline__ uint32_t lds32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t ldg32(const bf16* p) {
-  return __ldg(reinterpret_cast<const unsigned int*>(p));
-}
-
-__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
+// the mma.sync fragment helpers (csrc/tile_mma.cuh)
+using tile::ldg32;
+using tile::lds32;
+using tile::mma16816;
 
 // out[r, c] = bf16(act(sum over segments of x[r, :] . w[c, :] + bias[c]))
 // for all kRows rows and the N (a multiple of 8) output columns.

@@ -3,8 +3,10 @@
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled for
 Hopper (``sm_90a``), with the ``-D`` defines its Python module gives, into
 ``build/gazenerf_tpu_torch/lib<name>_<hash>.so`` at the repository root, at
-first use.  The hash covers the source, the flags and the defines, so an
-edited source builds anew and a stale library is never loaded.  Nothing is built or imported when this module is imported.
+first use.  The hash covers the source, the shared headers (``csrc/*.cuh``),
+the flags and the defines, so an edited source or header builds anew and a
+stale library is never loaded.  Nothing is built or imported when this
+module is imported.
 """
 
 from __future__ import annotations
@@ -40,8 +42,10 @@ def _flags(defines: Mapping[str, int]) -> Tuple[str, ...]:
 
 
 def library_path(name: str, defines: Mapping[str, int]) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(_flags(defines)).encode())
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
+    digest.update(" ".join(_flags(defines)).encode())
     return BUILD_DIR / f"lib{name}_{digest.hexdigest()[:16]}.so"
 
 
@@ -82,11 +86,15 @@ def build(kernels: Mapping[str, Mapping[str, int]]) -> Dict[str, str]:
 
 
 def load(name: str, defines: Mapping[str, int]) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu``, built on first use."""
-    path = library_path(name, defines)
-    lib = _loaded.get(str(path))
+    """The loaded library for ``csrc/<name>.cu``, built on first use.  The
+    sources are hashed once per process: a kernel's wrapper calls this on
+    every launch, and reading the sources again would cost more host time
+    than a small launch takes on the card."""
+    key = f"{name}:{sorted(defines.items())}"
+    lib = _loaded.get(key)
     if lib is None:
+        path = library_path(name, defines)
         build({name: defines})
         lib = ctypes.CDLL(str(path))
-        _loaded[str(path)] = lib
+        _loaded[key] = lib
     return lib

@@ -26,7 +26,7 @@ from torch import nn
 
 from gazenerf_tpu_torch.config import ModelConfig
 from gazenerf_tpu_torch.models.mlp_nerf import NeRFFieldMLP
-from gazenerf_tpu_torch.models.neural_renderer import NeuralRenderer
+from gazenerf_tpu_torch.models.neural_renderer import SHUFFLE_MODES, NeuralRenderer
 from gazenerf_tpu_torch.ops.embedding import positional_encoding
 from gazenerf_tpu_torch.ops.integrate import Integrated, integrate_rays
 from gazenerf_tpu_torch.ops.rays import SampleSet, sample_coarse
@@ -49,7 +49,6 @@ _PORTED = (
     ("pallas_embed_bf16", False),
     ("batch_renderer_passes", False),
     ("batch_fg_passes", False),
-    ("shuffle_mode", "phase_gm"),
     ("renderer_fold_feat", True),
     ("renderer_rgb_cf", True),
 )
@@ -81,6 +80,13 @@ class GazeNeRF(nn.Module):
                     f"{name}={getattr(cfg, name)!r} is not ported yet "
                     f"(the port runs {name}={value!r})"
                 )
+        # JAX's "phase" and "naive" renderer modes are not ported;
+        # ``pallas_interpret`` has no meaning in the port and is ignored
+        if cfg.shuffle_mode not in SHUFFLE_MODES:
+            raise NotImplementedError(
+                f"shuffle_mode={cfg.shuffle_mode!r} is not ported yet "
+                f"(the port runs shuffle_mode in {SHUFFLE_MODES})"
+            )
         device = resolve_device(device)
         self.cfg = cfg
         dtype = _DTYPES[cfg.compute_dtype]
@@ -108,6 +114,7 @@ class GazeNeRF(nn.Module):
             featmap_size=cfg.featmap_size,
             img_size=cfg.pred_img_size,
             dtype=_DTYPES[cfg.renderer_dtype],
+            shuffle_mode=cfg.shuffle_mode,
         )
         gen = torch.Generator().manual_seed(seed)
         self.fg_CD_predictor_face.reset_parameters(gen)

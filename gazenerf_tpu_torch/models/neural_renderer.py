@@ -15,6 +15,17 @@ JAX package runs by default:
   (exact: channel mixing commutes with the per-channel stencil whose taps
   sum to 1);
 * the rgb skip chain runs channel-first (``[B, 3, H, W]``).
+
+``shuffle_mode`` picks how a block runs, as in the JAX package:
+
+* ``"phase_gm"`` (the default): the above in PyTorch ops, the stencil summed
+  in f32 (:func:`~gazenerf_tpu_torch.ops.image.pixel_shuffle2_blur_gm`);
+* ``"pallas"``: the same, with the stencil as the blur-shuffle kernel (K5,
+  its gradient K6: ``kernels/shuffle_blur.py``), in the renderer dtype;
+* ``"fused"``: the whole block as the fused upsampler kernel (K7, its
+  gradient K8: ``kernels/fused_upsampler.py``), in the renderer dtype.
+
+The parameters are the same ``Conv1x1`` modules in every mode.
 """
 
 from __future__ import annotations
@@ -26,8 +37,12 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from gazenerf_tpu_torch.kernels.fused_upsampler import FusedUpsample, residual_index
+from gazenerf_tpu_torch.kernels.shuffle_blur import shuffle_blur_gm
 from gazenerf_tpu_torch.models.conv1x1 import Conv1x1
 from gazenerf_tpu_torch.ops.image import pixel_shuffle2_blur_gm, upsample2x_blur_cf
+
+SHUFFLE_MODES = ("phase_gm", "pallas", "fused")
 
 
 def gm_permutation(F_: int) -> np.ndarray:
@@ -39,21 +54,19 @@ def gm_permutation(F_: int) -> np.ndarray:
     return perm
 
 
-def residual_index(F_: int) -> np.ndarray:
-    """Row of the single 1 in each column of the residual matrix ``P``:
-    ``y_gm[k*F + c] = x[(4c + k) % F]``."""
-    k, c = np.divmod(np.arange(4 * F_), F_)
-    return (4 * c + k) % F_
-
-
 class PixelShuffleUpsample(nn.Module):
     """x2 upsample: two 1x1 convs, channel-tile residual, folded
     ``feat_layer``, blur-shuffle."""
 
-    def __init__(self, in_feature: int, dtype: torch.dtype = torch.float32):
+    def __init__(
+        self, in_feature: int, dtype: torch.dtype = torch.float32, shuffle_mode: str = "phase_gm"
+    ):
         super().__init__()
+        if shuffle_mode not in SHUFFLE_MODES:
+            raise ValueError(f"shuffle_mode {shuffle_mode!r} not in {SHUFFLE_MODES}")
         self.in_feature = in_feature
         self.dtype = dtype
+        self.shuffle_mode = shuffle_mode
         self.layer_1 = Conv1x1(in_feature, in_feature * 2)
         self.layer_2 = Conv1x1(in_feature * 2, in_feature * 4)
         self.register_buffer(
@@ -67,13 +80,22 @@ class PixelShuffleUpsample(nn.Module):
         """``[B, H, W, F]`` -> ``[B, 2H, 2W, F']`` where ``fold`` maps F -> F'."""
         dt = self.dtype
         Fi = self.in_feature
+        # group-major columns, indexed outside any kernel so that autograd
+        # carries their gradient back to the stored order
+        k2 = self.layer_2.kernel()[:, self.perm]
+        b2 = self.layer_2.bias[self.perm]
+        if self.shuffle_mode == "fused":
+            return FusedUpsample.apply(
+                x.to(dt), self.layer_1.kernel(), self.layer_1.bias, k2, b2,
+                fold.kernel(), fold.bias, dt == torch.bfloat16,
+            )
         out = F.leaky_relu(self.layer_1(x, dt), 0.2)
-        k2 = self.layer_2.kernel()[:, self.perm].to(dt)
-        b2 = self.layer_2.bias[self.perm].to(dt)
-        out2 = F.leaky_relu(out @ k2 + b2, 0.2)
+        out2 = F.leaky_relu(out @ k2.to(dt) + b2.to(dt), 0.2)
         z = out2 + x.to(dt)[..., self.res_idx]
         B, H, W, _ = z.shape
         z = fold(z.reshape(B, H, W, 4, Fi), dt).reshape(B, H, W, -1)
+        if self.shuffle_mode == "pallas":
+            return shuffle_blur_gm(z)
         return pixel_shuffle2_blur_gm(z)
 
 
@@ -93,6 +115,7 @@ class NeuralRenderer(nn.Module):
         featmap_size: int = 64,
         img_size: int = 512,
         dtype: torch.dtype = torch.float32,
+        shuffle_mode: str = "phase_gm",
     ):
         super().__init__()
         self.bg_type = bg_type
@@ -101,7 +124,7 @@ class NeuralRenderer(nn.Module):
         self.n_blocks = int(math.log2(img_size) - math.log2(featmap_size))
         widths = [max(feat_nc // (2**i), min_feat) for i in range(self.n_blocks + 1)]
         self.feat_upsample_list = nn.ModuleList(
-            [PixelShuffleUpsample(widths[i], dtype) for i in range(self.n_blocks)]
+            [PixelShuffleUpsample(widths[i], dtype, shuffle_mode) for i in range(self.n_blocks)]
         )
         self.feat_layers = nn.ModuleList(
             [Conv1x1(widths[i], widths[i + 1]) for i in range(self.n_blocks)]

@@ -9,7 +9,9 @@
   224x224 input).
 
 The blur is the 3x3 binomial ``[1,2,1] x [1,2,1] / 16`` with a reflect
-boundary (kornia ``filter2d`` semantics, as upstream).
+boundary (kornia ``filter2d`` semantics, as upstream).  The two stencils sum
+their nine taps in at least f32 and return that type, as the JAX package's
+do (its taps are numpy scalars, which promote a bf16 input to f32).
 """
 
 from __future__ import annotations
@@ -40,11 +42,16 @@ def _edge_pad_hw(t: torch.Tensor) -> torch.Tensor:
     return torch.cat([t[:, :, :1], t, t[:, :, -1:]], dim=2)
 
 
+def sum_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The stencils' summation (and result) type: f32, or f64 for f64."""
+    return torch.promote_types(dtype, torch.float32)
+
+
 def _phase_shuffle_blur(g: List[torch.Tensor], B: int, H: int, W: int, C: int):
     # edge-replicating ONE block of each phase image reproduces the blur's
     # reflect boundary in shuffled space (shuffled row -1 == row 1 == the
     # phase-1 row of block 0)
-    gp = [_edge_pad_hw(gi) for gi in g]
+    gp = [_edge_pad_hw(gi.to(sum_dtype(gi.dtype))) for gi in g]
 
     def shifted(k, dh, dw):
         return gp[k][:, 1 + dh : 1 + dh + H, 1 + dw : 1 + dw + W]
@@ -90,9 +97,9 @@ def _up2_axis_cf(x: torch.Tensor, axis: int) -> torch.Tensor:
 
 def blur3x3_cf(x: torch.Tensor) -> torch.Tensor:
     """Binomial blur of ``[B, C, H, W]`` with a reflect boundary, as shifted
-    FMAs."""
+    FMAs, summed and returned in f32 (f64 for f64)."""
     B, C, H, W = x.shape
-    xp = F.pad(x, (1, 1, 1, 1), mode="reflect")
+    xp = F.pad(x.to(sum_dtype(x.dtype)), (1, 1, 1, 1), mode="reflect")
     acc = None
     for a in range(3):
         for b in range(3):

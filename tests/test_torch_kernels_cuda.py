@@ -18,6 +18,8 @@ from gazenerf_tpu_torch.data.cameras import base_inv_inmat
 from gazenerf_tpu_torch.kernels import checks
 from gazenerf_tpu_torch.kernels import fused_field as ff
 from gazenerf_tpu_torch.kernels import fused_field_bwd as ffb
+from gazenerf_tpu_torch.kernels import fused_upsampler as fu
+from gazenerf_tpu_torch.kernels import shuffle_blur as sb
 from gazenerf_tpu_torch.models.mlp_nerf import NeRFFieldMLP
 from gazenerf_tpu_torch.ops.rays import pixel_grid
 from gazenerf_tpu_torch.viewer.server import lookat_camera
@@ -97,9 +99,10 @@ def test_fused_field_backward_as_close_to_unrounded_as_plain(card, case, seed):
         want64 = ffb.fused_field_backward_reference(*args, *cot, dtype=torch.float64)
     exact = ffb.fused_field_backward_unrounded(*args, *cot)
     f32 = ffb.fused_field_backward_unrounded(*args, *cot, dtype=torch.float32)
-    dist, fails = checks.k2_truth_failures(got, want, want64, exact)
+    dist, fails = checks.truth_failures(got, want, want64, exact, checks.K2_TRUTH_RATIO,
+                                        checks.K2_TRUTH_EXEMPT)
     print(json.dumps({"k2_truth": case, "seed": seed, "float64": dist,
-                      "float32": checks.k2_truth_failures(got, want, want64, f32)[0]}))
+                      "float32": checks.truth_failures(got, want, want64, f32, 1.0)[0]}))
     assert not fails, fails
 
 
@@ -126,12 +129,16 @@ def test_backward_cuda_tensors_never_take_the_plain_version(card):
         ffb.fused_field_backward(*bad, *cot)
 
 
-def test_training_step_on_card_goes_through_both_kernels(card):
+@pytest.mark.parametrize("mode", ["phase_gm", "pallas", "fused"])
+def test_training_step_on_card_goes_through_both_kernels(card, mode):
     """One step of the small bf16 model on the card: two launches of each
-    kernel, finite losses and gradients, and the same step's losses with the
-    plain versions in the kernels' place within 1e-3 (relative)."""
+    field kernel and, in a kernel mode of the renderer, one launch of its
+    forward and of its backward kernel per upsample block and renderer pass
+    (four passes, all four with a gradient: the background pass carries
+    ``bg_loss``); finite losses and gradients, and the same step's losses
+    with the plain versions in the kernels' place within 1e-3 (relative)."""
     model = dataclasses.replace(small_test_config(), compute_dtype="bfloat16",
-                                renderer_dtype="bfloat16", use_pallas=True)
+                                renderer_dtype="bfloat16", use_pallas=True, shuffle_mode=mode)
     trainer = Trainer(Config(model=model, loss=LossConfig(use_vgg_loss=False)),
                       train_len=4, steps_per_epoch=1)  # the card: no device given
     gen = torch.Generator().manual_seed(0)
@@ -151,20 +158,18 @@ def test_training_step_on_card_goes_through_both_kernels(card):
         "inmat": inmat.expand(2, 3, 3),
     }
     t_rand = torch.rand(2, model.num_rays, model.num_sample_coarse + 1, device=card)
-    before = (ff.launch_count, ffb.launch_count)
+    before = (ff.launch_count, ffb.launch_count, *_counts())
     losses = trainer.train_step(batch, t_rand=t_rand, update=False)
     torch.cuda.synchronize()
-    assert (ff.launch_count - before[0], ffb.launch_count - before[1]) == (2, 2)
+    n = 4 * model.n_upsample_blocks
+    renderer = {"phase_gm": (0, 0, 0, 0), "pallas": (n, n, 0, 0), "fused": (0, 0, n, n)}[mode]
+    used = tuple(a - b for a, b in zip((ff.launch_count, ffb.launch_count, *_counts()), before))
+    assert used == (2, 2, *renderer)
     for g in trainer.optimizer.param_groups:
         for p in g["params"]:
             assert p.grad is not None and torch.isfinite(p.grad).all(), g["name"]
-    kernel_fwd, kernel_bwd = ff.fused_field_forward, ffb.fused_field_backward
-    ff.fused_field_forward = ff.fused_field_reference
-    ffb.fused_field_backward = ffb.fused_field_backward_reference
-    try:
+    with checks.plain_versions():
         plain = trainer.train_step(batch, t_rand=t_rand, update=False)
-    finally:
-        ff.fused_field_forward, ffb.fused_field_backward = kernel_fwd, kernel_bwd
     for k, v in losses.items():
         assert torch.isfinite(v), k
         torch.testing.assert_close(v, plain[k], rtol=1e-3, atol=1e-6, msg=k)
@@ -193,5 +198,119 @@ def test_render_on_card_goes_through_the_kernel(card):
             plain = model(*args)["coarse_dict"]["merge_img"].float()
     finally:
         ff.fused_field_forward = kernel_forward
+    assert torch.isfinite(img).all()
+    torch.testing.assert_close(img, plain, atol=3e-2, rtol=0)
+
+
+# ---------------------------------------------------------------------------
+# the renderer's kernels: the blur-shuffle stencil (K5, K6) and the fused
+# upsampler block (K7, K8)
+
+
+def _counts():
+    return sb.launch_count_fwd, sb.launch_count_bwd, fu.launch_count_fwd, fu.launch_count_bwd
+
+
+@pytest.mark.parametrize("case", list(checks.STENCIL_CASES))
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_shuffle_blur_matches_plain_version(card, case, dtype):
+    """K5 and K6 against their plain versions, to the bit
+    (``checks.STENCIL_MAX_ABS_ERR``), one launch each."""
+    x, dy = checks.stencil_case(checks.STENCIL_CASES[case], card, dtype)
+    before = _counts()
+    y, dx = sb.shuffle_blur_forward(x), sb.shuffle_blur_backward(dy)
+    torch.cuda.synchronize()
+    assert _counts() == (before[0] + 1, before[1] + 1, *before[2:])
+    for name, got, want in (("K5", y, sb.shuffle_blur_reference(x)),
+                            ("K6", dx, sb.shuffle_blur_backward_reference(dy))):
+        assert got.dtype == want.dtype == dtype and got.shape == want.shape, name
+        err = float((got.float() - want.float()).abs().max())
+        print(f"{name} {case} {dtype}: max abs err {err:.3e}")
+        assert err <= checks.STENCIL_MAX_ABS_ERR, (name, err)
+
+
+@pytest.mark.parametrize("case", list(checks.BLOCK_CASES))
+def test_fused_upsampler_matches_plain_version(card, case):
+    """K7's bf16 output against its plain version within ``K7_LIMITS``."""
+    args, _ = checks.block_case(checks.BLOCK_CASES[case], card)
+    before = _counts()
+    got = fu.fused_upsample_forward(*args)
+    torch.cuda.synchronize()
+    assert _counts() == (*before[:2], before[2] + 1, before[3])
+    want = fu.fused_upsample_reference(*args)
+    assert got.dtype == want.dtype == torch.bfloat16 and got.shape == want.shape
+    reading, fails = checks.k7_failures(case, got, want)
+    print(json.dumps({"k7_case": case, "reading": reading}))
+    assert not fails, fails
+
+
+@pytest.mark.parametrize("case", list(checks.BLOCK_CASES))
+def test_fused_upsampler_backward_matches_plain_version(card, case):
+    """K8 against its plain version, every output within ``K8_LIMITS``;
+    two launches give the same bits (the slabs are summed in CTA order)."""
+    args, dy = checks.block_case(checks.BLOCK_CASES[case], card)
+    before = _counts()
+    got = fu.fused_upsample_backward(*args, dy)
+    torch.cuda.synchronize()
+    assert _counts() == (*before[:3], before[3] + 1)
+    again = fu.fused_upsample_backward(*args, dy)
+    want = fu.fused_upsample_backward_reference(*args, dy)
+    readings, fails = checks.k8_failures(case, got, want)
+    print(json.dumps({"k8_case": case, "readings": readings}))
+    assert not fails, fails
+    for n, a, c in zip(fu.UpsampleGrads._fields, got, again):
+        assert torch.equal(a, c), f"{n}: two launches differ"
+
+
+@pytest.mark.parametrize("case, seed", [(c, s) for c in ("block0", "block1", "block2") for s in (0, 1)])
+def test_fused_upsampler_backward_as_close_to_unrounded_as_plain(card, case, seed):
+    """Per output, K8 lies at most ``K8_TRUTH_RATIO`` times as far from the
+    unrounded float64 gradient as the farther of its plain version and the
+    plain version computed in float64 between the same rounding points."""
+    args, dy = checks.block_case(checks.BLOCK_CASES[case], card, seed=seed)
+    got = fu.fused_upsample_backward(*args, dy)
+    want = fu.fused_upsample_backward_reference(*args, dy)
+    want64 = fu.fused_upsample_backward_reference(*(a.double() for a in args), dy.double())
+    exact = fu.fused_upsample_backward_unrounded(*args, dy)
+    dist, fails = checks.truth_failures(got, want, want64, exact, checks.K8_TRUTH_RATIO,
+                                        floor=checks.K8_TRUTH_FLOOR)
+    print(json.dumps({"k8_truth": case, "seed": seed, "float64": dist}))
+    assert not fails, fails
+
+
+def test_renderer_cuda_tensors_never_take_the_plain_version(card):
+    """CUDA inputs the renderer's kernels cannot take raise: a wrong dtype,
+    and the f32 block (``use_bf16=False``), which has no kernel yet."""
+    with pytest.raises(ValueError, match="dtype"):
+        sb.shuffle_blur_forward(torch.zeros(1, 4, 4, 8, dtype=torch.float64, device=card))
+    args, dy = checks.block_case(checks.BLOCK_CASES["half_tile"], card)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        fu.fused_upsample_forward(*args, use_bf16=False)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        fu.fused_upsample_backward(*args, dy, use_bf16=False)
+
+
+@pytest.mark.parametrize("mode", ["pallas", "fused"])
+def test_render_mode_on_card_goes_through_its_kernel(card, mode):
+    """The small bf16 model on the card in a kernel mode: one launch of K5
+    (``pallas``) or K7 (``fused``) per upsample block and renderer pass
+    (four passes per forward), and the image within the bf16 image bound
+    (3e-2) of the same render with the plain versions."""
+    cfg = dataclasses.replace(small_test_config(), compute_dtype="bfloat16",
+                              renderer_dtype="bfloat16", use_pallas=True, shuffle_mode=mode)
+    model = GazeNeRF(cfg).eval()
+    R, T, K = (torch.from_numpy(a).to(card) for a in lookat_camera(10, -5, 12.0, cfg.featmap_size))
+    args = (pixel_grid(cfg.featmap_size, device=card)[None],
+            0.1 * torch.ones(1, cfg.shape_code_dims, device=card),
+            0.1 * torch.ones(1, cfg.appea_code_dims, device=card),
+            torch.tensor([[0.2, -0.3]], device=card), R, T, K)
+    before = _counts()
+    with torch.no_grad():
+        img = model(*args)["coarse_dict"]["merge_img"].float()
+    n = 4 * cfg.n_upsample_blocks
+    want = (n, 0, 0, 0) if mode == "pallas" else (0, 0, n, 0)
+    assert tuple(a - b for a, b in zip(_counts(), before)) == want
+    with checks.plain_versions(), torch.no_grad():
+        plain = model(*args)["coarse_dict"]["merge_img"].float()
     assert torch.isfinite(img).all()
     torch.testing.assert_close(img, plain, atol=3e-2, rtol=0)

@@ -258,6 +258,35 @@ def test_f32_step_losses_match_jax(f32_step):
         np.testing.assert_allclose(float(got[k]), float(want[k]), rtol=1e-4, atol=1e-7, err_msg=k)
 
 
+@pytest.fixture(scope="module")
+def fused_step(setup):
+    """The f32 step with the renderer in ``shuffle_mode="fused"``: the port
+    through ``FusedUpsample`` (on the CPU the plain K7 and K8), JAX with the
+    fused upsampler's Pallas kernels in interpret mode."""
+    jcfg, params, offsets, vgg, vgg_vars, batch = setup
+    f32, _ = _step_configs(jcfg)
+    fused = f32.replace(model=dataclasses.replace(f32.model, shuffle_mode="fused",
+                                                  pallas_interpret=True))
+    (want,) = _jax_steps(setup, fused)
+    return _port_step(fused, params, offsets, vgg_vars, batch), want
+
+
+@pytest.mark.parametrize("group", GROUPS)
+def test_f32_fused_renderer_step_gradients_match_jax(fused_step, setup, group):
+    """One training step's gradients with the fused upsampler block, f32 on
+    both sides, at the f32 step's tolerances."""
+    (_, got), (_, want) = fused_step
+    n_blocks = setup[0].model.n_upsample_blocks
+    assert _group_rel_l2(got, want, group, n_blocks) < STEP_GRAD_REL_L2[group]
+
+
+def test_f32_fused_renderer_step_losses_match_jax(fused_step):
+    (got, _), (want, _) = fused_step
+    assert set(got) == set(want)
+    for k in want:
+        np.testing.assert_allclose(float(got[k]), float(want[k]), rtol=1e-4, atol=1e-7, err_msg=k)
+
+
 class _JnpFloat64:
     """``jax.numpy`` as the JAX model module sees it in the float64 step: the
     model takes ``jnp.float32`` as the compute dtype of a float32 config,
