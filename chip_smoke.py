@@ -6,7 +6,7 @@
 Phases (each raises on failure, so any failed phase exits non-zero):
 
 1. device: the card's name and power limit; TF32 off for matmul and cuDNN;
-2. build: compile every kernel (the render's and the training step's) with
+2. build: compile every kernel (``kernels/build.every_kernel``) with
    ``nvcc``, all at once;
 3. kernels: the field forward (K1) against its plain PyTorch version at the
    render's shapes; the field backward (K2) against its plain version in a
@@ -15,23 +15,31 @@ Phases (each raises on failure, so any failed phase exits non-zero):
    stencil (K5, K6) at its three levels and fused upsampler block (K7, K8)
    at its three blocks (bf16, B=2) against their plain versions, K8 also
    against the unrounded float64 gradient and for equal bits over two
-   launches; each timed (CUDA events) beside its bound.  The limits are in
-   ``kernels/checks.py``;
-4. serving: per renderer mode (``phase_gm``, ``pallas``, ``fused``), a
-   full-width bf16 ``ViewerApp`` with the same seeded random weights answers
-   ``--requests`` render requests (512x512 PNGs) with launch counts read
-   around them; one request is rendered again with the plain versions in
-   place of the kernels and the two images compared, and each kernel mode's
-   image is compared with ``phase_gm``'s;
+   launches; the dual-branch forward (K3) at the render's and the training
+   step's shapes against its plain version (outputs and stash) and against
+   K1 on each branch, and its stash-reading backward (K4) in the narrow case
+   and at the training step's shape against its plain version, against K2
+   on each branch, against the unrounded float64 gradient and for equal
+   bits over two launches; each timed (CUDA events) beside its bound.  The
+   limits are in ``kernels/checks.py``;
+4. serving: per variant (the renderer modes ``phase_gm``, ``pallas``,
+   ``fused``, and ``dual``: both fields in the dual-branch kernels with the
+   ``phase_gm`` renderer), a full-width bf16 ``ViewerApp`` with the same
+   seeded random weights answers ``--requests`` render requests (512x512
+   PNGs) with launch counts read around them; one request is rendered again
+   with the plain versions in place of the kernels and the two images
+   compared, and each variant's image is compared with ``phase_gm``'s;
 5. breakdown: where a request's time goes (host-clock parts, device time
-   by kernel under ``torch.profiler``), and the renderer's share: the
-   viewer's one pass against the model forward's four; one renderer pass
-   per mode;
-6. training: per renderer mode, a full-width bf16 ``Trainer`` (B=2,
-   512x512, the default loss stack) takes 2 warm-up and ``--steps`` timed
-   steps on a seeded synthetic batch, with launch counts read around the
-   timed steps; one step's gradients with the kernels are held against the
-   same step with the plain versions; then where a step's time goes.
+   by kernel under ``torch.profiler``, also on the dual path), and the
+   renderer's share: the viewer's one pass against the model forward's
+   four; one renderer pass per mode;
+6. training: per variant, a full-width bf16 ``Trainer`` (B=2, 512x512, the
+   default loss stack) takes 2 warm-up and ``--steps`` timed steps on a
+   seeded synthetic batch, with launch counts read around the timed steps;
+   one step's gradients with the kernels are held against the same step
+   with the plain versions (on the dual path also against the
+   single-branch step and the step without the stash, which launches K3
+   once and K2 twice); then where a step's time goes.
 
 Prints ``serving``, ``training`` and ``kernels`` JSON lines, the
 ``nvidia-smi`` line and, last, the device JSON line.  Exits non-zero without
@@ -55,9 +63,13 @@ PEAK_BYTES_PER_S = 3.35e12
 # the renderer's modes: the default in PyTorch ops, the blur-shuffle stencil
 # kernels (K5, K6), the fused upsampler kernels (K7, K8)
 MODES = ("phase_gm", "pallas", "fused")
+# the field variant beside them: both fields in the dual-branch kernels with
+# the activation stash (K3, K4), with the phase_gm renderer
+DUAL = "dual"
+DUAL_FLAGS = {"pallas_dual_branch": True, "pallas_stash_acts": True}
 # the kernels' counters, in the order of the ``kernels`` line
 KERNELS = ("fused_field_fwd", "fused_field_bwd", "shuffle_blur_fwd", "shuffle_blur_bwd",
-           "fused_upsampler_fwd", "fused_upsampler_bwd")
+           "fused_upsampler_fwd", "fused_upsampler_bwd", "fused_dual_fwd", "fused_dual_bwd")
 
 # whole image with the kernel vs with its plain version: the bf16 image
 # bound of the JAX package's fused-vs-XLA model test
@@ -84,6 +96,16 @@ GRAD_REL_L2 = {"net": 2e-3, "iden": 2e-3, "expr": 2e-3, "appea": 2e-3,
 # 1.570e-4, 1.558e-4, 5.109e-4 and 1.562e-3 over five runs; the limit is
 # about 2x the largest (pallas 2.769e-4 to 3.931e-4 over the same runs)
 GRAD_REL_L2_MODE = {"fused": {"net": 3.2e-3}}
+# the dual path's step gradients against the single-branch path's, and with
+# the stash against without it, on the same state: K3 is K1 per branch to
+# the bit and K4's weight gradients equal K2's, so they differ only by the
+# order of the branches' per-point sums and the renderer's atomic index
+# backward; readings 2.1e-5 (net) to 5.7e-5 (camera offsets) on an NVIDIA
+# H100 80GB HBM3 (700 W).  Held as kernels vs plain
+DUAL_GRAD_REL_L2 = GRAD_REL_L2
+# the dual path's image against the single-branch path's on the same
+# weights: K3 is K1 per branch to the bit
+DUAL_IMAGE_ATOL = 0.0
 
 
 def check(cond, msg):
@@ -120,44 +142,68 @@ def random_biases_(module, gen):
 
 def kernel_modules():
     from gazenerf_tpu_torch.kernels import fused_field as ff
+    from gazenerf_tpu_torch.kernels import fused_field2 as ff2
+    from gazenerf_tpu_torch.kernels import fused_field2_bwd as ffb2
     from gazenerf_tpu_torch.kernels import fused_field_bwd as ffb
     from gazenerf_tpu_torch.kernels import fused_upsampler as fu
     from gazenerf_tpu_torch.kernels import shuffle_blur as sb
 
-    return ff, ffb, sb, fu
+    return ff, ffb, sb, fu, ff2, ffb2
+
+
+# each counter of the ``kernels`` line: (module index in kernel_modules(), name)
+_COUNTERS = ((0, "launch_count"), (1, "launch_count"), (2, "launch_count_fwd"),
+             (2, "launch_count_bwd"), (3, "launch_count_fwd"), (3, "launch_count_bwd"),
+             (4, "launch_count"), (5, "launch_count"))
 
 
 def launch_counts():
     """Every kernel's launch count, by the names of the ``kernels`` line."""
-    ff, ffb, sb, fu = kernel_modules()
-    return dict(zip(KERNELS, (ff.launch_count, ffb.launch_count, sb.launch_count_fwd,
-                              sb.launch_count_bwd, fu.launch_count_fwd, fu.launch_count_bwd)))
+    mods = kernel_modules()
+    return {k: getattr(mods[i], n) for k, (i, n) in zip(KERNELS, _COUNTERS)}
 
 
 def reset_launch_counts():
-    ff, ffb, sb, fu = kernel_modules()
-    ff.launch_count = ffb.launch_count = 0
-    sb.launch_count_fwd = sb.launch_count_bwd = 0
-    fu.launch_count_fwd = fu.launch_count_bwd = 0
+    mods = kernel_modules()
+    for i, n in _COUNTERS:
+        setattr(mods[i], n, 0)
 
 
-def expected_launches(mode, fields_fwd, fields_bwd, renderer_fwd, renderer_bwd):
-    """The launch counts a run should show: the field kernels', and the
-    mode's renderer kernels' (none in ``phase_gm``)."""
+def expected_launches(cfg, n, train):
+    """The launch counts ``n`` requests (``train`` False: one renderer pass
+    each, no gradient) or ``n`` training steps (four renderer passes, all
+    with a gradient) of ``cfg`` should show: per request or step two K1 (K3
+    once on the dual path), per step two K2 (K4 once on the dual path with
+    the stash, two K2 without it), and the mode's renderer kernels (none in
+    ``phase_gm``) once per upsample block and pass."""
     out = dict.fromkeys(KERNELS, 0)
-    out["fused_field_fwd"], out["fused_field_bwd"] = fields_fwd, fields_bwd
-    prefix = {"pallas": "shuffle_blur", "fused": "fused_upsampler"}.get(mode)
+    if cfg.pallas_dual_branch:
+        out["fused_dual_fwd"] = n
+        if train and cfg.pallas_stash_acts:
+            out["fused_dual_bwd"] = n
+        elif train:
+            out["fused_field_bwd"] = 2 * n
+    else:
+        out["fused_field_fwd"] = 2 * n
+        out["fused_field_bwd"] = 2 * n if train else 0
+    prefix = {"pallas": "shuffle_blur", "fused": "fused_upsampler"}.get(cfg.shuffle_mode)
     if prefix:
-        out[f"{prefix}_fwd"], out[f"{prefix}_bwd"] = renderer_fwd, renderer_bwd
+        blocks = (4 if train else 1) * cfg.n_upsample_blocks * n
+        out[f"{prefix}_fwd"], out[f"{prefix}_bwd"] = blocks, blocks if train else 0
     return out
+
+
+def field_macs(De, H):
+    """One field's forward multiply-adds per point, the feature head apart:
+    fea_0..7 (the skip at fea_5), the density head, rgb_0 and rgb_1."""
+    return De * H + 4 * H * H + (De + H) * H + 2 * H * H + H + H * H + H * (H // 2)
 
 
 def k1_bound(B, R, S, De, H, C, operands):
     """Least time for the fused field forward at these shapes: bf16
     tensor-core operations vs bytes in and out, each moved once."""
     H2 = H // 2
-    macs_point = De * H + 4 * H * H + (De + H) * H + 2 * H * H + H + H * H + H * H2
-    ops = 2 * (B * R * S * macs_point + B * R * H2 * C)  # head after the sum
+    ops = 2 * (B * R * S * field_macs(De, H) + B * R * H2 * C)  # head after the sum
     bytes_in = (
         B * R * S * De * 2  # bf16 embedding
         + 2 * B * R * S * 4  # zvals, zdists
@@ -177,8 +223,7 @@ def k2_bound(args, cot, grads):
     embed, ops = args[0], args[-1]
     B, R, S, De = embed.shape
     H, H2, C = ops.w0e.shape[0], ops.wr2.shape[0], ops.wr2.shape[1]
-    macs_point = De * H + 4 * H * H + (De + H) * H + 2 * H * H + H + H * H + H * H2
-    ops_count = 2 * (3 * B * R * S * macs_point + 2 * B * R * H2 * C)
+    ops_count = 2 * (3 * B * R * S * field_macs(De, H) + 2 * B * R * H2 * C)
     tensors = [*args[:-1], *ops, *cot]
     bytes_in = sum(t.numel() * t.element_size() for t in tensors)
     bytes_out = sum(t.numel() * t.element_size() for t in grads)
@@ -189,6 +234,34 @@ def k2_bound(args, cot, grads):
 
 def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def k3_bound(args, outs, acts):
+    """Least time for the dual forward on these inputs: both branches' bf16
+    products (K1's per point, the feature head per ray) vs every input read
+    once and the outputs and the stash (when written) written once."""
+    embed, ops = args[0], args[6]
+    B, R, S, De = embed.shape
+    H, H2, C = ops.w0e.shape[1], ops.wr2.shape[1], ops.wr2.shape[2]
+    ops_count = 2 * 2 * (B * R * S * field_macs(De, H) + B * R * H2 * C)
+    moved = nbytes(*args[:6], *ops, *(t for o in outs for t in o), *(a for br in acts for a in br))
+    return bound([ops_count / PEAK_BF16_FLOPS], moved / PEAK_BYTES_PER_S)
+
+
+def k4_bound(args, cot, acts, grads):
+    """Least time for the dual backward on these inputs: per branch the data
+    and the weight gradients (each the forward's multiply-adds), the density
+    and folded feature head read back from x7 and y1, and the head's per-ray
+    products, vs the embedding, z values, weights, cotangents and stash read
+    once and the gradients written once."""
+    embed, ops = args[0], args[6]
+    B, R, S, De = embed.shape
+    H, H2, C = ops.w0e.shape[1], ops.wr2.shape[1], ops.wr2.shape[2]
+    P = B * R * S
+    ops_count = 2 * 2 * (2 * P * field_macs(De, H) + P * (H + H2) + 2 * B * R * H2 * C)
+    moved = nbytes(*args[:3], *ops, *(t for g in cot for t in g),
+                   *(a for br in acts for a in br), *grads)
+    return bound([ops_count / PEAK_BF16_FLOPS], moved / PEAK_BYTES_PER_S)
 
 
 def bound(t_ops, t_bytes):
@@ -351,19 +424,15 @@ def seeded_field(seed, cfg, dev):
     return field.to(dev), gen
 
 
-def phase_kernels(seed, cfg, iters):
-    """K1 against its plain version at the render's shapes, then timed."""
+def render_inputs(cfg, dev, gen):
+    """A render's own field inputs at B=1: the rays of the frontal camera
+    (bf16 embedding, z values, segment lengths) and seeded codes."""
     import torch
 
-    from gazenerf_tpu_torch.kernels import fused_field as ff
-    from gazenerf_tpu_torch.kernels.checks import K1_REL_ERR
     from gazenerf_tpu_torch.ops.embedding import positional_encoding
     from gazenerf_tpu_torch.ops.rays import pixel_grid, sample_coarse
     from gazenerf_tpu_torch.viewer.server import lookat_camera
 
-    dev = torch.device("cuda")
-    field, gen = seeded_field(seed, cfg, dev)
-    # the render's own inputs: rays of the frontal camera, seeded codes
     R_, T_, K_ = (torch.from_numpy(a).to(dev) for a in lookat_camera(0, 0, 12.0, cfg.featmap_size))
     xy = pixel_grid(cfg.featmap_size, device=dev)[None]
     samples = sample_coarse(xy, R_, T_.reshape(1, 3), K_, cfg.num_sample_coarse,
@@ -371,8 +440,37 @@ def phase_kernels(seed, cfg, iters):
     embed = positional_encoding(samples.pts, cfg.vp_n_freqs).to(torch.bfloat16).contiguous()
     sc = (0.1 * torch.randn(1, cfg.shape_ext_code_dims, generator=gen)).to(dev)
     ac = (0.1 * torch.randn(1, cfg.appea_code_dims, generator=gen)).to(dev)
-    zvals = samples.zvals.contiguous()
-    zdists = samples.z_dists.contiguous()
+    return embed, samples.zvals.contiguous(), samples.z_dists.contiguous(), sc, ac
+
+
+def hold_outputs(tag, got, want):
+    """A fused forward's four outputs against its plain version's, each to
+    ``K1_REL_ERR`` of max |plain|; returns the largest max abs error."""
+    import torch
+
+    from gazenerf_tpu_torch.kernels.checks import K1_REL_ERR
+
+    max_err = 0.0
+    for name, a, b in zip(("feat_int", "bg_alpha", "depth", "weights"), got, want):
+        check(bool(torch.isfinite(a).all()), f"{tag} {name}: non-finite values")
+        err, scale = float((a - b).abs().max()), float(b.abs().max())
+        print(f"{tag} {name}: max abs err {err:.3e}, |plain| max {scale:.3e}, "
+              f"ratio {err / scale:.3e} (limit {K1_REL_ERR:.0e})")
+        check(scale > 0 and err <= K1_REL_ERR * scale,
+              f"{tag} {name}: max abs err {err:.3e} above {K1_REL_ERR} of {scale:.3e}")
+        max_err = max(max_err, err)
+    return max_err
+
+
+def phase_kernels(seed, cfg, iters):
+    """K1 against its plain version at the render's shapes, then timed."""
+    import torch
+
+    from gazenerf_tpu_torch.kernels import fused_field as ff
+
+    dev = torch.device("cuda")
+    field, gen = seeded_field(seed, cfg, dev)
+    embed, zvals, zdists, sc, ac = render_inputs(cfg, dev, gen)
     with torch.no_grad():
         p = ff.split_params(field.flat(), cfg.vp_embed_dims)
         cb0, cb5, cbr1 = ff.conditioning_rows(p, sc, ac)
@@ -380,16 +478,7 @@ def phase_kernels(seed, cfg, iters):
         args = (embed, zvals, zdists, cb0, cb5, cbr1, ops)
         out_k = ff.fused_field_forward(*args)
         torch.cuda.synchronize()
-        out_r = ff.fused_field_reference(*args)
-        max_err = 0.0
-        for name, a, b in zip(("feat_int", "bg_alpha", "depth", "weights"), out_k, out_r):
-            check(bool(torch.isfinite(a).all()), f"K1 {name}: non-finite values")
-            err, scale = float((a - b).abs().max()), float(b.abs().max())
-            print(f"K1 {name}: max abs err {err:.3e}, |plain| max {scale:.3e}, "
-                  f"ratio {err / scale:.3e} (limit {K1_REL_ERR:.0e})")
-            check(scale > 0 and err <= K1_REL_ERR * scale,
-                  f"K1 {name}: max abs err {err:.3e} above {K1_REL_ERR} of {scale:.3e}")
-            max_err = max(max_err, err)
+        max_err = hold_outputs("K1", out_k, ff.fused_field_reference(*args))
         ms = cuda_ms(lambda: ff.fused_field_forward(*args), iters)
         plain_ms = cuda_ms(lambda: ff.fused_field_reference(*args), max(2, iters // 4), warmup=1)
     B, R, S, De = embed.shape
@@ -397,6 +486,122 @@ def phase_kernels(seed, cfg, iters):
     return kernel_entry("fused_field_fwd", "fused_field_fwd.cu",
                         "gazenerf_tpu/kernels/fused_field.py:216", max_err, ms, plain_ms,
                         bound_ms, bound_by)
+
+
+def phase_dual_kernels(seed, cfg, iters):
+    """The dual-branch kernels.  K3 at the serving shape (B=1, a render's
+    own inputs, no stash) against its plain version and against K1 on each
+    branch (the same bits), then at the training shape (B=2, 4096 rays x 64
+    samples, with the stash) against its plain version, outputs and stash.
+    K4 on K3's stash in the narrow case (hidden 64) and at the training
+    shape: against its plain version, against K2 on each branch with the
+    shared cotangents summed, for equal bits over two launches and, at the
+    training shape, against the unrounded float64 gradient.  Limits in
+    ``kernels/checks.py``.  K3 (with the stash) and K4 timed at the training
+    shape beside their bounds; K3 at the serving shape printed."""
+    import torch
+
+    from gazenerf_tpu_torch.kernels import checks
+    from gazenerf_tpu_torch.kernels import fused_field as ff
+    from gazenerf_tpu_torch.kernels import fused_field2 as ff2
+    from gazenerf_tpu_torch.kernels import fused_field2_bwd as ffb2
+    from gazenerf_tpu_torch.kernels import fused_field_bwd as ffb
+
+    dev = torch.device("cuda")
+    fails = []
+
+    def per_branch_k2(args, cot):
+        return ffb2.sum_branches([
+            ffb.fused_field_backward(*args[:3], *(t[i] for t in args[3:6]),
+                                     ff2.branch_operands(args[6], i), *cot[i])
+            for i in range(ff2.N_BRANCHES)])
+
+    # K3 at the serving shape: two seeded fields on a render's inputs
+    fields = [seeded_field(seed + i, cfg, dev)[0] for i in range(ff2.N_BRANCHES)]
+    embed, zvals, zdists, sc, ac = render_inputs(cfg, dev, torch.Generator().manual_seed(seed))
+    with torch.no_grad():
+        ps = [ff.split_params(f.flat(), cfg.vp_embed_dims) for f in fields]
+        rows = ff2.conditioning_rows(ps, sc, ac)
+        ops = ff2.stack_operands([ff.prepare_operands(p) for p in ps])
+        args = (embed, zvals, zdists, *rows, ops)
+        got = ff2.fused_dual_forward(*args)
+        torch.cuda.synchronize()
+        for br, g, w in zip(("face", "eyes"), got, ff2.fused_dual_reference(*args)):
+            hold_outputs(f"K3 serving {br}", g, w)
+        for i, g in enumerate(got):
+            single = ff.fused_field_forward(*args[:3], *(t[i] for t in rows),
+                                            ff2.branch_operands(args[6], i))
+            err = max(float((a - b).abs().max()) for a, b in zip(g, single))
+            print(f"K3 serving branch {i} vs K1: max abs err {err:.3e} "
+                  f"(limit {checks.K3_VS_K1_MAX_ABS_ERR})")
+            if err > checks.K3_VS_K1_MAX_ABS_ERR:
+                fails.append(f"K3 branch {i} vs K1: max abs err {err:.3e}")
+        ms = cuda_ms(lambda: ff2.fused_dual_forward(*args), iters)
+        bnd = k3_bound(args, got, ())
+        print(f"K3 serving shape {tuple(embed.shape)}, no stash: {ms:.4f} ms, bound {bnd[0]:.4f} "
+              f"ms ({bnd[1]})")
+
+    # K3 at the training shape, with the stash
+    args, cot = checks.dual_case(*checks.DUAL_CASES["training"], dev, seed=seed)
+    with torch.no_grad():
+        got, acts = ff2.fused_dual_forward(*args, stash=True)
+        torch.cuda.synchronize()
+        want, want_acts = ff2.fused_dual_reference(*args, stash=True)
+        r3, f3 = checks.k3_failures("training", got, want)
+        r3s, f3s = checks.k3_stash_failures("training", acts, want_acts)
+        fails += [f"K3 training: {f}" for f in f3 + f3s]
+        print(json.dumps({"k3_case": "training", "seed": seed, "readings": r3, "stash": r3s}))
+        k3_err = max(float((a - b).abs().max()) for g, w in zip(got, want) for a, b in zip(g, w))
+        del want, want_acts
+        k3_bnd = k3_bound(args, got, acts)
+        k3_ms = cuda_ms(lambda: ff2.fused_dual_forward(*args, stash=True), iters)
+        k3_plain_ms = cuda_ms(lambda: ff2.fused_dual_reference(*args, stash=True),
+                              max(2, iters // 4), warmup=1)
+
+    # K4 on K3's stash: the narrow case, then the training shape
+    narrow_args, narrow_cot = checks.dual_case(*checks.DUAL_CASES["narrow"], dev, seed=seed)
+    with torch.no_grad():
+        _, narrow_acts = ff2.fused_dual_forward(*narrow_args, stash=True)
+    for case, (a, c, st) in (("narrow", (narrow_args, narrow_cot, narrow_acts)),
+                             ("training", (args, cot, acts))):
+        with torch.no_grad():
+            got = ffb2.fused_dual_backward(*a, *c, st)
+            again = ffb2.fused_dual_backward(*a, *c, st)
+            torch.cuda.synchronize()
+            want = ffb2.fused_dual_backward_reference(*a, *c, st)
+            r4, case_fails = checks.k4_failures(case, got, want)
+            r42, f42 = checks.k4_vs_k2_failures(case, got, per_branch_k2(a, c))
+            case_fails += [f"vs K2: {f}" for f in f42]
+        line = {"k4_case": case, "seed": seed, "readings": r4, "vs_k2_readings": r42}
+        if case == "training":
+            with torch.no_grad():
+                want64 = ffb2.fused_dual_backward_reference(*a, *c, st, dtype=torch.float64)
+            exact = ffb2.fused_dual_backward_unrounded(*a, *c)
+            line["unrounded_distance"], ft = checks.truth_failures(
+                got, want, want64, exact, checks.K4_TRUTH_RATIO, checks.K4_TRUTH_EXEMPT)
+            case_fails += ft
+            del want64, exact
+        if not all(torch.equal(x, y) for x, y in zip(got, again)):
+            case_fails.append("two launches on the same inputs differ")
+        print(json.dumps(line))
+        fails += [f"K4 {case}: {f}" for f in case_fails]
+    check(not fails, "\n".join(fails))
+    k4_err = float(max((x - y).abs().max() for x, y in zip(got, want)))
+    k4_bnd = k4_bound(args, cot, acts, got)
+    del want, again, narrow_acts
+    with torch.no_grad():
+        k4_iters = max(4, iters // 4)
+        k4_ms = cuda_ms(lambda: ffb2.fused_dual_backward(*args, *cot, acts), k4_iters)
+        k4_plain_ms = cuda_ms(lambda: ffb2.fused_dual_backward_reference(*args, *cot, acts),
+                              max(2, k4_iters // 4), warmup=1)
+    return (
+        kernel_entry("fused_dual_fwd", "fused_field2_fwd.cu",
+                     "gazenerf_tpu/kernels/fused_field2.py:64", k3_err, k3_ms, k3_plain_ms,
+                     *k3_bnd),
+        kernel_entry("fused_dual_bwd", "fused_field2_bwd.cu",
+                     "gazenerf_tpu/kernels/fused_field2_bwd.py:29", k4_err, k4_ms, k4_plain_ms,
+                     *k4_bnd),
+    )
 
 
 REQUESTS = [  # (pitch, yaw, azimuth, elevation, distance)
@@ -409,13 +614,13 @@ REQUESTS = [  # (pitch, yaw, azimuth, elevation, distance)
 ]
 
 
-def phase_serving(seed, cfg, n_requests):
-    """Full-width renders through ViewerApp in ``cfg``'s renderer mode, with
-    launch counts: K1 twice a request and, in a kernel mode, its forward
-    kernel (K5 in ``pallas``, K7 in ``fused``) once per upsample block; the
-    image with the kernels against the same render with the plain versions.
-    Returns the app, the requests, the counts, the request times and the
-    first request's image."""
+def phase_serving(seed, cfg, n_requests, name):
+    """Full-width renders through ViewerApp in the variant ``name`` of
+    ``cfg``, with launch counts: K1 twice a request (K3 once on the dual
+    path) and, in a kernel mode, its forward kernel (K5 in ``pallas``, K7 in
+    ``fused``) once per upsample block; the image with the kernels against
+    the same render with the plain versions.  Returns the app, the requests,
+    the counts, the request times and the first request's image."""
     import numpy as np
     import torch
 
@@ -423,10 +628,12 @@ def phase_serving(seed, cfg, n_requests):
     from gazenerf_tpu_torch.kernels import checks
     from gazenerf_tpu_torch.utils.png import decode_png
 
-    mode = cfg.shuffle_mode
+    mode = name
     app = ViewerApp(cfg, seed=seed)  # on the card: no device given
     random_biases_(app.model, torch.Generator().manual_seed(seed))
     check(app.model.fused, "the bf16 config must run the fused field kernel")
+    check(app.model.dual == cfg.pallas_dual_branch,
+          f"{name}: the field path is not as configured")
     requests = [REQUESTS[i % len(REQUESTS)] for i in range(n_requests)]
     app.render_png(*requests[0])  # warm-up: cuBLAS handles, allocator
     torch.cuda.synchronize()
@@ -438,7 +645,7 @@ def phase_serving(seed, cfg, n_requests):
         pngs.append(app.render_png(*q))
         times.append((time.perf_counter() - t0) * 1e3)
     launches = launch_counts()
-    want = expected_launches(mode, 2 * n_requests, 0, cfg.n_upsample_blocks * n_requests, 0)
+    want = expected_launches(cfg, n_requests, train=False)
     check(launches == want, f"{mode}: {n_requests} requests launched {launches} (expected {want})")
 
     size = cfg.pred_img_size
@@ -471,7 +678,11 @@ def kernel_ms(rows, mode):
     out = dict.fromkeys(KERNELS, 0.0)
     renderer = {"pallas": "shuffle_blur", "fused": "fused_upsampler"}.get(mode)
     for key, _, ms in rows:
-        if "field_fwd_kernel" in key:
+        if "dual_fwd_kernel" in key:
+            name = "fused_dual_fwd"
+        elif "dual_bwd_kernel" in key or "dual_slab_sum" in key:
+            name = "fused_dual_bwd"
+        elif "field_fwd_kernel" in key:
             name = "fused_field_fwd"
         elif "field_bwd_kernel" in key or "reduce_slabs" in key:
             name = "fused_field_bwd"
@@ -661,24 +872,28 @@ def synthetic_batch(seed, B, size, featmap_size):
     }
 
 
-def phase_training(seed, cfg, n_steps):
-    """Full-width training steps in ``cfg``'s renderer mode with launch
-    counts (per step K1 and K2 twice; in a kernel mode the renderer's
-    forward and backward kernel once per upsample block and renderer pass:
-    four passes, all four with a gradient, as the background pass carries
-    ``bg_loss``), then one step's gradients with the kernels against the
-    plain versions, then where a step's time goes.  Returns the mode's part
-    of the ``training`` line."""
+def phase_training(seed, cfg, n_steps, name):
+    """Full-width training steps in the variant ``name`` of ``cfg`` with
+    launch counts (per step K1 and K2 twice, or K3 and K4 once on the dual
+    path; in a kernel mode the renderer's forward and backward kernel once
+    per upsample block and renderer pass: four passes, all four with a
+    gradient, as the background pass carries ``bg_loss``), then one step's
+    gradients with the kernels against the plain versions (on the dual path
+    also against the single-branch step, and one step without the stash),
+    then where a step's time goes.  Returns the variant's part of the
+    ``training`` line."""
     import statistics
 
     import torch
 
     from gazenerf_tpu_torch import Config, Trainer
 
-    mode = cfg.shuffle_mode
+    mode = name
     tcfg = Config(model=cfg)
     trainer = Trainer(tcfg, train_len=8, steps_per_epoch=1000, seed=seed)  # the card
     check(trainer.model.fused, "the bf16 config must run the fused field kernels")
+    check(trainer.model.dual == cfg.pallas_dual_branch,
+          f"{name}: the field path is not as configured")
     batch = synthetic_batch(seed, tcfg.train.batch_size, cfg.pred_img_size, cfg.featmap_size)
 
     def read(losses):
@@ -698,15 +913,14 @@ def phase_training(seed, cfg, n_steps):
     launches = launch_counts()
     peak = torch.cuda.max_memory_allocated()
     last = read(losses)
-    for name, v in {**first, **last}.items():
-        check(v == v and abs(v) != float("inf"), f"{mode}: training loss {name} is not finite")
+    for loss, v in {**first, **last}.items():
+        check(v == v and abs(v) != float("inf"), f"{mode}: training loss {loss} is not finite")
     check(last["total_loss"] < first["total_loss"],
           f"{mode}: total loss did not fall: {first['total_loss']} -> {last['total_loss']}")
-    per_pass = 4 * cfg.n_upsample_blocks
-    want = expected_launches(mode, 2 * n_steps, 2 * n_steps, per_pass * n_steps, per_pass * n_steps)
+    want = expected_launches(cfg, n_steps, train=True)
     check(launches == want, f"{mode}: {n_steps} steps launched {launches} (expected {want})")
 
-    grads = phase_grad_check(trainer, batch, seed)
+    grads = phase_grad_check(trainer, batch, seed, name)
     parts = phase_step_breakdown(trainer, batch)
     return {
         "step_ms": {"median": statistics.median(times), "samples": times},
@@ -721,57 +935,81 @@ def phase_training(seed, cfg, n_steps):
     }
 
 
-def phase_grad_check(trainer, batch, seed):
+def phase_grad_check(trainer, batch, seed, name):
     """One step's gradients (no update) with the kernels, then the same
     step (state, batch, jitter draws) with the plain versions; relative L2
-    per parameter group."""
+    per parameter group.  On the dual path also the same step on the
+    single-branch path (K1 and K2 twice) and, with launch counts, the same
+    step without the stash (K3 once, K2 twice)."""
+    import dataclasses
+
     import torch
 
     from gazenerf_tpu_torch.kernels import checks
 
-    cfg = trainer.cfg.model
-    mode = cfg.shuffle_mode
+    model = trainer.model
+    cfg = model.cfg
     gen = torch.Generator(device=trainer.device).manual_seed(seed + 7)
     t_rand = torch.rand((trainer.cfg.train.batch_size, cfg.num_rays, cfg.num_sample_coarse + 1),
                         generator=gen, device=trainer.device)
 
-    def grads():
+    def grads(step_cfg=cfg):
+        model.cfg = step_cfg  # the field path is read from the model's config per call
+        reset_launch_counts()
+        try:
+            trainer.train_step(batch, t_rand=t_rand, update=False)
+            torch.cuda.synchronize()
+        finally:
+            model.cfg = cfg
+        used = launch_counts()
+        want = expected_launches(step_cfg, 1, train=True)
+        check(used == want, f"{name}: the kernel step launched {used} (expected {want})")
+        return {g["name"]: torch.cat([p.grad.reshape(-1).float() for p in g["params"]])
+                for g in trainer.optimizer.param_groups}
+
+    def compare(what, got, want, limits):
+        out, fails = {}, []
+        for group, g in got.items():
+            rel = float((g - want[group]).norm() / want[group].norm())
+            out[group] = rel
+            print(f"{name}: step gradients, {what}, {group}: relative L2 {rel:.3e} "
+                  f"(limit {limits[group]:.1e})")
+            if not bool(torch.isfinite(g).all()):
+                fails.append(f"{name}: gradient of {group} is not finite")
+            elif rel > limits[group]:
+                fails.append(f"{name}: gradient of {group}, {what}: relative L2 {rel:.3e} "
+                             f"above {limits[group]}")
+        check(not fails, "\n".join(fails))
+        return out
+
+    with_kernels = grads()
+    with checks.plain_versions():
         reset_launch_counts()
         trainer.train_step(batch, t_rand=t_rand, update=False)
-        torch.cuda.synchronize()
-        return {g["name"]: torch.cat([p.grad.reshape(-1).float() for p in g["params"]])
-                for g in trainer.optimizer.param_groups}, launch_counts()
-
-    with_kernels, used = grads()
-    per_pass = 4 * cfg.n_upsample_blocks
-    want = expected_launches(mode, 2, 2, per_pass, per_pass)
-    check(used == want, f"{mode}: the kernel step launched {used} (expected {want})")
-    with checks.plain_versions():
-        plain, used = grads()
-    check(not any(used.values()), f"{mode}: the plain step launched {used}")
-    limits = {**GRAD_REL_L2, **GRAD_REL_L2_MODE.get(mode, {})}
-    out, fails = {}, []
-    for name, g in with_kernels.items():
-        rel = float((g - plain[name]).norm() / plain[name].norm())
-        out[name] = rel
-        print(f"{mode}: step gradients, kernels vs plain, {name}: relative L2 {rel:.3e} "
-              f"(limit {limits[name]:.1e})")
-        if not bool(torch.isfinite(g).all()):
-            fails.append(f"{mode}: gradient of {name} is not finite")
-        elif rel > limits[name]:
-            fails.append(f"{mode}: gradient of {name}: relative L2 {rel:.3e} above "
-                         f"{limits[name]}")
-    check(not fails, "\n".join(fails))
+        used = launch_counts()
+    check(not any(used.values()), f"{name}: the plain step launched {used}")
+    plain = {g["name"]: torch.cat([p.grad.reshape(-1).float() for p in g["params"]])
+             for g in trainer.optimizer.param_groups}
+    out = {"kernels_vs_plain": compare("kernels vs plain", with_kernels, plain,
+                                       {**GRAD_REL_L2, **GRAD_REL_L2_MODE.get(name, {})})}
+    if cfg.pallas_dual_branch:
+        single = grads(dataclasses.replace(cfg, pallas_dual_branch=False, pallas_stash_acts=False))
+        out["dual_vs_single_branch"] = compare("dual vs single-branch", with_kernels, single,
+                                               DUAL_GRAD_REL_L2)
+        recompute = grads(dataclasses.replace(cfg, pallas_stash_acts=False))
+        out["stash_vs_recompute"] = compare("stash (K4) vs recompute (K2 per branch)",
+                                            with_kernels, recompute, DUAL_GRAD_REL_L2)
     trainer.optimizer.zero_grad(set_to_none=True)
     return out
 
 
 def phase_step_breakdown(trainer, batch):
     """Where one training step's time goes, on the device: the step's
-    stages each timed alone to a synchronize (fields forward with K1, the
-    four renderer passes, the losses with VGG, then the backward in three
-    parts and the optimizer), and the whole step under ``torch.profiler``
-    (device time by kernel, the port's kernels apart)."""
+    stages each timed alone to a synchronize (fields forward with K1, or K3
+    on the dual path, the four renderer passes, the losses with VGG, then
+    the backward in three parts, the fields' with K2 or K4, and the
+    optimizer), and the whole step under ``torch.profiler`` (device time by
+    kernel, the port's kernels apart)."""
     import numpy as np
     import torch
 
@@ -786,6 +1024,7 @@ def phase_step_breakdown(trainer, batch):
     xy = pixel_grid(cfg.model.featmap_size, device=trainer.device)[None].expand(B, -1, -1)
     nr = model.neural_render
     ms = {}
+    k_fwd, k_bwd = ("k3", "k4") if model.dual else ("k1", "k2")
 
     def timed(name, fn):
         torch.cuda.synchronize()
@@ -797,7 +1036,7 @@ def phase_step_breakdown(trainer, batch):
 
     def stages():
         sc, ac, gz, R, T, K, ocd, dcam = compose_codes_and_cams(cfg, b, trainer.offsets, expr)
-        fm = timed("fields_forward_k1", lambda: model.render_featmaps(
+        fm = timed(f"fields_forward_{k_fwd}", lambda: model.render_featmaps(
             xy, sc, ac, gz, R, T, K, train=True, generator=trainer.generator)["featmaps"])
         imgs = timed("renderer_forward_4_passes", lambda: {
             "merge_img": nr(fm["merge"]), "merge_img_face": nr(fm["face"]),
@@ -814,7 +1053,7 @@ def phase_step_breakdown(trainer, batch):
         g_fm = timed("renderer_backward_3_passes", lambda: torch.autograd.grad(
             [imgs[k] for k in keys], fms + ren, g_img, retain_graph=True)[:3])
         params = [p for p in model.parameters() if p.requires_grad] + list(trainer.offsets.values())
-        grads = timed("fields_backward_k2", lambda: torch.autograd.grad(
+        grads = timed(f"fields_backward_{k_bwd}", lambda: torch.autograd.grad(
             fms[:2], params, g_fm[:2], allow_unused=True))
         for p, g in zip(params, grads):
             p.grad = torch.zeros_like(p) if g is None else g
@@ -850,8 +1089,6 @@ def main() -> int:
     from gazenerf_tpu_torch.config import ModelConfig
     from gazenerf_tpu_torch.kernels import build
 
-    ff, ffb, sb, fu = kernel_modules()
-
     # 1. device
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -863,8 +1100,7 @@ def main() -> int:
 
     # 2. build: every kernel at once, one nvcc each
     t0 = time.perf_counter()
-    logs = build.build({ff.KERNEL: ff.DEFINES, ffb.KERNEL: ffb.DEFINES, sb.KERNEL: sb.DEFINES,
-                        fu.KERNEL_FWD: fu.DEFINES, fu.KERNEL_BWD: fu.DEFINES})
+    logs = build.build(build.every_kernel())
     print(f"build: {time.perf_counter() - t0:.2f} s")
     for name, log in logs.items():
         for line in log.splitlines():
@@ -873,52 +1109,66 @@ def main() -> int:
 
     # the render configuration the CLIs use: bf16 fields and renderer
     cfg = ModelConfig(compute_dtype="bfloat16", renderer_dtype="bfloat16")
+    # the variants: per renderer mode, and the dual-branch field path with
+    # the stash (phase_gm renderer)
     configs = {mode: dataclasses.replace(cfg, shuffle_mode=mode) for mode in MODES}
+    configs[DUAL] = dataclasses.replace(cfg, **DUAL_FLAGS)
 
     # 3. kernels vs plain versions
     k1 = phase_kernels(args.seed, cfg, args.iters)
     k2 = phase_k2(args.seed, max(4, args.iters // 4))
     k5, k6, k7, k8 = phase_renderer_kernels(args.seed, args.iters)
+    k3, k4 = phase_dual_kernels(args.seed, cfg, args.iters)
+    torch.cuda.empty_cache()
 
-    # 4. serving, per renderer mode, on the same weights
+    # 4. serving, per variant, on the same weights
     apps, serving = {}, {}
-    for mode in MODES:
-        apps[mode], requests, launches, times, img = phase_serving(
-            args.seed, configs[mode], args.requests)
-        serving[mode] = {"launches": launches, "ms_per_request": times, "image": img}
-    for mode in MODES[1:]:
-        err = float((serving[mode].pop("image") - serving["phase_gm"]["image"]).abs().max())
-        serving[mode]["image_vs_phase_gm_max_abs_err"] = err
-        print(f"serving {mode}: image vs phase_gm's max abs err {err:.3e} "
-              f"(atol {MODE_IMAGE_ATOL})")
-        check(err <= MODE_IMAGE_ATOL, f"{mode}: image vs phase_gm's max abs err {err:.3e}")
+    for name, vcfg in configs.items():
+        apps[name], requests, launches, times, img = phase_serving(
+            args.seed, vcfg, args.requests, name)
+        serving[name] = {"launches": launches, "ms_per_request": times, "image": img}
+    for name in configs:
+        if name == "phase_gm":
+            continue
+        atol = DUAL_IMAGE_ATOL if name == DUAL else MODE_IMAGE_ATOL
+        err = float((serving[name].pop("image") - serving["phase_gm"]["image"]).abs().max())
+        serving[name]["image_vs_phase_gm_max_abs_err"] = err
+        print(f"serving {name}: image vs phase_gm's max abs err {err:.3e} (atol {atol})")
+        check(err <= atol, f"{name}: image vs phase_gm's max abs err {err:.3e}")
     del serving["phase_gm"]["image"]
     k1["launches"] = serving["phase_gm"]["launches"]["fused_field_fwd"]
     k5["launches"] = serving["pallas"]["launches"]["shuffle_blur_fwd"]
     k7["launches"] = serving["fused"]["launches"]["fused_upsampler_fwd"]
 
     # 5. breakdown
+    dual_app = apps.pop(DUAL)
     line = phase_breakdown(apps, requests, smi)
+    line["dual_viewer_request"] = device_profile(lambda: dual_app.render_image(*requests[0]),
+                                                 top=8, mode=DUAL)
     line["modes"] = serving
     print(json.dumps({"serving": line}))
-    del apps
+    del apps, dual_app
 
-    # 6. training, per renderer mode
+    # 6. training, per variant
     training = {}
-    for mode in MODES:
-        training[mode] = phase_training(args.seed, configs[mode], args.steps)
+    for name, vcfg in configs.items():
+        training[name] = phase_training(args.seed, vcfg, args.steps, name)
         torch.cuda.empty_cache()
     print(json.dumps({"training": {
         "card": smi,
-        "config": "ModelConfig(compute_dtype=bfloat16, renderer_dtype=bfloat16, shuffle_mode=...), "
-                  "LossConfig(), TrainConfig(); B=2, 4096 rays x 64 samples, 512x512",
+        "config": "ModelConfig(compute_dtype=bfloat16, renderer_dtype=bfloat16, shuffle_mode=...; "
+                  "dual: pallas_dual_branch=True, pallas_stash_acts=True), LossConfig(), "
+                  "TrainConfig(); B=2, 4096 rays x 64 samples, 512x512",
         "modes": training,
     }}))
     k2["launches"] = training["phase_gm"]["launches"]["fused_field_bwd"]
     k6["launches"] = training["pallas"]["launches"]["shuffle_blur_bwd"]
     k8["launches"] = training["fused"]["launches"]["fused_upsampler_bwd"]
+    # K3 and K4 timed at the training shape: their launches on the dual training path
+    k3["launches"] = training[DUAL]["launches"]["fused_dual_fwd"]
+    k4["launches"] = training[DUAL]["launches"]["fused_dual_bwd"]
 
-    print(json.dumps({"kernels": [k1, k2, k5, k6, k7, k8]}))
+    print(json.dumps({"kernels": [k1, k2, k5, k6, k7, k8, k3, k4]}))
     print(smi)
     print(json.dumps({
         "ok": True,

@@ -85,6 +85,29 @@ def build(kernels: Mapping[str, Mapping[str, int]]) -> Dict[str, str]:
     return logs
 
 
+def every_kernel() -> Dict[str, Mapping[str, int]]:
+    """Every kernel source of the port (name -> defines), for a build of all
+    of them at once."""
+    from gazenerf_tpu_torch.kernels import (
+        fused_field,
+        fused_field2,
+        fused_field2_bwd,
+        fused_field_bwd,
+        fused_upsampler,
+        shuffle_blur,
+    )
+
+    return {
+        fused_field.KERNEL: fused_field.DEFINES,
+        fused_field_bwd.KERNEL: fused_field_bwd.DEFINES,
+        fused_field2.KERNEL: fused_field2.DEFINES,
+        fused_field2_bwd.KERNEL: fused_field2_bwd.DEFINES,
+        shuffle_blur.KERNEL: shuffle_blur.DEFINES,
+        fused_upsampler.KERNEL_FWD: fused_upsampler.DEFINES,
+        fused_upsampler.KERNEL_BWD: fused_upsampler.DEFINES,
+    }
+
+
 def load(name: str, defines: Mapping[str, int]) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu``, built on first use.  The
     sources are hashed once per process: a kernel's wrapper calls this on

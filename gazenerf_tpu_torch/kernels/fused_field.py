@@ -117,12 +117,16 @@ def conditioning_rows(p: Mapping[str, torch.Tensor], sc: torch.Tensor, ac: torch
     return cb0.contiguous(), cb5.contiguous(), cbr1.contiguous()
 
 
-def fused_field_reference(embed, zvals, zdists, cb0, cb5, cbr1, w: FieldOperands):
+def fused_field_reference(embed, zvals, zdists, cb0, cb5, cbr1, w: FieldOperands,
+                          stash: bool = False):
     """Plain PyTorch version of the kernel, with its rounding points.
 
     bf16-in / f32-accumulate products are emulated by rounding each operand
     to bf16 and multiplying in f32.  Returns ``(feat_int [B,R,C], bg_alpha
-    [B,R], depth [B,R], weights [B,R,S])``, all f32.
+    [B,R], depth [B,R], weights [B,R,S])``, all f32.  With ``stash`` it
+    returns ``(outputs, acts)``: ``acts`` the activation stash the JAX
+    kernel writes under a gradient, the bf16 values x0..x7 and y0b
+    (``[B,R,S,H]``) and y1 (``[B,R,S,H/2]``) that its products read.
     """
     f32 = torch.float32
     B, R, S, De = embed.shape
@@ -134,15 +138,16 @@ def fused_field_reference(embed, zvals, zdists, cb0, cb5, cbr1, w: FieldOperands
         return x @ w_out_in.to(f32).t()
 
     e = rnd(embed.reshape(B, R * S, De))
-    x = rnd(torch.relu(dense(e, w.w0e[:, :De]) + cb0[:, None, :]))
+    acts = [rnd(torch.relu(dense(e, w.w0e[:, :De]) + cb0[:, None, :]))]
     mid = 0
     for i in range(1, 8):
         if i == 5:
-            y = dense(e, w.w5e[:, :De]) + dense(x, w.w5x) + cb5[:, None, :]
+            y = dense(e, w.w5e[:, :De]) + dense(acts[-1], w.w5x) + cb5[:, None, :]
         else:
-            y = dense(x, w.wmid[mid]) + w.bmid[mid]
+            y = dense(acts[-1], w.wmid[mid]) + w.bmid[mid]
             mid += 1
-        x = rnd(torch.relu(y))
+        acts.append(rnd(torch.relu(y)))
+    x = acts[-1]
     sigma = torch.relu(x @ w.wd.to(f32) + w.bd)  # [B, N]
     y0 = rnd(dense(x, w.wr0) + w.br0)
     y1 = rnd(torch.relu(dense(y0, w.wr1x) + cbr1[:, None, :]))
@@ -151,7 +156,10 @@ def fused_field_reference(embed, zvals, zdists, cb0, cb5, cbr1, w: FieldOperands
     alpha = 1.0 - torch.exp(-sigma.reshape(B, R, S) * zdists)
     wts = alpha * exclusive_transmittance(alpha)
     feat_int = torch.einsum("brs,brsc->brc", wts, feat)
-    return feat_int, 1.0 - wts.sum(-1), (wts * zvals).sum(-1), wts
+    out = (feat_int, 1.0 - wts.sum(-1), (wts * zvals).sum(-1), wts)
+    if not stash:
+        return out
+    return out, tuple(a.to(torch.bfloat16).reshape(B, R, S, -1) for a in (*acts, y0, y1))
 
 
 _ARGTYPES = [ctypes.c_void_p] * 22 + [ctypes.c_int] * 7 + [ctypes.c_void_p]

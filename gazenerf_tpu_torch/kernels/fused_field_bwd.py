@@ -85,7 +85,7 @@ def prepare_backward_operands(w: FieldOperands) -> BackwardOperands:
 
 def fused_field_backward_reference(
     embed, zvals, zdists, cb0, cb5, cbr1, w: FieldOperands, gfeat, gbga, gdepth, gw,
-    dtype=torch.float32,
+    dtype=torch.float32, stash=None,
 ) -> FieldGrads:
     """Plain PyTorch version of the kernel, with the Pallas kernel's
     formulas and rounding points: the forward recomputed with K1's bf16
@@ -93,7 +93,21 @@ def fused_field_backward_reference(
     activation and the bf16-rounded cotangent, summed in f32; f32 bias and
     conditioning-row sums.  ``embed`` is bf16 (its values are what the
     kernel reads); every output is f32.  ``dtype=torch.float64`` computes
-    between the same rounding points in float64 instead."""
+    between the same rounding points in float64 instead.  ``stash``, the
+    forward's bf16 activations x0..x7, y0b and y1
+    (``fused_field_reference(..., stash=True)``), takes the recompute's
+    place, as the Pallas kernel's stash-read mode does."""
+    grads, dembed5, dembed0 = fused_field_backward_parts(
+        embed, zvals, zdists, cb0, cb5, cbr1, w, gfeat, gbga, gdepth, gw, dtype, stash)
+    return grads._replace(dembed=dembed5 + dembed0)
+
+
+def fused_field_backward_parts(embed, zvals, zdists, cb0, cb5, cbr1, w: FieldOperands, gfeat,
+                               gbga, gdepth, gw, dtype=torch.float32, stash=None):
+    """:func:`fused_field_backward_reference` with the embedding cotangent
+    in its two parts, through ``fea_5``'s and through ``fea_0``'s embedding
+    rows (``dembed`` is None): the dual-branch backward sums them across
+    the branches in the Pallas kernel's order."""
     f32 = dtype
     B, R, S, De = embed.shape
 
@@ -109,22 +123,24 @@ def fused_field_backward_reference(
     def outer(x, g):  # x^T @ bf16(g) over every point of every batch
         return x.reshape(-1, x.shape[-1]).t() @ rnd(g).reshape(-1, g.shape[-1])
 
-    # ---- recompute ----
     e = rnd(embed.reshape(B, R * S, De))
-    acts = [rnd(torch.relu(dense(e, w.w0e[:, :De]) + cb0[:, None, :]))]
-    mid = 0
-    for i in range(1, 8):
-        if i == 5:
-            y = dense(e, w.w5e[:, :De]) + dense(acts[4], w.w5x) + cb5[:, None, :]
-        else:
-            y = dense(acts[-1], w.wmid[mid]) + w.bmid[mid]
-            mid += 1
-        acts.append(rnd(torch.relu(y)))
+    if stash is None:  # ---- recompute ----
+        acts = [rnd(torch.relu(dense(e, w.w0e[:, :De]) + cb0[:, None, :]))]
+        mid = 0
+        for i in range(1, 8):
+            if i == 5:
+                y = dense(e, w.w5e[:, :De]) + dense(acts[4], w.w5x) + cb5[:, None, :]
+            else:
+                y = dense(acts[-1], w.wmid[mid]) + w.bmid[mid]
+                mid += 1
+            acts.append(rnd(torch.relu(y)))
+        y0b = rnd(dense(acts[7], w.wr0) + w.br0)
+        y1 = rnd(torch.relu(dense(y0b, w.wr1x) + cbr1[:, None, :]))
+    else:  # ---- the stash ----
+        *acts, y0b, y1 = (a.reshape(B, R * S, -1).to(f32) for a in stash)
     x7 = acts[7]
     dens_pre = x7 @ w.wd.to(f32) + w.bd  # [B, N]
     sigma = torch.relu(dens_pre).reshape(B, R, S)
-    y0b = rnd(dense(x7, w.wr0) + w.br0)
-    y1 = rnd(torch.relu(dense(y0b, w.wr1x) + cbr1[:, None, :]))
     feat = (y1 @ w.wr2.to(f32) + w.br2).reshape(B, R, S, -1)
 
     expterm = torch.exp(-sigma * zdists)
@@ -162,7 +178,7 @@ def fused_field_backward_reference(
             dW5e = outer(e, dpre)
             dW5x = outer(acts[4], dpre)
             dcb5 = dpre.sum(1)
-            dembed = dpre @ w.w5e[:, :De].to(f32)
+            dembed5 = dpre @ w.w5e[:, :De].to(f32)
             dx = dgrad(dpre, w.w5x)
         else:
             dWmid[mid] = outer(acts[i - 1], dpre)
@@ -171,16 +187,17 @@ def fused_field_backward_reference(
             mid -= 1
     dpre = torch.where(acts[0] > 0.0, dx, 0.0)
     dW0e = outer(e, dpre)
-    dembed = dembed + dpre @ w.w0e[:, :De].to(f32)
+    dembed0 = dpre @ w.w0e[:, :De].to(f32)
 
-    return FieldGrads(
-        dembed=dembed.reshape(B, R, S, De), dzvals=dzvals, dzdists=dzdists,
+    grads = FieldGrads(
+        dembed=None, dzvals=dzvals, dzdists=dzdists,
         dcb0=dpre.sum(1), dcb5=dcb5, dcbr1=dy1.sum(1),
         dW0e=dW0e, dWmid=torch.stack(dWmid), dbmid=torch.stack(dbmid),
         dW5e=dW5e, dW5x=dW5x, dWd=dWd, dbd=dpre_dens.sum().reshape(1),
         dWr0=dWr0, dbr0=dy0.sum((0, 1)), dWr1x=dWr1x, dWr2=dWr2,
         dbr2=dfeat.sum((0, 1)),
     )
+    return grads, dembed5.reshape(B, R, S, De), dembed0.reshape(B, R, S, De)
 
 
 @torch.enable_grad()  # also when called from a backward

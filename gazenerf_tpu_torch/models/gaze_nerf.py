@@ -8,23 +8,27 @@ shared by both branches.
 
 With ``compute_dtype="bfloat16"`` and ``use_pallas`` the fields run through
 the fused field kernels (``kernels/fused_field``: the forward kernel, and
-under autograd the backward kernel as its gradient, recompute mode);
-otherwise through :class:`NeRFFieldMLP` in the compute dtype, then
-:func:`integrate_rays`.
+under autograd the backward kernel as its gradient, recompute mode), or
+with ``pallas_dual_branch`` both fields in one dual-branch kernel
+(``kernels/fused_field2``; with ``pallas_stash_acts`` its backward reads the
+forward's bf16 activation stash); otherwise through :class:`NeRFFieldMLP`
+in the compute dtype, then :func:`integrate_rays`.
 
 The port runs the render and the training forward (``train=True``: jittered
-samples) in the default configuration; the options below raise
-``NotImplementedError``.
+samples) in the default configuration and with the dual-branch kernels;
+the options below raise ``NotImplementedError``, naming the ROADMAP item
+that ports them.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 from torch import nn
 
 from gazenerf_tpu_torch.config import ModelConfig
+from gazenerf_tpu_torch.kernels.fused_field2 import fused_dual_render, stack_operands
 from gazenerf_tpu_torch.models.mlp_nerf import NeRFFieldMLP
 from gazenerf_tpu_torch.models.neural_renderer import SHUFFLE_MODES, NeuralRenderer
 from gazenerf_tpu_torch.ops.embedding import positional_encoding
@@ -34,23 +38,21 @@ from gazenerf_tpu_torch.ops.rotation import rotate_feature_planes
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float64": torch.float64}
 
-# settings outside this slice: (field, value the port runs)
+# settings not ported yet: (field, value the port runs, the ROADMAP item)
 _PORTED = (
-    ("hier_sampling", False),
-    ("include_vd", False),
-    ("ray_chunk", 0),
-    ("pallas_dual_branch", False),
-    ("pallas_fuse_embed", False),
-    ("pallas_dens_vpu", False),
-    ("pallas_stash_acts", False),
-    ("pallas_stash_every", 1),
-    ("pallas_stash_dtype", "bfloat16"),
-    ("pallas_split_dw", False),
-    ("pallas_embed_bf16", False),
-    ("batch_renderer_passes", False),
-    ("batch_fg_passes", False),
-    ("renderer_fold_feat", True),
-    ("renderer_rgb_cf", True),
+    ("hier_sampling", False, "Queue 1 item 8"),
+    ("include_vd", False, "Queue 1 item 8"),
+    ("ray_chunk", 0, "Queue 1 item 8"),
+    ("pallas_fuse_embed", False, "Queue 2, remaining mode 4"),
+    ("pallas_dens_vpu", False, "Queue 2, remaining mode 3"),
+    ("pallas_stash_every", 1, "Queue 2, remaining mode 1"),
+    ("pallas_stash_dtype", "bfloat16", "Queue 2, remaining mode 1"),
+    ("pallas_split_dw", False, "Queue 2, remaining mode 2"),
+    ("pallas_embed_bf16", False, "Queue 2, remaining mode 4"),
+    ("batch_renderer_passes", False, "Queue 1 item 8"),
+    ("batch_fg_passes", False, "Queue 1 item 8"),
+    ("renderer_fold_feat", True, "Queue 1 item 4"),
+    ("renderer_rgb_cf", True, "Queue 1 item 4"),
 )
 
 
@@ -74,12 +76,18 @@ class GazeNeRF(nn.Module):
 
     def __init__(self, cfg: ModelConfig, device=None, seed: int = 0):
         super().__init__()
-        for name, value in _PORTED:
+        for name, value, item in _PORTED:
             if getattr(cfg, name) != value:
                 raise NotImplementedError(
                     f"{name}={getattr(cfg, name)!r} is not ported yet "
-                    f"(the port runs {name}={value!r})"
+                    f"(the port runs {name}={value!r}; ROADMAP {item})"
                 )
+        # the activation stash is ported for the dual-branch kernels only
+        if cfg.pallas_stash_acts and not cfg.pallas_dual_branch:
+            raise NotImplementedError(
+                "pallas_stash_acts=True without pallas_dual_branch is not ported yet (the "
+                "single-branch stash: ROADMAP Queue 2, remaining mode 1)"
+            )
         # JAX's "phase" and "naive" renderer modes are not ported;
         # ``pallas_interpret`` has no meaning in the port and is ignored
         if cfg.shuffle_mode not in SHUFFLE_MODES:
@@ -116,6 +124,8 @@ class GazeNeRF(nn.Module):
             dtype=_DTYPES[cfg.renderer_dtype],
             shuffle_mode=cfg.shuffle_mode,
         )
+        # (both fields' kernel operands, their stack); see _dual_operands
+        self._stacked = None
         gen = torch.Generator().manual_seed(seed)
         self.fg_CD_predictor_face.reset_parameters(gen)
         self.fg_CD_predictor_eyes.reset_parameters(gen)
@@ -126,6 +136,45 @@ class GazeNeRF(nn.Module):
     def fused(self) -> bool:
         """Whether the fields run through the fused field kernel."""
         return self.cfg.use_pallas and self.cfg.compute_dtype == "bfloat16"
+
+    @property
+    def dual(self) -> bool:
+        """Whether both fields run through the dual-branch kernel: only where
+        the fused kernels apply (elsewhere ``pallas_dual_branch`` is ignored,
+        as in the JAX package)."""
+        return self.fused and self.cfg.pallas_dual_branch
+
+    def _dual_operands(self):
+        """Both fields' weight blocks and their stacked bf16 operands; the
+        stack is rebuilt when either field's operands are."""
+        blocks = [f.kernel_blocks() for f in (self.fg_CD_predictor_face,
+                                              self.fg_CD_predictor_eyes)]
+        ops = tuple(o for _, o in blocks)
+        if self._stacked is None or any(a is not b for a, b in zip(self._stacked[0], ops)):
+            self._stacked = (ops, stack_operands(ops))
+        return [p for p, _ in blocks], self._stacked[1]
+
+    def _render_both(
+        self,
+        embed: torch.Tensor,
+        shape_ext_code: torch.Tensor,
+        appea_code: torch.Tensor,
+        samples: SampleSet,
+    ) -> Tuple[Integrated, Integrated]:
+        """Both streams: one dual-branch kernel when it applies, else one
+        field at a time (JAX ``_render_both_impl``)."""
+        if self.dual:
+            ps, ops = self._dual_operands()
+            outs = fused_dual_render(ps, ops, embed, shape_ext_code, appea_code,
+                                     samples.zvals, samples.z_dists,
+                                     stash_acts=self.cfg.pallas_stash_acts)
+            face, eyes = (Integrated(features=o[0], bg_alpha=o[1], depth=o[2], weights=o[3])
+                          for o in outs)
+            return face, eyes
+        return tuple(
+            self._render_branch(f, embed, shape_ext_code, appea_code, samples)
+            for f in (self.fg_CD_predictor_face, self.fg_CD_predictor_eyes)
+        )
 
     def _render_branch(
         self,
@@ -183,12 +232,7 @@ class GazeNeRF(nn.Module):
         embed = positional_encoding(samples.pts, cfg.vp_n_freqs, cfg.include_input_vp)
         shape_ext_code = torch.cat([shape_code, gaze_code.reshape(B, 2)], dim=-1)
 
-        face = self._render_branch(
-            self.fg_CD_predictor_face, embed, shape_ext_code, appea_code, samples
-        )
-        eyes = self._render_branch(
-            self.fg_CD_predictor_eyes, embed, shape_ext_code, appea_code, samples
-        )
+        face, eyes = self._render_both(embed, shape_ext_code, appea_code, samples)
 
         bg_featmap = self.neural_render.get_bg_featmap()
         merge_featmap_face = (

@@ -102,18 +102,22 @@ class NeRFFieldMLP(nn.Module):
                 self._operands = (key, p, prepare_operands(p))
         return self._operands[1], self._operands[2]
 
-    def fused_render(self, embed_vp, shape_cond, appea_cond, zvals, zdists):
-        """Field + integration through the fused field kernels (bf16).
-
-        Under autograd the weight blocks are views of the parameters, so the
-        backward kernel's gradients reach them; the bf16 operands come from
-        the per-weight-set cache either way.
-
-        Returns ``(feat_int [B,R,C], bg_alpha [B,R], depth [B,R], w [B,R,S])``.
-        """
+    def kernel_blocks(self) -> Tuple[Dict, FieldOperands]:
+        """:meth:`kernel_operands` for a call: under autograd the weight
+        blocks are views of the parameters, so the backward kernels'
+        gradients reach them; the bf16 operands come from the per-weight-set
+        cache either way."""
         p, ops = self.kernel_operands()
         if torch.is_grad_enabled():
             p = split_params(self.flat(), self.embed_dims)
+        return p, ops
+
+    def fused_render(self, embed_vp, shape_cond, appea_cond, zvals, zdists):
+        """Field + integration through the fused field kernels (bf16).
+
+        Returns ``(feat_int [B,R,C], bg_alpha [B,R], depth [B,R], w [B,R,S])``.
+        """
+        p, ops = self.kernel_blocks()
         return fused_field_render(p, ops, embed_vp, shape_cond, appea_cond, zvals, zdists)
 
     def forward(

@@ -30,11 +30,13 @@ missing = sorted(set(EXPECTED) - set(names))
 print(len(names), bad, missing)
 """
 
-# the modules of the three slices: the render, the training step and the
-# renderer's kernel modes
+# the modules of the four slices: the render, the training step, the
+# renderer's kernel modes and the dual-branch field path
 EXPECTED = [
     "gazenerf_tpu_torch.kernels.checks",
     "gazenerf_tpu_torch.kernels.fused_field",
+    "gazenerf_tpu_torch.kernels.fused_field2",
+    "gazenerf_tpu_torch.kernels.fused_field2_bwd",
     "gazenerf_tpu_torch.kernels.fused_field_bwd",
     "gazenerf_tpu_torch.kernels.fused_upsampler",
     "gazenerf_tpu_torch.kernels.shuffle_blur",
@@ -51,7 +53,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         [sys.executable, "-c", f"EXPECTED = {EXPECTED!r}\n" + _IMPORT_ALL], cwd=REPO,
         capture_output=True, text=True, timeout=120, check=True,
     ).stdout.split(maxsplit=1)
-    assert int(out[0]) >= 32  # every submodule was imported
+    assert int(out[0]) >= 34  # every submodule was imported
     assert out[1].strip() == "[] []"
 
 

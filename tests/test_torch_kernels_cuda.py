@@ -17,6 +17,8 @@ from gazenerf_tpu_torch import Config, GazeNeRF, LossConfig, Trainer, small_test
 from gazenerf_tpu_torch.data.cameras import base_inv_inmat
 from gazenerf_tpu_torch.kernels import checks
 from gazenerf_tpu_torch.kernels import fused_field as ff
+from gazenerf_tpu_torch.kernels import fused_field2 as ff2
+from gazenerf_tpu_torch.kernels import fused_field2_bwd as ffb2
 from gazenerf_tpu_torch.kernels import fused_field_bwd as ffb
 from gazenerf_tpu_torch.kernels import fused_upsampler as fu
 from gazenerf_tpu_torch.kernels import shuffle_blur as sb
@@ -314,3 +316,202 @@ def test_render_mode_on_card_goes_through_its_kernel(card, mode):
         plain = model(*args)["coarse_dict"]["merge_img"].float()
     assert torch.isfinite(img).all()
     torch.testing.assert_close(img, plain, atol=3e-2, rtol=0)
+
+
+# ---------------------------------------------------------------------------
+# the dual-branch kernels: the forward (K3) and the stash-reading backward (K4)
+
+
+def _dual_counts():
+    return ff.launch_count, ffb.launch_count, ff2.launch_count, ffb2.launch_count
+
+
+@pytest.mark.parametrize("case", list(checks.DUAL_CASES))
+def test_fused_dual_matches_plain_version(card, case):
+    """K3 with the stash against its plain version: each branch's outputs
+    within ``K3_LIMITS``, the stash within ``K3_STASH_LIMITS``; without the
+    stash each branch equals K1 on that branch to the bit
+    (``K3_VS_K1_MAX_ABS_ERR``).  One launch per call."""
+    args, _ = checks.dual_case(*checks.DUAL_CASES[case], card)
+    with torch.no_grad():
+        before = _dual_counts()
+        got, acts = ff2.fused_dual_forward(*args, stash=True)
+        torch.cuda.synchronize()
+        assert _dual_counts() == (*before[:2], before[2] + 1, before[3])
+        want, want_acts = ff2.fused_dual_reference(*args, stash=True)
+        readings, fails = checks.k3_failures(case, got, want)
+        stash_readings, stash_fails = checks.k3_stash_failures(case, acts, want_acts)
+        print(json.dumps({"k3_case": case, "readings": readings, "stash": stash_readings}))
+        assert not fails + stash_fails, fails + stash_fails
+        del acts, want_acts
+        plain = ff2.fused_dual_forward(*args)
+        for i, g in enumerate(plain):
+            single = ff.fused_field_forward(*args[:3], *(t[i] for t in args[3:6]),
+                                            ff2.branch_operands(args[6], i))
+            for n, a, b in zip(NAMES, g, single):
+                err = float((a - b).abs().max())
+                assert err <= checks.K3_VS_K1_MAX_ABS_ERR, (i, n, err)
+            for n, a, b in zip(NAMES, g, got[i]):  # the stash changes no output
+                assert torch.equal(a, b), (i, n)
+
+
+@pytest.fixture(scope="module")
+def dual_backward_cases():
+    """Per dual case: K3's inputs, cotangents and stash, made once."""
+    out = {}
+
+    def get(case, card, seed=0):
+        key = (case, seed)
+        if key not in out:
+            out.clear()  # one stash on the card at a time
+            args, cot = checks.dual_case(*checks.DUAL_CASES[case], card, seed=seed)
+            with torch.no_grad():
+                _, acts = ff2.fused_dual_forward(*args, stash=True)
+            out[key] = (args, cot, acts)
+        return out[key]
+
+    return get
+
+
+@pytest.mark.parametrize("case", list(checks.DUAL_CASES))
+def test_fused_dual_backward_matches_plain_version(card, dual_backward_cases, case):
+    """K4 against its plain version on K3's stash, every output within its
+    case's limits (``kernels/checks.py``); two launches give the same bits
+    (the slabs are summed in CTA order)."""
+    args, cot, acts = dual_backward_cases(case, card)
+    with torch.no_grad():
+        before = _dual_counts()
+        got = ffb2.fused_dual_backward(*args, *cot, acts)
+        torch.cuda.synchronize()
+        assert _dual_counts() == (*before[:3], before[3] + 1)
+        want = ffb2.fused_dual_backward_reference(*args, *cot, acts)
+        again = ffb2.fused_dual_backward(*args, *cot, acts)
+    readings, fails = checks.k4_failures(case, got, want)
+    print(json.dumps({"k4_case": case, "readings": readings}))
+    assert not fails, fails
+    for n, a, c in zip(ffb2.DualGrads._fields, got, again):
+        assert torch.equal(a, c), f"{n}: two launches differ"
+
+
+@pytest.mark.parametrize("case", list(checks.DUAL_CASES))
+def test_fused_dual_backward_matches_k2_per_branch(card, dual_backward_cases, case):
+    """K4 against K2 run on each branch, the shared cotangents summed: the
+    two share the tile body, K4 reads K3's stash where K2 recomputes, so
+    they differ by the density head's and the branches' f32 summation
+    orders (``K4_VS_K2_LIMITS``)."""
+    args, cot, acts = dual_backward_cases(case, card)
+    with torch.no_grad():
+        got = ffb2.fused_dual_backward(*args, *cot, acts)
+        per = [ffb.fused_field_backward(*args[:3], *(t[i] for t in args[3:6]),
+                                        ff2.branch_operands(args[6], i), *cot[i])
+               for i in range(2)]
+        want = ffb2.sum_branches(per)
+    readings, fails = checks.k4_vs_k2_failures(case, got, want)
+    print(json.dumps({"k4_vs_k2": case, "readings": readings}))
+    assert not fails, fails
+
+
+@pytest.mark.parametrize("case, seed", [("narrow", 0), ("narrow", 1), ("training", 0)])
+def test_fused_dual_backward_as_close_to_unrounded_as_plain(card, dual_backward_cases, case,
+                                                            seed):
+    """Per output, K4 lies at most ``K4_TRUTH_RATIO`` times as far from the
+    unrounded float64 gradient as the farther of its plain version and the
+    plain version computed in float64 on the same stash."""
+    args, cot, acts = dual_backward_cases(case, card, seed)
+    with torch.no_grad():
+        got = ffb2.fused_dual_backward(*args, *cot, acts)
+        want = ffb2.fused_dual_backward_reference(*args, *cot, acts)
+        want64 = ffb2.fused_dual_backward_reference(*args, *cot, acts, dtype=torch.float64)
+    exact = ffb2.fused_dual_backward_unrounded(*args, *cot)
+    dist, fails = checks.truth_failures(got, want, want64, exact, checks.K4_TRUTH_RATIO,
+                                        checks.K4_TRUTH_EXEMPT)
+    print(json.dumps({"k4_truth": case, "seed": seed, "float64": dist}))
+    assert not fails, fails
+
+
+def test_dual_cuda_tensors_never_take_the_plain_version(card):
+    """CUDA inputs the dual kernels cannot take raise."""
+    args, cot = checks.dual_case(64, 8, 16, card)
+    bad = (args[0][:, :, :7].contiguous(), args[1][:, :, :7].contiguous(),
+           args[2][:, :, :7].contiguous(), *args[3:])  # 7 samples do not tile 128 points
+    with pytest.raises(ValueError, match="whole rays"):
+        ff2.fused_dual_forward(*bad)
+    with torch.no_grad():
+        _, acts = ff2.fused_dual_forward(*args, stash=True)
+    with pytest.raises(ValueError, match="stash"):
+        ffb2.fused_dual_backward(*args, *cot, (acts[0], acts[1][:9]))
+
+
+def _small_dual_model(stash):
+    return dataclasses.replace(small_test_config(), compute_dtype="bfloat16",
+                               renderer_dtype="bfloat16", use_pallas=True,
+                               pallas_dual_branch=True, pallas_stash_acts=stash)
+
+
+def test_dual_render_on_card_goes_through_k3(card):
+    """The small bf16 model on the dual-branch path: one K3 launch per
+    render and no K1; the image within the bf16 image bound (3e-2) of the
+    same render with the plain versions, and equal to the single-branch
+    render's (K3 without the stash is K1 per branch, bit for bit)."""
+    cfg = _small_dual_model(True)
+    model = GazeNeRF(cfg).eval()
+    R, T, K = (torch.from_numpy(a).to(card) for a in lookat_camera(10, -5, 12.0, cfg.featmap_size))
+    args = (pixel_grid(cfg.featmap_size, device=card)[None],
+            0.1 * torch.ones(1, cfg.shape_code_dims, device=card),
+            0.1 * torch.ones(1, cfg.appea_code_dims, device=card),
+            torch.tensor([[0.2, -0.3]], device=card), R, T, K)
+    before = _dual_counts()
+    with torch.no_grad():
+        img = model(*args)["coarse_dict"]["merge_img"].float()
+    assert tuple(a - b for a, b in zip(_dual_counts(), before)) == (0, 0, 1, 0)
+    with checks.plain_versions(), torch.no_grad():
+        plain = model(*args)["coarse_dict"]["merge_img"].float()
+    single = GazeNeRF(dataclasses.replace(cfg, pallas_dual_branch=False,
+                                          pallas_stash_acts=False)).eval()
+    single.load_state_dict(model.state_dict())
+    with torch.no_grad():
+        img1 = single(*args)["coarse_dict"]["merge_img"].float()
+    assert torch.isfinite(img).all()
+    torch.testing.assert_close(img, plain, atol=3e-2, rtol=0)
+    torch.testing.assert_close(img, img1, atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("stash", [True, False], ids=["stash", "recompute"])
+def test_dual_training_step_on_card(card, stash):
+    """One step of the small bf16 model on the dual-branch path: with the
+    stash one K3 and one K4 launch, without it one K3 and two K2 (one per
+    branch), never K1; finite gradients, and the step's losses with the
+    plain versions within 1e-3 (relative)."""
+    model = _small_dual_model(stash)
+    trainer = Trainer(Config(model=model, loss=LossConfig(use_vgg_loss=False)),
+                      train_len=4, steps_per_epoch=1)
+    gen = torch.Generator().manual_seed(0)
+    size, fs = model.pred_img_size, model.featmap_size
+    inmat = torch.linalg.inv(torch.from_numpy(base_inv_inmat(fs)))
+    inmat[:2] *= size / fs
+    batch = {
+        "image": torch.rand(2, size, size, 3, generator=gen),
+        "head_mask": (torch.rand(2, size, size, generator=gen) > 0.3).float(),
+        "left_eye_mask": (torch.rand(2, size, size, generator=gen) > 0.9).float(),
+        "right_eye_mask": (torch.rand(2, size, size, generator=gen) > 0.9).float(),
+        "code": 0.1 * torch.randn(2, 306, generator=gen),
+        "sample_idx": torch.tensor([0, 3]),
+        "pitchyaw": 0.2 * torch.randn(2, 2, generator=gen),
+        "c2w_Rmat": torch.diag(torch.tensor([1.0, -1.0, -1.0])).expand(2, 3, 3),
+        "c2w_Tvec": torch.tensor([[0.0, 0.0, 12.0]]).expand(2, 3),
+        "inmat": inmat.expand(2, 3, 3),
+    }
+    t_rand = torch.rand(2, model.num_rays, model.num_sample_coarse + 1, device=card)
+    before = _dual_counts()
+    losses = trainer.train_step(batch, t_rand=t_rand, update=False)
+    torch.cuda.synchronize()
+    used = tuple(a - b for a, b in zip(_dual_counts(), before))
+    assert used == ((0, 0, 1, 1) if stash else (0, 2, 1, 0))
+    for g in trainer.optimizer.param_groups:
+        for p in g["params"]:
+            assert p.grad is not None and torch.isfinite(p.grad).all(), g["name"]
+    with checks.plain_versions():
+        plain = trainer.train_step(batch, t_rand=t_rand, update=False)
+    for k, v in losses.items():
+        assert torch.isfinite(v), k
+        torch.testing.assert_close(v, plain[k], rtol=1e-3, atol=1e-6, msg=k)

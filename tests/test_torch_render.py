@@ -272,7 +272,7 @@ def test_viewer_serves_render_over_http(jax_setup):
         dict(hier_sampling=True),
         dict(include_vd=True),
         dict(ray_chunk=64),
-        dict(pallas_dual_branch=True),
+        dict(pallas_stash_acts=True),  # without pallas_dual_branch
         dict(pallas_fuse_embed=True),
         dict(pallas_dens_vpu=True),
         dict(batch_renderer_passes=True),
