@@ -11,7 +11,10 @@ Phases (each raises on failure, so any failed phase exits non-zero):
 3. kernels: the field forward (K1) against its plain PyTorch version at the
    render's shapes; the field backward (K2) against its plain version in a
    narrow case (hidden 64) and at the training step's shape, where it is also
-   held against the unrounded float64 gradient; the renderer's blur-shuffle
+   held against the unrounded float64 gradient, with its device time per
+   kernel (``k2_profile``); the backwards' weight-gradient GEMM on one full
+   chunk of the training step against its plain version, timed beside
+   ``torch.matmul`` on the same bf16 operands (``dw``); the renderer's blur-shuffle
    stencil (K5, K6) at its three levels and fused upsampler block (K7, K8)
    at its three blocks (bf16, B=2) against their plain versions, K8 also
    against the unrounded float64 gradient and for equal bits over two
@@ -19,8 +22,9 @@ Phases (each raises on failure, so any failed phase exits non-zero):
    step's shapes against its plain version (outputs and stash) and against
    K1 on each branch, and its stash-reading backward (K4) in the narrow case
    and at the training step's shape against its plain version, against K2
-   on each branch, against the unrounded float64 gradient and for equal
-   bits over two launches; each timed (CUDA events) beside its bound.  The
+   on each branch (the weight gradients to the bit), against the unrounded
+   float64 gradient and for equal bits over two launches (``k4_profile``);
+   each timed (CUDA events) beside its bound.  The
    limits are in ``kernels/checks.py``;
 4. serving: per variant (the renderer modes ``phase_gm``, ``pallas``,
    ``fused``, and ``dual``: both fields in the dual-branch kernels with the
@@ -41,7 +45,8 @@ Phases (each raises on failure, so any failed phase exits non-zero):
    single-branch step and the step without the stash, which launches K3
    once and K2 twice); then where a step's time goes.
 
-Prints ``serving``, ``training`` and ``kernels`` JSON lines, the
+Prints ``k2_profile``, ``dw``, ``k4_profile``, ``serving``, ``training`` and
+``kernels`` JSON lines, the
 ``nvidia-smi`` line and, last, the device JSON line.  Exits non-zero without
 a result when no CUDA card is present.  Imports nothing of JAX.
 """
@@ -570,8 +575,14 @@ def phase_dual_kernels(seed, cfg, iters):
             torch.cuda.synchronize()
             want = ffb2.fused_dual_backward_reference(*a, *c, st)
             r4, case_fails = checks.k4_failures(case, got, want)
-            r42, f42 = checks.k4_vs_k2_failures(case, got, per_branch_k2(a, c))
+            k2 = per_branch_k2(a, c)
+            r42, f42 = checks.k4_vs_k2_failures(case, got, k2)
             case_fails += [f"vs K2: {f}" for f in f42]
+            # one weight-gradient GEMM fed the same chunks: the same bits
+            case_fails += [f"vs K2: {n} not equal to the bit"
+                           for n, x, y in zip(ffb2.DualGrads._fields, got, k2)
+                           if n not in ("dembed", "dzvals", "dzdists") and not torch.equal(x, y)]
+            del k2
         line = {"k4_case": case, "seed": seed, "readings": r4, "vs_k2_readings": r42}
         if case == "training":
             with torch.no_grad():
@@ -592,6 +603,8 @@ def phase_dual_kernels(seed, cfg, iters):
     with torch.no_grad():
         k4_iters = max(4, iters // 4)
         k4_ms = cuda_ms(lambda: ffb2.fused_dual_backward(*args, *cot, acts), k4_iters)
+        print(json.dumps({"k4_profile": device_profile(
+            lambda: ffb2.fused_dual_backward(*args, *cot, acts), top=6)}))
         k4_plain_ms = cuda_ms(lambda: ffb2.fused_dual_backward_reference(*args, *cot, acts),
                               max(2, k4_iters // 4), warmup=1)
     return (
@@ -680,11 +693,11 @@ def kernel_ms(rows, mode):
     for key, _, ms in rows:
         if "dual_fwd_kernel" in key:
             name = "fused_dual_fwd"
-        elif "dual_bwd_kernel" in key or "dual_slab_sum" in key:
+        elif any(f"dual_{k}_kernel" in key for k in ("bwd", "dw", "dwsum", "head", "sum")):
             name = "fused_dual_bwd"
         elif "field_fwd_kernel" in key:
             name = "fused_field_fwd"
-        elif "field_bwd_kernel" in key or "reduce_slabs" in key:
+        elif any(f"field_{k}_kernel" in key for k in ("bwd", "dw", "dwsum", "head", "sum")):
             name = "fused_field_bwd"
         elif renderer and ("stencil::fwd_kernel" in key or "chain_kernel" in key):
             name = f"{renderer}_fwd"
@@ -832,10 +845,55 @@ def phase_k2(seed, iters):
         ms = cuda_ms(lambda: ffb.fused_field_backward(*args, *cot), iters)
         plain_ms = cuda_ms(lambda: ffb.fused_field_backward_reference(*args, *cot),
                            max(2, iters // 4), warmup=1)
+        # the device time of one call by kernel: the tile kernel, the dW GEMM,
+        # the head's and the per-CTA sums, over all chunks
+        print(json.dumps({"k2_profile": device_profile(
+            lambda: ffb.fused_field_backward(*args, *cot), top=6)}))
     bound_ms, bound_by = k2_bound(args, cot, got)
     return kernel_entry("fused_field_bwd", "fused_field_bwd.cu",
                         "gazenerf_tpu/kernels/fused_field_bwd.py:44", max_err, ms, plain_ms,
                         bound_ms, bound_by)
+
+
+def phase_dw(seed, iters):
+    """The backwards' weight-gradient GEMM (csrc/field_dw.cuh) on one full
+    chunk of the training step (528 tiles of 64 points, hidden 384): K2's
+    eleven products of a chunk in one launch, against their plain versions
+    (the f32 products of the same bf16 operands), timed beside its bound and
+    beside ``torch.matmul`` on the same bf16 operands, the yardstick, which
+    the port never calls.  Prints the ``dw`` line."""
+    import torch
+
+    from gazenerf_tpu_torch.kernels import checks, field_dw
+
+    dev = torch.device("cuda")
+    H, Kp, P = 384, 64, field_dw.CHUNK_TILES * field_dw.TILE_POINTS
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    # (M, N) of K2's products per chunk: Wr1x, Wr0, Wmid x2, W5x, W5e, Wmid x4, W0e
+    widths = [(H, H // 2), (H, H), (H, H), (H, H), (H, H), (Kp, H)] + [(H, H)] * 4 + [(Kp, H)]
+    xs = [torch.randn(P, m, device=dev, generator=gen).to(torch.bfloat16) for m, _ in widths]
+    ds = [torch.randn(P, n, device=dev, generator=gen).to(torch.bfloat16) for _, n in widths]
+    with torch.no_grad():
+        outs = field_dw.weight_grad(xs, ds)
+        torch.cuda.synchronize()
+        errs = []
+        for x, d, o in zip(xs, ds, outs):
+            want = field_dw.weight_grad_reference(x, d)
+            errs.append(float((o - want).abs().max()) / float(want.abs().max()))
+        check(max(errs) <= checks.DW_MAX_REL_ERR,
+              f"dW GEMM vs plain: ratio {max(errs):.3e} (limit {checks.DW_MAX_REL_ERR})")
+        ms = cuda_ms(lambda: field_dw.weight_grad(xs, ds, outs), iters)
+        plain_ms = cuda_ms(lambda: [field_dw.weight_grad_reference(x, d) for x, d in zip(xs, ds)],
+                           max(2, iters // 4), warmup=1)
+        library_ms = cuda_ms(lambda: [torch.matmul(x.t(), d) for x, d in zip(xs, ds)], iters)
+    flops = 2 * P * sum(m * n for m, n in widths)
+    bound_ms, bound_by = bound([flops / PEAK_BF16_FLOPS], nbytes(*xs, *ds, *outs) / PEAK_BYTES_PER_S)
+    line = {"points": P, "products": len(widths), "max_ratio_vs_plain": max(errs),
+            "limit": checks.DW_MAX_REL_ERR, "ms_per_launch": ms, "plain_ms": plain_ms,
+            "torch_matmul_bf16_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "tflops": flops / ms / 1e9}
+    print(json.dumps({"dw": line}))
+    return line
 
 
 def synthetic_batch(seed, B, size, featmap_size):
@@ -1117,6 +1175,7 @@ def main() -> int:
     # 3. kernels vs plain versions
     k1 = phase_kernels(args.seed, cfg, args.iters)
     k2 = phase_k2(args.seed, max(4, args.iters // 4))
+    phase_dw(args.seed, args.iters)
     k5, k6, k7, k8 = phase_renderer_kernels(args.seed, args.iters)
     k3, k4 = phase_dual_kernels(args.seed, cfg, args.iters)
     torch.cuda.empty_cache()

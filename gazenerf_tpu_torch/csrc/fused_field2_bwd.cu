@@ -6,9 +6,8 @@
 // from x7, then runs the shared tile backward (csrc/field_bwd.cuh: the
 // integration backward, the heads, the 8-layer trunk) for the face branch,
 // then for the eye branch.  The two branches' embedding, z-value and
-// segment-length cotangents are summed in shared memory and stored once;
-// the weight, bias and conditioning-row gradients go to one private slab set
-// per branch.
+// segment-length cotangents are summed in place; the weight gradients come
+// from the dW GEMM per branch (csrc/field_dw.cuh).
 //
 // Replaces the TPU kernel gazenerf_tpu/kernels/fused_field2_bwd.py:_bwd_kernel
 // (launched by dual_backward).
@@ -28,14 +27,22 @@
 // 3.35 TB/s) and ~0.3 GB of other traffic.  Bound by bf16 tensor-core
 // operations.
 //
-// Design (correct and simple first): one persistent CTA per SM walks the
-// tiles; each tile runs branch 0 then branch 1 in the same CTA, so the sum
-// of the shared cotangents needs no second pass and no atomics.  A stash
-// slot's tile rows are read back with 16-byte loads, one layer at a time,
-// where the recompute backward reads its per-CTA scratch.  The stash is
-// indexed in 64 bits.  Slabs are summed in CTA order per branch: the same
-// bits on every run.  Scratch: 2 x gridDim.x slabs of slab_len floats (~1.4
-// GB for 132 CTAs at hidden 384).
+// Design: as the single-branch backward's (csrc/fused_field_bwd.cu), per
+// chunk of whole tiles (kernels/field_dw.py) three kinds of launch.
+// dual_bwd_kernel: one CTA per SM walks the chunk's tiles; each tile runs
+// branch 0 then branch 1 in the same CTA, which adds the branches' embedding,
+// z-value and segment-length cotangents in place (the same threads own the
+// same elements), so their sum needs no second pass and no atomics.  The
+// ReLU masks are read from the stash (indexed in 64 bits), the padded
+// embedding is written to the chunk buffer once, and each branch's bf16
+// cotangents and folded-head sums go to its own half of the chunk buffer.
+// Then per branch dual_dw_kernel (dW (+)= X^T D, X read from the stash) and
+// dual_head_kernel, and after the last chunk dual_sum_kernel sums the
+// per-CTA buffers in CTA order.  Each branch's weight gradients see the same
+// chunks, products and sums in the same order as the single-branch
+// backward's: the same bits as K2 run on that branch.  Scratch: ~14.7 KB per
+// point of the chunk (both branches' cotangents and the embedding) and
+// 2 x gridDim.x small buffers.
 
 #include "field_bwd.cuh"
 
@@ -49,8 +56,7 @@ struct Branch {
   const float* gbga;           // [B, R]
   const float* gdepth;         // [B, R]
   const float* gw;             // [B, R, S]
-  const bf16* stash[kSlots];   // [B, R, S, H] x0..x7, y0b; [B, R, S, H/2] y1
-  float* slabs;                // [gridDim.x, slab_len]
+  const bf16* stash[kXSlots + 1];  // [B, R, S, H] x0..x7, y0b; [B, R, S, H/2] y1
 };
 
 struct Params {
@@ -61,26 +67,30 @@ struct Params {
   float* dembed;        // [B, R, S, De] summed over the branches
   float* dzvals;        // [B, R, S]
   float* dzdists;       // [B, R, S]
-  int R, S, De, Kp, H, C, n_tiles;
-  size_t slab_len;
-  Slab L;
+  float* small;             // [2, G, total - small] per-CTA sums
+  bf16* e;                  // the chunk buffer's padded embedding [P, Kp]
+  bf16* dbase[2][kDSlots];  // per branch its cotangents dy1 [P, H/2], dy0, dpre7 .. dpre0
+  float* aw[2];             // per branch its folded-head sums [P / S, H/2 + 1]
+  int G, R, S, De, Kp, H, C;
+  int t0, nt;               // the chunk's first tile and its tiles
+  Grads L;
 };
 
-__global__ void __launch_bounds__(kThreads, 1) dual_bwd_kernel(Params p) {
+__global__ void __launch_bounds__(kThreads, 1)
+    dual_bwd_kernel(const __grid_constant__ Params p) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int H = p.H, H2 = p.H / 2, S = p.S, C = p.C, Kp = p.Kp, De = p.De;
   const int TR = kRows / S;
   const int ld = H + kPad, lde = Kp + kPad;
   const Shared sh = carve(smem, S, Kp, H, C);
-  float* dE = sh.end;            // [kRows, De] the summed embedding cotangent
-  float* dzv = dE + kRows * De;  // [kRows] the summed z-value cotangent
-  float* dzd = dzv + kRows;      // [kRows] the summed segment-length cotangent
+  const size_t small_len = p.L.total - p.L.small;
 
   const int tid = threadIdx.x;
   const size_t points_per_batch = (size_t)p.R * S;
 
-  for (int tile = blockIdx.x; tile < p.n_tiles; tile += gridDim.x) {
-    const size_t p0 = (size_t)tile * kRows;  // first point of the tile
+  for (int lt = blockIdx.x; lt < p.nt; lt += gridDim.x) {
+    const size_t p0 = (size_t)(p.t0 + lt) * kRows;  // first point of the tile
+    const size_t lp0 = (size_t)lt * kRows;          // and in the chunk
     const int b = (int)(p0 / points_per_batch);
     const size_t ray0 = p0 / S;
 
@@ -88,6 +98,9 @@ __global__ void __launch_bounds__(kThreads, 1) dual_bwd_kernel(Params p) {
       const int r = i / Kp, c = i - r * Kp;
       sh.E[r * lde + c] = c < De ? p.embed[(p0 + r) * De + c] : __float2bfloat16(0.f);
     }
+    __syncthreads();
+    store_tile(p.e + lp0 * Kp, sh.E, lde, Kp);
+#pragma unroll 1  // one copy of the body for both branches: the same code as K2's
     for (int br = 0; br < 2; ++br) {
       const Branch& q = p.br[br];
       for (int i = tid; i < TR * C; i += kThreads) sh.gf[i] = q.gfeat[ray0 * C + i];
@@ -107,31 +120,38 @@ __global__ void __launch_bounds__(kThreads, 1) dual_bwd_kernel(Params p) {
       io.gbga = q.gbga;
       io.gdepth = q.gdepth;
       io.gw = q.gw;
-      for (int i = 0; i < 9; ++i) io.slot[i] = q.stash[i] + p0 * H;
-      io.dzvals = dzv;
-      io.dzdists = dzd;
-      io.dembed = dE;
+      io.x = q.stash;
+      io.xrow = p0;
+      io.d = p.dbase[br];
+      io.drow = lp0;
+      io.aw = p.aw[br] + lp0 / S * (H2 + 1);
+      io.dzvals = p.dzvals + p0;
+      io.dzdists = p.dzdists + p0;
+      io.dembed = p.dembed + p0 * De;
       io.add = br > 0;
-      backward_tile(sh, q.w, io, S, De, Kp, H, C, p.L, q.slabs + (size_t)blockIdx.x * p.slab_len);
+      backward_tile(sh, q.w, io, S, De, Kp, H, C, p.L,
+                    p.small + ((size_t)br * p.G + blockIdx.x) * small_len);
     }
-    // one store of the summed per-point cotangents (backward_tile ended
-    // with a barrier)
-    for (int i = tid; i < kRows * De; i += kThreads) p.dembed[p0 * De + i] = dE[i];
-    for (int r = tid; r < kRows; r += kThreads) {
-      p.dzvals[p0 + r] = dzv[r];
-      p.dzdists[p0 + r] = dzd[r];
-    }
-    __syncthreads();  // the next tile overwrites dE, dzv, dzd
   }
 }
 
-__global__ void dual_slab_sum(const float* slabs, int G, size_t len, Slab L, int Kp, int H,
-                              float* out) {
-  slab_sum(slabs, G, len, L, Kp, H, out);
+__global__ void __launch_bounds__(fdw::kThreads)
+    dual_dw_kernel(const __grid_constant__ fdw::Jobs js) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  fdw::dw_tile(js, smem);
 }
 
-size_t dual_smem_bytes(int S, int Kp, int H, int C, int De) {
-  return smem_bytes(S, Kp, H, C) + (size_t)(kRows * De + 2 * kRows) * sizeof(float);
+__global__ void __launch_bounds__(256) dual_dwsum_kernel(const __grid_constant__ fdw::Jobs js) {
+  fdw::dw_reduce(js);
+}
+
+__global__ void dual_head_kernel(const float* aw, const float* gf, int rays, int K, int C,
+                                 int accumulate, float* out) {
+  fdw::head_dw(aw, gf, rays, K, C, accumulate, out);
+}
+
+__global__ void dual_sum_kernel(const float* small, int G, size_t len, float* out) {
+  fdw::sum_small(small, G, len, out);
 }
 
 }  // namespace
@@ -139,33 +159,37 @@ size_t dual_smem_bytes(int S, int Kp, int H, int C, int De) {
 extern "C" {
 
 // The layout of one branch's gradient buffer, in floats, as the
-// single-branch backward's (fused_field_bwd_slab_offsets): out[0..14] the
-// offsets of W0e, Wmid, bmid, W5e, W5x, Wd, bd, Wr0, br0, Wr1x, Wr2, br2,
-// cb0, cb5, cbr1, out[15] the length of one slab.
-void fused_field2_bwd_slab_offsets(int B, int Kp, int H, int C, long long* out) {
-  const Slab s = slab_layout(B, Kp, H, C);
+// single-branch backward's (fused_field_bwd_layout): out[0..14] the offsets
+// of W0e, Wmid, bmid, W5e, W5x, Wd, bd, Wr0, br0, Wr1x, Wr2, br2, cb0, cb5,
+// cbr1, out[15] its length; out[16] the bytes of scratch for G CTAs and
+// chunks of up to chunk_tiles tiles.
+void fused_field2_bwd_layout(int B, int S, int Kp, int H, int C, int G, int chunk_tiles,
+                             long long* out) {
+  const Grads s = grad_layout(B, Kp, H, C);
   const size_t v[16] = {s.w0e, s.wmid, s.bmid, s.w5e, s.w5x, s.wd, s.bd, s.wr0,
                         s.br0, s.wr1x, s.wr2, s.br2, s.cb0, s.cb5, s.cbr1, s.total};
   for (int i = 0; i < 16; ++i) out[i] = (long long)v[i];
+  const Chunk c = chunk_layout((size_t)chunk_tiles * kRows, S, Kp, H, false, 2);
+  out[16] = (long long)(align256((size_t)2 * G * (s.total - s.small) * sizeof(float)) + c.total);
 }
 
-// Launch on `stream`: zero the 2 x G slabs, run G persistent CTAs over the
-// B*R*S/64 tiles, sum each branch's slabs into its half of `grads`
-// ([2, slab_len], slab layout).  Returns the first cudaError_t (0 =
+// Launch one chunk on `stream`: tiles [t0, t0 + nt) of both branches (first
+// and last as for the single-branch backward), each branch's gradients into
+// its half of `grads` ([2, total]).  Returns the first cudaError_t (0 =
 // success).  The weights and cotangents are stacked on a leading axis of 2
 // (face, eyes); `stash` is 20 pointers, branch-major, slots x0..x7, y0b
 // ([B, R, S, H] bf16) and y1 ([B, R, S, H/2]).  The caller
 // (kernels/fused_field2_bwd.py) has checked the shapes as for the
-// single-branch backward and allocates `slabs` ([2, G, slab_len] f32) and
-// `grads`.
+// single-branch backward and allocates `scratch` and `grads`.
 int fused_field2_bwd(const void* embed, const float* zvals, const float* zdists,
                      const void* wd, const float* bd, const void* wr2, const float* br2,
                      const void* w0e_t, const void* wmid_t, const void* w5e_t,
                      const void* w5x_t, const void* wr0_t, const void* wr1x_t,
                      const float* gfeat, const float* gbga, const float* gdepth,
                      const float* gw, void* const* stash, float* dembed, float* dzvals,
-                     float* dzdists, float* slabs, float* grads, int B, int R, int S,
-                     int De, int Kp, int H, int C, int G, void* stream) {
+                     float* dzdists, void* scratch, float* grads, int B, int R, int S, int De,
+                     int Kp, int H, int C, int G, int chunk_tiles, int t0, int nt, int first,
+                     int last, void* stream) {
   const size_t b = B, r = R, s = S, h = H, h2 = H / 2, kp = Kp, c = C;
   Params p;
   p.embed = static_cast<const bf16*>(embed);
@@ -174,15 +198,26 @@ int fused_field2_bwd(const void* embed, const float* zvals, const float* zdists,
   p.dembed = dembed;
   p.dzvals = dzvals;
   p.dzdists = dzdists;
+  p.G = G;
   p.R = R;
   p.S = S;
   p.De = De;
   p.Kp = Kp;
   p.H = H;
   p.C = C;
-  p.n_tiles = (int)(b * r * s / kRows);
-  p.L = slab_layout(B, Kp, H, C);
-  p.slab_len = p.L.total;
+  p.t0 = t0;
+  p.nt = nt;
+  p.L = grad_layout(B, Kp, H, C);
+  const size_t small_len = p.L.total - p.L.small;
+  p.small = static_cast<float*>(scratch);
+  unsigned char* chunk =
+      static_cast<unsigned char*>(scratch) + align256((size_t)2 * G * small_len * sizeof(float));
+  const Chunk CL = chunk_layout((size_t)chunk_tiles * kRows, S, Kp, H, false, 2);
+  p.e = reinterpret_cast<bf16*>(chunk + CL.e);
+  for (int i = 0; i < 2; ++i) {
+    for (int j = 0; j < kDSlots; ++j) p.dbase[i][j] = reinterpret_cast<bf16*>(chunk + CL.d[i][j]);
+    p.aw[i] = reinterpret_cast<float*>(chunk + CL.aw[i]);
+  }
   for (int i = 0; i < 2; ++i) {
     Branch& q = p.br[i];
     q.w.wd = static_cast<const bf16*>(wd) + i * h;
@@ -199,27 +234,54 @@ int fused_field2_bwd(const void* embed, const float* zvals, const float* zdists,
     q.gbga = gbga + i * b * r;
     q.gdepth = gdepth + i * b * r;
     q.gw = gw + i * b * r * s;
-    for (int k = 0; k < kSlots; ++k) q.stash[k] = static_cast<const bf16*>(stash[i * kSlots + k]);
-    q.slabs = slabs + i * (size_t)G * p.slab_len;
+    for (int k = 0; k <= kXSlots; ++k)
+      q.stash[k] = static_cast<const bf16*>(stash[i * (kXSlots + 1) + k]);
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 
-  cudaError_t err =
-      cudaMemsetAsync(slabs, 0, (size_t)2 * G * p.slab_len * sizeof(float), st);
-  if (err != cudaSuccess) return (int)err;
-  const size_t smem = dual_smem_bytes(S, Kp, H, C, De);
+  cudaError_t err;
+  if (first) {
+    err = cudaMemsetAsync(p.small, 0, (size_t)2 * G * small_len * sizeof(float), st);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const size_t smem = smem_bytes(S, Kp, H, C);
   err = cudaFuncSetAttribute(dual_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem);
   if (err != cudaSuccess) return (int)err;
-  dual_bwd_kernel<<<G, kThreads, smem, st>>>(p);
+  dual_bwd_kernel<<<nt < G ? nt : G, kThreads, smem, st>>>(p);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const int blocks = (int)((p.slab_len + 255) / 256 < 2048 ? (p.slab_len + 255) / 256 : 2048);
+  err = cudaFuncSetAttribute(dual_dw_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)fdw::kSmem);
+  if (err != cudaSuccess) return (int)err;
+
+  int dev, sms;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return (int)err;
+  const int P = nt * kRows, K = H / 2 + 1;
+  const size_t pt0 = (size_t)t0 * kRows;  // the chunk's first point
   for (int i = 0; i < 2; ++i) {
-    dual_slab_sum<<<blocks, 256, 0, st>>>(p.br[i].slabs, G, p.slab_len, p.L, Kp, H,
-                                          grads + i * p.slab_len);
+    const Branch& q = p.br[i];
+    float* gi = grads + i * p.L.total;
+    const bf16* x[kXSlots];
+    for (int k = 0; k < kXSlots; ++k) x[k] = q.stash[k] + pt0 * h;
+    const fdw::Jobs js = weight_jobs(x, p.e, p.dbase[i], gi, p.L, Kp, H, P, !first, sms,
+                                     reinterpret_cast<float*>(chunk + CL.part));
+    dual_dw_kernel<<<js.tiles * js.splits, fdw::kThreads, fdw::kSmem, st>>>(js);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+    dual_dwsum_kernel<<<fdw::blocks256(js.part_len), 256, 0, st>>>(js);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+    dual_head_kernel<<<fdw::blocks256((size_t)K * C), 256, 0, st>>>(
+        p.aw[i], q.gfeat + pt0 / S * C, P / S, K, C, !first, gi + p.L.wr2);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
+    if (last) {
+      dual_sum_kernel<<<fdw::blocks256(small_len), 256, 0, st>>>(
+          p.small + (size_t)i * G * small_len, G, small_len, gi + p.L.small);
+      err = cudaGetLastError();
+      if (err != cudaSuccess) return (int)err;
+    }
   }
   return 0;
 }

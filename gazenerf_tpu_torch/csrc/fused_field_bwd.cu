@@ -14,7 +14,7 @@
 // hi/lo mma.sync pairs), weight gradients bf16 x bf16 products summed in f32;
 // the feature head is folded per ray.  The details are with the tile body in
 // csrc/field_bwd.cuh, which the dual-branch backward (csrc/fused_field2_bwd.cu)
-// shares.
+// shares, and with the weight-gradient GEMM in csrc/field_dw.cuh.
 //
 // Bound.  Per point the backward repeats the forward's ~1.30 M multiply-adds
 // (recompute), then as many for the data gradients and as many again for the
@@ -23,22 +23,22 @@
 // (embedding and cotangents in, embedding / z cotangents and gradients out).
 // It is bound by bf16 tensor-core operations.
 //
-// Design (correct and simple first; wgmma, TMA and a better dW reduction are
-// later work):
-//  * Weight gradients are a reduction over all B*R*S points.  The TPU kernel
-//    keeps them resident across its sequential grid; Hopper's blocks run in
-//    parallel, so this kernel runs one persistent CTA per SM, each walking
-//    tiles blockIdx.x, blockIdx.x + gridDim.x, ... and adding each tile's
-//    products into a private f32 slab of every dW / db / dcb in global
-//    memory (in fragment order); a second kernel then sums the slabs in CTA
-//    order.  Scratch: gridDim.x slabs of slab_len floats (~5.4 MB each at
-//    hidden 384, ~0.72 GB for 132 CTAs).  No atomics: the result is
-//    deterministic, the same bits on every run.
-//  * The backward needs x0..x7, y0b and y1 of a tile (10 x 64 x 384 bf16),
-//    more than an SM holds next to its working buffers.  The recompute
-//    writes them to a per-CTA bf16 scratch (10 slots of [64, H], 0.49 MB
-//    per CTA) and the backward reads back one layer at a time.
-
+// Design.  The points go in chunks of whole tiles (the caller's plan,
+// kernels/field_dw.py); per chunk, three launches on the stream:
+//  * field_bwd_kernel: one CTA per SM walks the chunk's tiles, recomputes
+//    each tile's activations (their rows go to the chunk buffer: x0..x7,
+//    y0b and the padded embedding) and runs the tile body, which writes each
+//    layer's bf16 cotangent and each ray's folded-head sums to the chunk
+//    buffer and adds the biases, conditioning rows and dWd into its CTA's
+//    small f32 buffer;
+//  * field_dw_kernel: dW (+)= X^T D for the eleven weight blocks over the
+//    chunk's points (csrc/field_dw.cuh);
+//  * field_head_kernel: dWr2 and dbr2 (+)= over the chunk's rays.
+// After the last chunk field_sum_kernel sums the per-CTA buffers in CTA
+// order.  No atomics: the same bits on every run.  Scratch: the chunk
+// buffer, ~14.3 KB per point at hidden 384 (x0..x7, y0b, the embedding and
+// the ten cotangents), the GEMM's partial sums (42 MB) and gridDim.x small
+// buffers of ~5 K floats: ~0.53 GB for chunks of 528 tiles.
 
 #include "field_bwd.cuh"
 
@@ -73,32 +73,34 @@ struct Params {
   float* dzvals;        // [B, R, S]
   float* dzdists;       // [B, R, S]
   // scratch
-  bf16* acts;           // [gridDim.x, kSlots, kRows, H]
-  float* slabs;         // [gridDim.x, slab_len]
-  int R, S, De, Kp, H, C, n_tiles;
-  size_t slab_len;
-  Slab L;
+  float* small;             // [G, total - small] per-CTA sums
+  bf16* xbase[kXSlots];     // the chunk buffer's x0..x7, y0b [P, H]
+  bf16* e;                  // its padded embedding [P, Kp]
+  bf16* dbase[kDSlots];     // its cotangents dy1 [P, H/2], dy0, dpre7 .. dpre0 [P, H]
+  float* aw;                // its folded-head sums [P / S, H/2 + 1]
+  int R, S, De, Kp, H, C;
+  int t0, nt;               // the chunk's first tile and its tiles
+  Grads L;
 };
 
-__global__ void __launch_bounds__(kThreads, 1) field_bwd_kernel(Params p) {
+__global__ void __launch_bounds__(kThreads, 1)
+    field_bwd_kernel(const __grid_constant__ Params p) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int H = p.H, H2 = p.H / 2, S = p.S, C = p.C, Kp = p.Kp, De = p.De;
   const int TR = kRows / S;
   const int ld = H + kPad, lde = Kp + kPad;
   const Shared sh = carve(smem, S, Kp, H, C);
-  bf16* A = sh.A;
-  bf16* E = sh.E;
+  bf16 *A = sh.A, *E = sh.E;
 
-  float* slab = p.slabs + (size_t)blockIdx.x * p.slab_len;
-  bf16* scr = p.acts + (size_t)blockIdx.x * kSlots * kRows * H;
+  float* small = p.small + (size_t)blockIdx.x * (p.L.total - p.L.small);
   const int tid = threadIdx.x;
   const size_t HH = (size_t)H * H;
-  const Seg none = {nullptr, 0, nullptr, 0};
-  const int mid_of[8] = {-1, 0, 1, 2, 3, -1, 4, 5};  // Wmid slot of trunk layer i
+  const Seg none = {nullptr, nullptr, 0, nullptr, 0};
   const size_t points_per_batch = (size_t)p.R * S;
 
-  for (int tile = blockIdx.x; tile < p.n_tiles; tile += gridDim.x) {
-    const size_t p0 = (size_t)tile * kRows;  // first point of the tile
+  for (int lt = blockIdx.x; lt < p.nt; lt += gridDim.x) {
+    const size_t p0 = (size_t)(p.t0 + lt) * kRows;  // first point of the tile
+    const size_t lp0 = (size_t)lt * kRows;          // and in the chunk
     const int b = (int)(p0 / points_per_batch);
     const size_t ray0 = p0 / S;
 
@@ -108,22 +110,25 @@ __global__ void __launch_bounds__(kThreads, 1) field_bwd_kernel(Params p) {
     }
     for (int i = tid; i < TR * C; i += kThreads) sh.gf[i] = p.gfeat[ray0 * C + i];
     __syncthreads();
+    store_tile(p.e + lp0 * Kp, E, lde, Kp);
 
-    // ---- recompute: x0..x7 (slots 0..7), y0b (8), y1 (9) ----
-    fwd_layer({E, lde, p.w0e, Kp}, none, 1, H, p.cb0 + (size_t)b * H, true, A, ld, scr);
+    // ---- recompute: x0..x7, y0b into the chunk buffer, y1 in A ----
+    fwd_layer({E, nullptr, lde, p.w0e, Kp}, none, 1, H, p.cb0 + (size_t)b * H, true, A, ld,
+              sh.W, p.xbase[0] + lp0 * H);
+#pragma unroll 1
     for (int i = 1; i < 8; ++i) {
-      bf16* slot = scr + (size_t)i * kRows * H;
       if (i == 5)
-        fwd_layer({E, lde, p.w5e, Kp}, {A, ld, p.w5x, H}, 2, H, p.cb5 + (size_t)b * H, true,
-                  A, ld, slot);
+        fwd_layer({E, nullptr, lde, p.w5e, Kp}, {A, nullptr, ld, p.w5x, H}, 2, H,
+                  p.cb5 + (size_t)b * H, true, A, ld, sh.W, p.xbase[i] + lp0 * H);
       else
-        fwd_layer({A, ld, p.wmid + mid_of[i] * HH, H}, none, 1, H, p.bmid + mid_of[i] * H,
-                  true, A, ld, slot);
+        fwd_layer({A, nullptr, ld, p.wmid + mid_slot(i) * HH, H}, none, 1, H,
+                  p.bmid + mid_slot(i) * H, true, A, ld, sh.W, p.xbase[i] + lp0 * H);
     }
     density_pre(sh, ld, p.w.wd, p.w.bd, H);
-    fwd_layer({A, ld, p.wr0, H}, none, 1, H, p.br0, false, A, ld, scr + 8 * kRows * (size_t)H);
-    fwd_layer({A, ld, p.wr1x, H}, none, 1, H2, p.cbr1 + (size_t)b * H2, true, A, ld,
-              scr + 9 * kRows * (size_t)H);  // A[:, :H2] = y1
+    fwd_layer({A, nullptr, ld, p.wr0, H}, none, 1, H, p.br0, false, A, ld, sh.W,
+              p.xbase[8] + lp0 * H);
+    fwd_layer({A, nullptr, ld, p.wr1x, H}, none, 1, H2, p.cbr1 + (size_t)b * H2, true, A, ld,
+              sh.W, nullptr);  // A[:, :H2] = y1
 
     TileIO io;
     io.b = b;
@@ -134,41 +139,63 @@ __global__ void __launch_bounds__(kThreads, 1) field_bwd_kernel(Params p) {
     io.gbga = p.gbga;
     io.gdepth = p.gdepth;
     io.gw = p.gw;
-    for (int i = 0; i < 9; ++i) io.slot[i] = scr + (size_t)i * kRows * H;
+    io.x = p.xbase;
+    io.xrow = lp0;
+    io.d = p.dbase;
+    io.drow = lp0;
+    io.aw = p.aw + lp0 / S * (H2 + 1);
     io.dzvals = p.dzvals + p0;
     io.dzdists = p.dzdists + p0;
     io.dembed = p.dembed + p0 * De;
     io.add = false;
-    backward_tile(sh, p.w, io, S, De, Kp, H, C, p.L, slab);
+    backward_tile(sh, p.w, io, S, De, Kp, H, C, p.L, small);
   }
 }
 
-__global__ void reduce_slabs(const float* slabs, int G, size_t len, Slab L, int Kp, int H,
-                             float* out) {
-  slab_sum(slabs, G, len, L, Kp, H, out);
+__global__ void __launch_bounds__(fdw::kThreads)
+    field_dw_kernel(const __grid_constant__ fdw::Jobs js) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  fdw::dw_tile(js, smem);
+}
+
+__global__ void __launch_bounds__(256) field_dwsum_kernel(const __grid_constant__ fdw::Jobs js) {
+  fdw::dw_reduce(js);
+}
+
+__global__ void field_head_kernel(const float* aw, const float* gf, int rays, int K, int C,
+                                  int accumulate, float* out) {
+  fdw::head_dw(aw, gf, rays, K, C, accumulate, out);
+}
+
+__global__ void field_sum_kernel(const float* small, int G, size_t len, float* out) {
+  fdw::sum_small(small, G, len, out);
 }
 
 }  // namespace
 
 extern "C" {
 
-// The gradient buffer's layout, in floats: out[0..14] the offsets of W0e,
-// Wmid, bmid, W5e, W5x, Wd, bd, Wr0, br0, Wr1x, Wr2, br2, cb0, cb5, cbr1 (each
-// block row-major in `grads`), out[15] the length of one CTA's slab and of
-// `grads`.
-void fused_field_bwd_slab_offsets(int B, int Kp, int H, int C, long long* out) {
-  const Slab s = slab_layout(B, Kp, H, C);
+// The buffers' layout: out[0..14] the offsets (in floats) of W0e, Wmid, bmid,
+// W5e, W5x, Wd, bd, Wr0, br0, Wr1x, Wr2, br2, cb0, cb5, cbr1 in `grads` (each
+// block row-major), out[15] the length of `grads`, out[16] the bytes of
+// scratch for G CTAs and chunks of up to chunk_tiles tiles.
+void fused_field_bwd_layout(int B, int S, int Kp, int H, int C, int G, int chunk_tiles,
+                            long long* out) {
+  const Grads s = grad_layout(B, Kp, H, C);
   const size_t v[16] = {s.w0e, s.wmid, s.bmid, s.w5e, s.w5x, s.wd, s.bd, s.wr0,
                         s.br0, s.wr1x, s.wr2, s.br2, s.cb0, s.cb5, s.cbr1, s.total};
   for (int i = 0; i < 16; ++i) out[i] = (long long)v[i];
+  const Chunk c = chunk_layout((size_t)chunk_tiles * kRows, S, Kp, H, true, 1);
+  out[16] = (long long)(align256((size_t)G * (s.total - s.small) * sizeof(float)) + c.total);
 }
 
-// Launch on `stream`: zero the G slabs, run G persistent CTAs over the
-// B*R*S/64 tiles, sum the slabs into `grads` (slab layout).  Returns the
-// first cudaError_t (0 = success).  The caller (kernels/fused_field_bwd.py)
-// has checked the shapes: S divides 64, R*S is a multiple of 64, H is a
-// multiple of 64 and at most 384, Kp a multiple of 32; it allocates `acts`
-// ([G, 10, 64, H] bf16), `slabs` ([G, slab_len] f32) and `grads`.
+// Launch one chunk on `stream`: tiles [t0, t0 + nt) (first: the first chunk,
+// which zeroes the per-CTA sums and stores rather than adds; last: the last,
+// which sums them into `grads`).  Returns the first cudaError_t (0 =
+// success).  The caller (kernels/fused_field_bwd.py) has checked the shapes:
+// S divides 64, R*S is a multiple of 64, H is a multiple of 64 and at most
+// 384, Kp a multiple of 32; nt <= chunk_tiles; it allocates `scratch` (the
+// layout's bytes) and `grads`.
 int fused_field_bwd(const void* embed, const float* zvals, const float* zdists,
                     const float* cb0, const float* cb5, const float* cbr1,
                     const void* w0e, const void* wmid, const float* bmid, const void* w5e,
@@ -178,8 +205,9 @@ int fused_field_bwd(const void* embed, const float* zvals, const float* zdists,
                     const void* w5x_t, const void* wr0_t, const void* wr1x_t,
                     const float* gfeat, const float* gbga, const float* gdepth,
                     const float* gw, float* dembed, float* dzvals, float* dzdists,
-                    void* acts, float* slabs, float* grads, int B, int R, int S, int De,
-                    int Kp, int H, int C, int G, void* stream) {
+                    void* scratch, float* grads, int B, int R, int S, int De, int Kp, int H,
+                    int C, int G, int chunk_tiles, int t0, int nt, int first, int last,
+                    void* stream) {
   Params p;
   p.embed = static_cast<const bf16*>(embed);
   p.zvals = zvals;
@@ -212,31 +240,66 @@ int fused_field_bwd(const void* embed, const float* zvals, const float* zdists,
   p.dembed = dembed;
   p.dzvals = dzvals;
   p.dzdists = dzdists;
-  p.acts = static_cast<bf16*>(acts);
-  p.slabs = slabs;
   p.R = R;
   p.S = S;
   p.De = De;
   p.Kp = Kp;
   p.H = H;
   p.C = C;
-  p.n_tiles = (int)((size_t)B * R * S / kRows);
-  p.L = slab_layout(B, Kp, H, C);
-  p.slab_len = p.L.total;
+  p.t0 = t0;
+  p.nt = nt;
+  p.L = grad_layout(B, Kp, H, C);
+  const size_t small_len = p.L.total - p.L.small;
+  p.small = static_cast<float*>(scratch);
+  unsigned char* chunk =
+      static_cast<unsigned char*>(scratch) + align256((size_t)G * small_len * sizeof(float));
+  const Chunk CL = chunk_layout((size_t)chunk_tiles * kRows, S, Kp, H, true, 1);
+  for (int i = 0; i < kXSlots; ++i) p.xbase[i] = reinterpret_cast<bf16*>(chunk + CL.x[i]);
+  p.e = reinterpret_cast<bf16*>(chunk + CL.e);
+  for (int j = 0; j < kDSlots; ++j) p.dbase[j] = reinterpret_cast<bf16*>(chunk + CL.d[0][j]);
+  p.aw = reinterpret_cast<float*>(chunk + CL.aw[0]);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 
-  cudaError_t err = cudaMemsetAsync(slabs, 0, (size_t)G * p.slab_len * sizeof(float), st);
-  if (err != cudaSuccess) return (int)err;
+  cudaError_t err;
+  if (first) {
+    err = cudaMemsetAsync(p.small, 0, (size_t)G * small_len * sizeof(float), st);
+    if (err != cudaSuccess) return (int)err;
+  }
   const size_t smem = smem_bytes(S, Kp, H, C);
   err = cudaFuncSetAttribute(field_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem);
   if (err != cudaSuccess) return (int)err;
-  field_bwd_kernel<<<G, kThreads, smem, st>>>(p);
+  field_bwd_kernel<<<nt < G ? nt : G, kThreads, smem, st>>>(p);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const int blocks = (int)((p.slab_len + 255) / 256 < 2048 ? (p.slab_len + 255) / 256 : 2048);
-  reduce_slabs<<<blocks, 256, 0, st>>>(slabs, G, p.slab_len, p.L, Kp, H, grads);
-  return (int)cudaGetLastError();
+
+  const int P = nt * kRows;
+  int dev, sms;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return (int)err;
+  const fdw::Jobs js = weight_jobs(p.xbase, p.e, p.dbase, grads, p.L, Kp, H, P, !first, sms,
+                                   reinterpret_cast<float*>(chunk + CL.part));
+  err = cudaFuncSetAttribute(field_dw_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)fdw::kSmem);
+  if (err != cudaSuccess) return (int)err;
+  field_dw_kernel<<<js.tiles * js.splits, fdw::kThreads, fdw::kSmem, st>>>(js);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  field_dwsum_kernel<<<fdw::blocks256(js.part_len), 256, 0, st>>>(js);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+
+  const int K = H / 2 + 1;
+  field_head_kernel<<<fdw::blocks256((size_t)K * C), 256, 0, st>>>(
+      p.aw, gfeat + (size_t)t0 * kRows / S * C,
+      P / S, K, C, !first, grads + p.L.wr2);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  if (last) {
+    field_sum_kernel<<<fdw::blocks256(small_len), 256, 0, st>>>(p.small, G, small_len,
+                                                                  grads + p.L.small);
+    err = cudaGetLastError();
+  }
+  return (int)err;
 }
 
 }  // extern "C"

@@ -59,6 +59,34 @@ __device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4], 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// Four 8x8 bf16 matrices from shared memory: lane l gives the address of row
+// l & 7 of matrix l >> 3 (16 bytes, 16-byte aligned); register j holds matrix
+// j, lane l its row l / 4, columns 2 (l % 4) and 2 (l % 4) + 1.
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+// 16 bytes from global to shared memory, asynchronously (L2 only); with
+// `valid` false the 16 bytes are zeros and nothing is read.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid = true) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               ::"r"(smem_addr(dst)), "l"(src), "r"(valid ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n"); }
+
+// wait until at most `n` of this thread's committed copy groups are pending
+template <int n>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(n));
+}
+
 // One K-segment of a product: the [kRows, K] tile `a` (row stride lda) times
 // the [N, K] weight `w` transposed.
 struct Seg {

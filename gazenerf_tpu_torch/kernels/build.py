@@ -89,6 +89,7 @@ def every_kernel() -> Dict[str, Mapping[str, int]]:
     """Every kernel source of the port (name -> defines), for a build of all
     of them at once."""
     from gazenerf_tpu_torch.kernels import (
+        field_dw,
         fused_field,
         fused_field2,
         fused_field2_bwd,
@@ -105,6 +106,7 @@ def every_kernel() -> Dict[str, Mapping[str, int]]:
         shuffle_blur.KERNEL: shuffle_blur.DEFINES,
         fused_upsampler.KERNEL_FWD: fused_upsampler.DEFINES,
         fused_upsampler.KERNEL_BWD: fused_upsampler.DEFINES,
+        field_dw.KERNEL: field_dw.DEFINES,
     }
 
 

@@ -26,7 +26,9 @@ against the unrounded float64 gradient.  So are the dual-branch kernels:
 the forward (K3) per output and stash slot against its plain version and,
 without the stash, to the bit against K1 on each branch; the stash-reading
 backward (K4) per output against its plain version, against K2 on each
-branch and against the unrounded float64 gradient.
+branch and against the unrounded float64 gradient.  The weight-gradient GEMM
+the two backwards share (``kernels/field_dw.py``) is held per product
+against its plain version, chunk by chunk.
 """
 
 from __future__ import annotations
@@ -500,6 +502,38 @@ def k4_failures(case: str, got, want) -> Tuple[Dict[str, Tuple[float, float]], L
 def k4_vs_k2_failures(case: str, got, want) -> Tuple[Dict[str, Tuple[float, float]], List[str]]:
     """K4's outputs against K2's on each branch, summed, in ``case``."""
     return limit_failures(got, want, K4_VS_K2_LIMITS[case])
+
+
+# ---------------------------------------------------------------------------
+# the backwards' weight-gradient GEMM (csrc/field_dw.cuh)
+
+# Its cases: (hidden, samples per ray, rays per batch, tiles per chunk), two
+# batches: 24 tiles in chunks of 10, so the second chunk spans the batch
+# boundary (after tile 12) and the third is partial; per case the products of
+# a chunk at that width: a trunk layer (H x H), the embedding's (64 x H) and
+# rgb_1's (H x H/2).
+DW_CASES = {"h64": (64, 8, 96, 10), "h128": (128, 8, 96, 10), "h384": (384, 8, 96, 10)}
+# The GEMM against its plain version (the f32 product of the same bf16
+# operands, chunk by chunk): max |kernel - plain| over max |plain| per
+# product.  Both sum exact bf16 products in f32, in other orders: readings
+# 1.5e-7 to 2.6e-7 in these cases and 1.4e-5 over one full chunk of the
+# training step (33,792 points, chip_smoke.py) on an NVIDIA H100 80GB HBM3
+# (700 W); held to K2's floor.
+DW_MAX_REL_ERR = K2_LIMIT_FLOOR
+
+
+def dw_case(hidden: int, samples: int, rays: int, chunk_tiles: int, device, seed: int = 0):
+    """The GEMM's case: N(0, 1) bf16 operands of three products over two
+    batches of ``rays`` x ``samples`` points, as lists ``(xs, ds)``, and the
+    chunk plan."""
+    from gazenerf_tpu_torch.kernels import field_dw
+
+    gen = torch.Generator().manual_seed(hidden + 1000 * seed + 29)
+    P = 2 * rays * samples
+    widths = ((hidden, hidden), (64, hidden), (hidden, hidden // 2))
+    xs = [torch.randn(P, m, generator=gen).to(device, torch.bfloat16) for m, _ in widths]
+    ds = [torch.randn(P, n, generator=gen).to(device, torch.bfloat16) for _, n in widths]
+    return xs, ds, field_dw.plan_chunks(2, rays, samples, chunk_tiles)
 
 
 @contextlib.contextmanager

@@ -24,7 +24,7 @@ from typing import NamedTuple, Sequence
 
 import torch
 
-from gazenerf_tpu_torch.kernels import build
+from gazenerf_tpu_torch.kernels import build, field_dw
 from gazenerf_tpu_torch.kernels import fused_field_bwd as ffb
 from gazenerf_tpu_torch.kernels.fused_field import FieldOperands, check_tensor
 from gazenerf_tpu_torch.kernels.fused_field2 import N_BRANCHES, N_SLOTS, branch_operands
@@ -109,15 +109,15 @@ def fused_dual_backward_unrounded(embed, zvals, zdists, cb0, cb5, cbr1, w: Field
     ])
 
 
-_ARGTYPES = [ctypes.c_void_p] * 23 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 23 + [ctypes.c_int] * 13 + [ctypes.c_void_p]
 
 
 def _library() -> ctypes.CDLL:
     lib = build.load(KERNEL, DEFINES)
     lib.fused_field2_bwd.argtypes = _ARGTYPES
     lib.fused_field2_bwd.restype = ctypes.c_int
-    lib.fused_field2_bwd_slab_offsets.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    lib.fused_field2_bwd_slab_offsets.restype = None
+    lib.fused_field2_bwd_layout.argtypes = [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    lib.fused_field2_bwd_layout.restype = None
     return lib
 
 
@@ -165,39 +165,32 @@ def _launch(embed, zvals, zdists, w: FieldOperands, g_face, g_eye, stash) -> Dua
     for i, br in enumerate(stash):
         for k, a in enumerate(br):
             check_tensor(f"stash[{i}][{k}]", a, dev, bf, (B, R, S, H2 if k == N_SLOTS - 1 else H))
-    # the gradient blocks of one branch, in the order of the library's offsets
-    shapes = {
-        "dW0e": (Kp, H), "dWmid": (6, H, H), "dbmid": (6, H), "dW5e": (Kp, H), "dW5x": (H, H),
-        "dWd": (H, 1), "dbd": (1,), "dWr0": (H, H), "dbr0": (H,), "dWr1x": (H, H2),
-        "dWr2": (H2, C), "dbr2": (C,), "dcb0": (B, H), "dcb5": (B, H), "dcbr1": (B, H2),
-    }
     lib = _library()
-    offsets = (ctypes.c_longlong * (len(shapes) + 1))()
-    lib.fused_field2_bwd_slab_offsets(B, Kp, H, C, offsets)
-    slab_len = offsets[len(shapes)]
-    # one persistent CTA per SM (shared memory allows one), none idle
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    G = min(sms, B * R * S // TILE_POINTS)
-    slabs = torch.empty((NB, G, slab_len), dtype=f32, device=dev)
-    grads = torch.empty((NB, slab_len), dtype=f32, device=dev)
+    # the single-branch backward's chunks and grid: the same weight-gradient bits
+    chunks = field_dw.plan_chunks(B, R, S)
+    G = ffb.persistent_ctas(dev, B * R * S // TILE_POINTS)
+    chunk_tiles = chunks[0].tiles
+    offsets, total, scratch_bytes = ffb.layout(lib.fused_field2_bwd_layout, B, S, Kp, H, C, G,
+                                               chunk_tiles)
+    scratch = torch.empty((scratch_bytes,), dtype=torch.uint8, device=dev)
+    grads = torch.empty((NB, total), dtype=f32, device=dev)
     dembed = torch.empty((B, R, S, De), dtype=f32, device=dev)
     dzvals = torch.empty((B, R, S), dtype=f32, device=dev)
     dzdists = torch.empty((B, R, S), dtype=f32, device=dev)
-    ptrs = (ctypes.c_void_p * (NB * N_SLOTS))(*(a.data_ptr() for br in stash for a in br))
-    ins = [t for t, _, _ in expected.values()]
-    err = lib.fused_field2_bwd(
-        *(t.data_ptr() for t in ins), ptrs,
-        *(t.data_ptr() for t in (dembed, dzvals, dzdists, slabs, grads)),
-        B, R, S, De, Kp, H, C, G,
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
-    if err:
-        raise RuntimeError(f"{KERNEL} launch failed with CUDA error {err}")
+    stash_ptrs = (ctypes.c_void_p * (NB * N_SLOTS))(*(a.data_ptr() for br in stash for a in br))
+    ptrs = [t.data_ptr() for t, _, _ in expected.values()] + [stash_ptrs]
+    ptrs += [t.data_ptr() for t in (dembed, dzvals, dzdists, scratch, grads)]
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    for i, ch in enumerate(chunks):
+        err = lib.fused_field2_bwd(*ptrs, B, R, S, De, Kp, H, C, G, chunk_tiles, ch.tile0,
+                                   ch.tiles, i == 0, i == len(chunks) - 1, stream)
+        if err:
+            raise RuntimeError(f"{KERNEL} launch failed with CUDA error {err}")
     launch_count += 1
 
     blocks = {
         name: grads[:, o : o + math.prod(shape)].view(NB, *shape)
-        for (name, shape), o in zip(shapes.items(), offsets)
+        for (name, shape), o in zip(ffb.grad_shapes(B, Kp, H, C).items(), offsets)
     }
     blocks["dW0e"], blocks["dW5e"] = blocks["dW0e"][:, :De], blocks["dW5e"][:, :De]
     return DualGrads(dembed=dembed, dzvals=dzvals, dzdists=dzdists, **blocks)

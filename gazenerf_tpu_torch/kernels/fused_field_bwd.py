@@ -2,11 +2,11 @@
 
 Counterpart of the JAX package's ``kernels/fused_field_bwd.py`` (its Pallas
 ``_bwd_kernel``, launched by ``pallas_backward``) in recompute mode: no
-activation stash, the weight gradients computed in the kernel.  The kernel
-is hand-written CUDA for Hopper (``csrc/fused_field_bwd.cu``; its header
-states its bound, design, scratch and determinism);
-:func:`fused_field_backward_reference` is its plain PyTorch version with
-the Pallas kernel's rounding points.
+activation stash, the weight gradients computed by the kernel's own GEMM
+over chunks of points (``kernels/field_dw.py``).  The kernel is hand-written
+CUDA for Hopper (``csrc/fused_field_bwd.cu``; its header states its bound,
+design, scratch and determinism); :func:`fused_field_backward_reference` is
+its plain PyTorch version with the Pallas kernel's rounding points.
 
 :func:`fused_field_backward` is the wrapper: the kernel for CUDA tensors,
 the plain version for CPU tensors.  The autograd ``Function`` that calls it
@@ -22,13 +22,14 @@ from typing import Dict, NamedTuple
 import torch
 
 from gazenerf_tpu_torch.kernels import build
+from gazenerf_tpu_torch.kernels import field_dw
 from gazenerf_tpu_torch.kernels.fused_field import FieldOperands, check_tensor
 from gazenerf_tpu_torch.ops.integrate import exclusive_transmittance, integrate_rays
 
 KERNEL = "fused_field_bwd"
 DEFINES: Dict[str, int] = {}
 TILE_POINTS = 64  # points per tile in the kernel (whole rays)
-MAX_HIDDEN = 384  # one pass of the kernel's 16 warps covers 384 columns
+MAX_HIDDEN = 384  # one pass of the kernel's 12 warps covers 384 columns
 _EPS = 1e-10
 
 # kernel launches since import (or since a caller reset it); a training
@@ -85,7 +86,7 @@ def prepare_backward_operands(w: FieldOperands) -> BackwardOperands:
 
 def fused_field_backward_reference(
     embed, zvals, zdists, cb0, cb5, cbr1, w: FieldOperands, gfeat, gbga, gdepth, gw,
-    dtype=torch.float32, stash=None,
+    dtype=torch.float32, stash=None, chunks=None,
 ) -> FieldGrads:
     """Plain PyTorch version of the kernel, with the Pallas kernel's
     formulas and rounding points: the forward recomputed with K1's bf16
@@ -96,14 +97,17 @@ def fused_field_backward_reference(
     between the same rounding points in float64 instead.  ``stash``, the
     forward's bf16 activations x0..x7, y0b and y1
     (``fused_field_reference(..., stash=True)``), takes the recompute's
-    place, as the Pallas kernel's stash-read mode does."""
+    place, as the Pallas kernel's stash-read mode does.  ``chunks``, a
+    :func:`~gazenerf_tpu_torch.kernels.field_dw.plan_chunks` plan, sums every
+    weight gradient chunk by chunk in the kernel's order, else over all
+    points at once."""
     grads, dembed5, dembed0 = fused_field_backward_parts(
-        embed, zvals, zdists, cb0, cb5, cbr1, w, gfeat, gbga, gdepth, gw, dtype, stash)
+        embed, zvals, zdists, cb0, cb5, cbr1, w, gfeat, gbga, gdepth, gw, dtype, stash, chunks)
     return grads._replace(dembed=dembed5 + dembed0)
 
 
 def fused_field_backward_parts(embed, zvals, zdists, cb0, cb5, cbr1, w: FieldOperands, gfeat,
-                               gbga, gdepth, gw, dtype=torch.float32, stash=None):
+                               gbga, gdepth, gw, dtype=torch.float32, stash=None, chunks=None):
     """:func:`fused_field_backward_reference` with the embedding cotangent
     in its two parts, through ``fea_5``'s and through ``fea_0``'s embedding
     rows (``dembed`` is None): the dual-branch backward sums them across
@@ -121,7 +125,10 @@ def fused_field_backward_parts(embed, zvals, zdists, cb0, cb5, cbr1, w: FieldOpe
         return g @ w_out_in.to(f32)
 
     def outer(x, g):  # x^T @ bf16(g) over every point of every batch
-        return x.reshape(-1, x.shape[-1]).t() @ rnd(g).reshape(-1, g.shape[-1])
+        x, g = x.reshape(-1, x.shape[-1]), rnd(g).reshape(-1, g.shape[-1])
+        if chunks is None:
+            return x.t() @ g
+        return field_dw.chunked_weight_grad_reference(x, g, chunks)
 
     e = rnd(embed.reshape(B, R * S, De))
     if stash is None:  # ---- recompute ----
@@ -249,16 +256,45 @@ def fused_field_backward_unrounded(
     )
 
 
-_ARGTYPES = [ctypes.c_void_p] * 34 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 33 + [ctypes.c_int] * 13 + [ctypes.c_void_p]
+# the gradient blocks in the order of the offsets the library gives
+_GRAD_BLOCKS = ("dW0e", "dWmid", "dbmid", "dW5e", "dW5x", "dWd", "dbd", "dWr0", "dbr0", "dWr1x",
+                "dWr2", "dbr2", "dcb0", "dcb5", "dcbr1")
 
 
 def _library() -> ctypes.CDLL:
     lib = build.load(KERNEL, DEFINES)
     lib.fused_field_bwd.argtypes = _ARGTYPES
     lib.fused_field_bwd.restype = ctypes.c_int
-    lib.fused_field_bwd_slab_offsets.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    lib.fused_field_bwd_slab_offsets.restype = None
+    lib.fused_field_bwd_layout.argtypes = [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    lib.fused_field_bwd_layout.restype = None
     return lib
+
+
+def grad_shapes(B: int, Kp: int, H: int, C: int) -> Dict[str, tuple]:
+    """The shape of every gradient block of a branch's gradient buffer."""
+    H2 = H // 2
+    shapes = {
+        "dW0e": (Kp, H), "dWmid": (6, H, H), "dbmid": (6, H), "dW5e": (Kp, H), "dW5x": (H, H),
+        "dWd": (H, 1), "dbd": (1,), "dWr0": (H, H), "dbr0": (H,), "dWr1x": (H, H2),
+        "dWr2": (H2, C), "dbr2": (C,), "dcb0": (B, H), "dcb5": (B, H), "dcbr1": (B, H2),
+    }
+    return {name: shapes[name] for name in _GRAD_BLOCKS}
+
+
+def layout(layout_fn, B: int, S: int, Kp: int, H: int, C: int, G: int, chunk_tiles: int):
+    """A backward library's buffer layout: the gradient blocks' offsets (in
+    floats), the gradient buffer's length and the scratch's bytes."""
+    out = (ctypes.c_longlong * (len(_GRAD_BLOCKS) + 2))()
+    layout_fn(B, S, Kp, H, C, G, chunk_tiles, out)
+    n = len(_GRAD_BLOCKS)
+    return list(out[:n]), out[n], out[n + 1]
+
+
+def persistent_ctas(dev, n_tiles: int) -> int:
+    """The backwards' grid: one persistent CTA per SM (shared memory allows
+    one), none idle."""
+    return min(torch.cuda.get_device_properties(dev).multi_processor_count, n_tiles)
 
 
 def _launch(embed, zvals, zdists, cb0, cb5, cbr1, w: FieldOperands, gfeat, gbga, gdepth, gw
@@ -311,39 +347,30 @@ def _launch(embed, zvals, zdists, cb0, cb5, cbr1, w: FieldOperands, gfeat, gbga,
     }
     for name, (t, dtype, shape) in expected.items():
         check_tensor(name, t, dev, dtype, shape)
-    # the gradient blocks in the order of the offsets the library gives
-    shapes = {
-        "dW0e": (Kp, H), "dWmid": (6, H, H), "dbmid": (6, H), "dW5e": (Kp, H), "dW5x": (H, H),
-        "dWd": (H, 1), "dbd": (1,), "dWr0": (H, H), "dbr0": (H,), "dWr1x": (H, H2),
-        "dWr2": (H2, C), "dbr2": (C,), "dcb0": (B, H), "dcb5": (B, H), "dcbr1": (B, H2),
-    }
     lib = _library()
-    offsets = (ctypes.c_longlong * (len(shapes) + 1))()
-    lib.fused_field_bwd_slab_offsets(B, Kp, H, C, offsets)
-    slab_len = offsets[len(shapes)]
-    # one persistent CTA per SM (shared memory allows one), none idle
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    G = min(sms, B * R * S // TILE_POINTS)
-    acts = torch.empty((G, 10, TILE_POINTS, H), dtype=bf, device=dev)
-    slabs = torch.empty((G, slab_len), dtype=f32, device=dev)
-    grads = torch.empty((slab_len,), dtype=f32, device=dev)
+    chunks = field_dw.plan_chunks(B, R, S)
+    G = persistent_ctas(dev, B * R * S // TILE_POINTS)
+    chunk_tiles = chunks[0].tiles
+    offsets, total, scratch_bytes = layout(lib.fused_field_bwd_layout, B, S, Kp, H, C, G,
+                                           chunk_tiles)
+    scratch = torch.empty((scratch_bytes,), dtype=torch.uint8, device=dev)
+    grads = torch.empty((total,), dtype=f32, device=dev)
     dembed = torch.empty((B, R, S, De), dtype=f32, device=dev)
     dzvals = torch.empty((B, R, S), dtype=f32, device=dev)
     dzdists = torch.empty((B, R, S), dtype=f32, device=dev)
-    ins = [t for t, _, _ in expected.values()]
-    outs = (dembed, dzvals, dzdists, acts, slabs, grads)
-    err = lib.fused_field_bwd(
-        *(t.data_ptr() for t in ins), *(t.data_ptr() for t in outs),
-        B, R, S, De, Kp, H, C, G,
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
-    if err:
-        raise RuntimeError(f"{KERNEL} launch failed with CUDA error {err}")
+    ptrs = [t.data_ptr() for t, _, _ in expected.values()]
+    ptrs += [t.data_ptr() for t in (dembed, dzvals, dzdists, scratch, grads)]
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    for i, ch in enumerate(chunks):
+        err = lib.fused_field_bwd(*ptrs, B, R, S, De, Kp, H, C, G, chunk_tiles, ch.tile0,
+                                  ch.tiles, i == 0, i == len(chunks) - 1, stream)
+        if err:
+            raise RuntimeError(f"{KERNEL} launch failed with CUDA error {err}")
     launch_count += 1
 
     blocks = {
         name: grads[o : o + math.prod(shape)].view(shape)
-        for (name, shape), o in zip(shapes.items(), offsets)
+        for (name, shape), o in zip(grad_shapes(B, Kp, H, C).items(), offsets)
     }
     blocks["dW0e"], blocks["dW5e"] = blocks["dW0e"][:De], blocks["dW5e"][:De]
     return FieldGrads(dembed=dembed, dzvals=dzvals, dzdists=dzdists, **blocks)

@@ -16,6 +16,7 @@ import torch
 from gazenerf_tpu_torch import Config, GazeNeRF, LossConfig, Trainer, small_test_config
 from gazenerf_tpu_torch.data.cameras import base_inv_inmat
 from gazenerf_tpu_torch.kernels import checks
+from gazenerf_tpu_torch.kernels import field_dw
 from gazenerf_tpu_torch.kernels import fused_field as ff
 from gazenerf_tpu_torch.kernels import fused_field2 as ff2
 from gazenerf_tpu_torch.kernels import fused_field2_bwd as ffb2
@@ -377,7 +378,8 @@ def dual_backward_cases():
 def test_fused_dual_backward_matches_plain_version(card, dual_backward_cases, case):
     """K4 against its plain version on K3's stash, every output within its
     case's limits (``kernels/checks.py``); two launches give the same bits
-    (the slabs are summed in CTA order)."""
+    (no atomics: the per-CTA sums and the weight-gradient GEMM's partials are
+    added in a fixed order)."""
     args, cot, acts = dual_backward_cases(case, card)
     with torch.no_grad():
         before = _dual_counts()
@@ -409,6 +411,9 @@ def test_fused_dual_backward_matches_k2_per_branch(card, dual_backward_cases, ca
     readings, fails = checks.k4_vs_k2_failures(case, got, want)
     print(json.dumps({"k4_vs_k2": case, "readings": readings}))
     assert not fails, fails
+    for n, a, b in zip(ffb2.DualGrads._fields, got, want):  # one GEMM, the same chunks
+        if n not in ("dembed", "dzvals", "dzdists"):
+            assert torch.equal(a, b), f"{n}: K4 and K2 differ"
 
 
 @pytest.mark.parametrize("case, seed", [("narrow", 0), ("narrow", 1), ("training", 0)])
@@ -515,3 +520,32 @@ def test_dual_training_step_on_card(card, stash):
     for k, v in losses.items():
         assert torch.isfinite(v), k
         torch.testing.assert_close(v, plain[k], rtol=1e-3, atol=1e-6, msg=k)
+
+
+@pytest.mark.parametrize("case", list(checks.DW_CASES))
+def test_field_dw_matches_plain_version(card, case):
+    """The backwards' weight-gradient GEMM, chunk by chunk as they run it
+    (one chunk across the batch boundary, a partial last one), against the
+    chunked plain contraction of the same bf16 operands: per product within
+    ``DW_MAX_REL_ERR`` of its largest value; two runs give the same bits."""
+    xs, ds, plan = checks.dw_case(*checks.DW_CASES[case], card)
+    assert any(c.first_batch != c.last_batch for c in plan) and plan[-1].tiles < plan[0].tiles
+
+    def run():
+        outs = None
+        for c in plan:
+            rows = slice(c.point0, c.point0 + c.points)
+            outs = field_dw.weight_grad([x[rows] for x in xs], [d[rows] for d in ds], outs)
+        return outs
+
+    before = field_dw.launch_count
+    got = run()
+    torch.cuda.synchronize()
+    assert field_dw.launch_count == before + len(plan)
+    again = run()
+    for j, (x, d, g, a) in enumerate(zip(xs, ds, got, again)):
+        want = field_dw.chunked_weight_grad_reference(x, d, plan)
+        err, scale = float((g - want).abs().max()), float(want.abs().max())
+        print(f"dW {case} product {j} {tuple(g.shape)}: ratio {err / scale:.3e}")
+        assert torch.isfinite(g).all() and err <= checks.DW_MAX_REL_ERR * scale, (j, err, scale)
+        assert torch.equal(g, a), f"product {j}: two runs differ"
