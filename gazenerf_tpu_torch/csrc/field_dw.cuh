@@ -115,6 +115,10 @@ using tile::cp_async16;
 using tile::cp_async_commit;
 using tile::cp_async_wait;
 using tile::smem_addr;
+using tile::fence_proxy_async;
+using tile::wgmma_commit;
+using tile::wgmma_fence;
+using tile::wgmma_wait;
 
 // A shared-memory matrix descriptor for wgmma: 128-byte swizzle; the byte
 // offsets between 64-element atoms along M or N (lbo) and between groups of
@@ -149,22 +153,6 @@ __device__ __forceinline__ void wgmma_m64n128k16_tt(float (&d)[64], uint64_t da,
         "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(da), "l"(db), "r"(1));
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int n>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(n) : "memory");
-}
-// orders this thread's generic-proxy writes to shared memory (cp.async
-// included) before the async proxy's reads (wgmma)
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // Row r of a [kBK][64] bf16 tile with 128-byte rows, 16-byte chunk c, as the

@@ -22,26 +22,67 @@
 // close behind; without the stash (serving) it is far above the card's ~295
 // FLOP per byte.
 //
-// Design (correct and simple first): the TPU kernel interleaves the two
+// Design: the TPU kernel interleaves the two
 // branches' layers in one program so the MXU has a second chain to fill its
 // gaps; on Hopper two independent chains overlap as well in separate CTAs.
 // So the branch is a grid dimension (blockIdx.z), each CTA runs the
 // single-branch tile body on its branch's weights and conditioning rows,
 // and the embedding tile is read by two CTAs (L2 serves the second).  The
-// stash is indexed in 64 bits (csrc/field_fwd.cuh).
+// stash leaves shared memory by tensor stores (TMA) that run behind the next
+// layer's products (csrc/field_fwd.cuh); its tensor maps, built here, are
+// kernel parameters.
+
+#include <cudaTypedefs.h>
 
 #include "field_fwd.cuh"
 
 namespace {
 
 struct DualParams {
-  ffwd::Params br[2];  // face, eyes
+  ffwd::Params br[2];                      // face, eyes
+  CUtensorMap stash[2][ffwd::kSlots];      // per branch x0..x7, y0b, y1 (with the stash)
 };
 
 template <bool kStash>
-__global__ void __launch_bounds__(ffwd::kThreads, 1) dual_fwd_kernel(DualParams dp) {
-  const ffwd::Params& p = dp.br[blockIdx.z];
-  ffwd::forward_tile<kStash>(p, blockIdx.y, blockIdx.x * (ffwd::kRows / p.S));
+__global__ void __launch_bounds__(ffwd::kThreads, 1)
+    dual_fwd_kernel(const __grid_constant__ DualParams dp) {
+  // the branch's operands from shared memory: indexed by blockIdx.z in the
+  // kernel parameters, they would take a local copy and registers
+  __shared__ ffwd::Params p;
+  if (threadIdx.x == 0) p = dp.br[blockIdx.z];
+  __syncthreads();
+  ffwd::forward_tile<kStash>(p, kStash ? dp.stash[blockIdx.z] : nullptr, blockIdx.y,
+                             blockIdx.x * (ffwd::kRows / p.S));
+}
+
+// cuTensorMapEncodeTiled of the driver, found through the runtime (the
+// library links no driver library)
+PFN_cuTensorMapEncodeTiled_v12000 encode_tiled() {
+  static PFN_cuTensorMapEncodeTiled_v12000 fn = nullptr;
+  if (!fn) {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault, &q) ==
+            cudaSuccess &&
+        q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(f);
+  }
+  return fn;
+}
+
+// The tensor map of one stash slot, [P, N] bf16 rows at `base`, written in
+// [128, 64] boxes from the tile's 128-byte-swizzled sub-blocks (columns
+// past N, in a sub-block wider than the slot, are not written)
+bool stash_map(CUtensorMap* map, void* base, size_t P, size_t N) {
+  const PFN_cuTensorMapEncodeTiled_v12000 fn = encode_tiled();
+  if (!fn) return false;
+  const cuuint64_t dims[2] = {N, P};
+  const cuuint64_t strides[1] = {N * sizeof(ffwd::bf16)};
+  const cuuint32_t box[2] = {ffwd::kSub, ffwd::kRows};
+  const cuuint32_t step[2] = {1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, base, dims, strides, box, step,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_NONE, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 template <bool kStash>
@@ -61,7 +102,8 @@ extern "C" {
 
 // Launch on `stream`; returns the cudaError_t of the launch (0 = success).
 // Every weight, bias and conditioning row is stacked on a leading axis of 2
-// (face, eyes) in the single-branch kernel's layout, and so are the four
+// (face, eyes) in the single-branch kernel's layout, and so are the weight
+// stream scratch (filled per branch by pack_stream first) and the four
 // outputs ([2, B, R, C], [2, B, R], [2, B, R], [2, B, R, S]).  `stash` is
 // null (no stash) or 20 pointers: branch-major, slots x0..x7, y0b
 // ([B, R, S, H] bf16 each) and y1 ([B, R, S, H/2]).  The caller
@@ -72,39 +114,46 @@ int fused_field2_fwd(const void* embed, const float* zvals, const float* zdists,
                      const void* w0e, const void* wmid, const float* bmid,
                      const void* w5e, const void* w5x, const void* wd,
                      const float* bd, const void* wr0, const float* br0,
-                     const void* wr1x, const void* wr2, const float* br2,
+                     const void* wr1x, const void* wr2, const float* br2, void* wstream,
                      float* feat_out, float* bga_out, float* depth_out,
                      float* w_out, void* const* stash, int B, int R, int S, int De,
                      int Kp, int H, int C, void* stream) {
   typedef ffwd::bf16 bf16;
   const size_t b = B, r = R, s = S, h = H, h2 = H / 2, kp = Kp, c = C;
+  const int slices = ffwd::stream_slices(H, Kp);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
   DualParams dp = {};
   for (int i = 0; i < 2; ++i) {
     ffwd::Params& p = dp.br[i];
+    bf16* branch_stream =
+        static_cast<bf16*>(wstream) + i * (size_t)slices * ffwd::kStageBytes / sizeof(bf16);
+    const ffwd::StreamPlan plan = ffwd::stream_plan(
+        static_cast<const bf16*>(w0e) + i * h * kp, static_cast<const bf16*>(wmid) + i * 6 * h * h,
+        static_cast<const bf16*>(w5e) + i * h * kp, static_cast<const bf16*>(w5x) + i * h * h,
+        static_cast<const bf16*>(wr0) + i * h * h, static_cast<const bf16*>(wr1x) + i * h2 * h, H,
+        Kp);
+    ffwd::pack_stream<<<slices, 4 * ffwd::kPassCols, 0, st>>>(plan, branch_stream);
     p.embed = static_cast<const bf16*>(embed);
     p.zvals = zvals;
     p.zdists = zdists;
     p.cb0 = cb0 + i * b * h;
     p.cb5 = cb5 + i * b * h;
     p.cbr1 = cbr1 + i * b * h2;
-    p.w0e = static_cast<const bf16*>(w0e) + i * h * kp;
-    p.wmid = static_cast<const bf16*>(wmid) + i * 6 * h * h;
+    p.wstream = branch_stream;
     p.bmid = bmid + i * 6 * h;
-    p.w5e = static_cast<const bf16*>(w5e) + i * h * kp;
-    p.w5x = static_cast<const bf16*>(w5x) + i * h * h;
     p.wd = static_cast<const bf16*>(wd) + i * h;
     p.bd = bd + i;
-    p.wr0 = static_cast<const bf16*>(wr0) + i * h * h;
     p.br0 = br0 + i * h;
-    p.wr1x = static_cast<const bf16*>(wr1x) + i * h2 * h;
     p.wr2 = static_cast<const bf16*>(wr2) + i * h2 * c;
     p.br2 = br2 + i * c;
     p.feat_out = feat_out + i * b * r * c;
     p.bga_out = bga_out + i * b * r;
     p.depth_out = depth_out + i * b * r;
     p.w_out = w_out + i * b * r * s;
-    for (int k = 0; k < ffwd::kSlots; ++k)
-      p.stash[k] = stash ? static_cast<bf16*>(stash[i * ffwd::kSlots + k]) : nullptr;
+    for (int k = 0; k < ffwd::kSlots && stash; ++k)
+      if (!stash_map(&dp.stash[i][k], stash[i * ffwd::kSlots + k], b * r * s,
+                     k + 1 < ffwd::kSlots ? h : h2))
+        return (int)cudaErrorInvalidValue;
     p.R = R;
     p.S = S;
     p.De = De;
@@ -112,7 +161,6 @@ int fused_field2_fwd(const void* embed, const float* zvals, const float* zdists,
     p.H = H;
     p.C = C;
   }
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
   return stash ? launch<true>(dp, B, R, S, Kp, H, st) : launch<false>(dp, B, R, S, Kp, H, st);
 }
 

@@ -18,18 +18,20 @@
 // outputs, 2.7 MB of weights), far above the H100's ~295 FLOP per byte: it
 // is bound by bf16 tensor-core operations.
 //
-// Design (correct and simple first; wgmma, TMA and warp specialisation are
-// later work): one CTA of 512 threads takes 128 points = 128 / S whole rays,
-// so the compositing needs no cross-CTA step.  The tile body, its layout
-// and its numerics are in csrc/field_fwd.cuh, which the dual-branch forward
-// (csrc/fused_field2_fwd.cu) shares.
+// Design: one CTA takes 128 points = 128 / S whole rays, so the compositing
+// needs no cross-CTA step.  The tile body, its layout and its numerics are
+// in csrc/field_fwd.cuh, which the dual-branch forward
+// (csrc/fused_field2_fwd.cu) shares: the weights streamed once per CTA into
+// a shared-memory ring by a producer warp's bulk copies, the products on
+// wgmma, the layers in three rotating column blocks, compositing a warp per
+// ray.
 
 #include "field_fwd.cuh"
 
 namespace {
 
 __global__ void __launch_bounds__(ffwd::kThreads, 1) field_fwd_kernel(ffwd::Params p) {
-  ffwd::forward_tile<false>(p, blockIdx.y, blockIdx.x * (ffwd::kRows / p.S));
+  ffwd::forward_tile<false>(p, nullptr, blockIdx.y, blockIdx.x * (ffwd::kRows / p.S));
 }
 
 }  // namespace
@@ -38,36 +40,39 @@ extern "C" {
 
 // Launch on `stream`; returns the cudaError_t of the launch (0 = success).
 // The caller (kernels/fused_field.py) has checked the shapes: S divides
-// kRows, R is a multiple of kRows / S, H and Kp are multiples of 16.  Sizes
-// whose shared-memory tile exceeds the card's per-block limit (hidden widths
-// above 384 at 128 points per CTA) fail in cudaFuncSetAttribute.
+// kRows, R is a multiple of kRows / S, H is a multiple of 64 up to 192 or
+// of 128 up to 384, and Kp a multiple of 64.  `wstream` is scratch for
+// stream_slices(H, Kp) slices, which pack_stream fills first.
 int fused_field_fwd(const void* embed, const float* zvals, const float* zdists,
                     const float* cb0, const float* cb5, const float* cbr1,
                     const void* w0e, const void* wmid, const float* bmid,
                     const void* w5e, const void* w5x, const void* wd,
                     const float* bd, const void* wr0, const float* br0,
-                    const void* wr1x, const void* wr2, const float* br2,
+                    const void* wr1x, const void* wr2, const float* br2, void* wstream,
                     float* feat_out, float* bga_out, float* depth_out,
                     float* w_out, int B, int R, int S, int De, int Kp, int H,
                     int C, void* stream) {
+  typedef ffwd::bf16 bf16;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const ffwd::StreamPlan plan = ffwd::stream_plan(
+      static_cast<const bf16*>(w0e), static_cast<const bf16*>(wmid), static_cast<const bf16*>(w5e),
+      static_cast<const bf16*>(w5x), static_cast<const bf16*>(wr0), static_cast<const bf16*>(wr1x),
+      H, Kp);
+  ffwd::pack_stream<<<ffwd::stream_slices(H, Kp), 4 * ffwd::kPassCols, 0, st>>>(
+      plan, static_cast<bf16*>(wstream));
   ffwd::Params p = {};
-  p.embed = static_cast<const ffwd::bf16*>(embed);
+  p.embed = static_cast<const bf16*>(embed);
   p.zvals = zvals;
   p.zdists = zdists;
   p.cb0 = cb0;
   p.cb5 = cb5;
   p.cbr1 = cbr1;
-  p.w0e = static_cast<const ffwd::bf16*>(w0e);
-  p.wmid = static_cast<const ffwd::bf16*>(wmid);
+  p.wstream = static_cast<const bf16*>(wstream);
   p.bmid = bmid;
-  p.w5e = static_cast<const ffwd::bf16*>(w5e);
-  p.w5x = static_cast<const ffwd::bf16*>(w5x);
-  p.wd = static_cast<const ffwd::bf16*>(wd);
+  p.wd = static_cast<const bf16*>(wd);
   p.bd = bd;
-  p.wr0 = static_cast<const ffwd::bf16*>(wr0);
   p.br0 = br0;
-  p.wr1x = static_cast<const ffwd::bf16*>(wr1x);
-  p.wr2 = static_cast<const ffwd::bf16*>(wr2);
+  p.wr2 = static_cast<const bf16*>(wr2);
   p.br2 = br2;
   p.feat_out = feat_out;
   p.bga_out = bga_out;
@@ -84,7 +89,7 @@ int fused_field_fwd(const void* embed, const float* zvals, const float* zdists,
       field_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(R / (ffwd::kRows / S), B);
-  field_fwd_kernel<<<grid, ffwd::kThreads, smem, static_cast<cudaStream_t>(stream)>>>(p);
+  field_fwd_kernel<<<grid, ffwd::kThreads, smem, st>>>(p);
   return (int)cudaGetLastError();
 }
 

@@ -1,14 +1,14 @@
 // Tensor-core building blocks shared by the port's kernels.
 //
-// The mma.sync m16n8k16 fragment helpers (bf16 in, f32 accumulate) are used
-// by every kernel with products: the fused field forward and backward
-// (csrc/fused_field_fwd.cu, csrc/fused_field_bwd.cu) and the fused
-// upsampler's two kernels (csrc/fused_upsampler_fwd.cu,
-// csrc/fused_upsampler_bwd.cu).  The rest belongs to the upsampler: a tile
-// of kRows pixels times a weight matrix, the per-tile weight-gradient outer
-// product added into a private f32 slab, the column sums of a product's
-// epilogue values, and the epilogues of the block's forward chain, which its
-// backward recomputes.
+// The mma.sync m16n8k16 fragment helpers (bf16 in, f32 accumulate) serve
+// the fused field backward (csrc/field_bwd.cuh) and the fused upsampler's
+// two kernels (csrc/fused_upsampler_fwd.cu, csrc/fused_upsampler_bwd.cu);
+// the wgmma fences and waits serve the field forward (csrc/field_fwd.cuh)
+// and the weight-gradient GEMM (csrc/field_dw.cuh).  The rest belongs to
+// the upsampler: a tile of kRows pixels times a weight matrix, the per-tile
+// weight-gradient outer product added into a private f32 slab, the column
+// sums of a product's epilogue values, and the epilogues of the block's
+// forward chain, which its backward recomputes.
 //
 // Layouts (upsampler): activations in shared memory, [kRows, ld] bf16, ld =
 // K + 8 with K a multiple of 16 (the +8 makes the fragment loads free of
@@ -85,6 +85,23 @@ __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commi
 template <int n>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(n));
+}
+
+// wgmma's warpgroup-wide fences and waits (csrc/field_dw.cuh, csrc/field_fwd.cuh)
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int n>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(n) : "memory");
+}
+// orders this thread's generic-proxy writes to shared memory (cp.async
+// included) before the async proxy's reads (wgmma)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // One K-segment of a product: the [kRows, K] tile `a` (row stride lda) times

@@ -47,12 +47,6 @@ from gazenerf_tpu_torch.kernels import fused_upsampler as fu
 from gazenerf_tpu_torch.kernels import shuffle_blur as sb
 from gazenerf_tpu_torch.models.mlp_nerf import NeRFFieldMLP
 
-# K1 against its plain version, per output: max |kernel - plain| over
-# max |plain|.  The two round at the same points but sum in another order, so
-# now and then a bf16 activation rounds the other way (2^-8 of it) and
-# carries through the later layers; largest reading 5.6e-3 (weights).
-K1_REL_ERR = 1e-2
-
 # K2's cases: (hidden, samples per ray, rays per batch), two batches
 K2_CASES = {
     "narrow": (64, 8, 64),
@@ -89,6 +83,35 @@ K2_READINGS = {
 }
 K2_LIMIT_FACTOR = 2.0
 K2_LIMIT_FLOOR = 1e-4
+
+# K1 against its plain version, per case and output: (max |kernel - plain|
+# over max |plain|, relative L2 distance), rounded up, on an NVIDIA H100 80GB
+# HBM3 (700 W): seed 0 in the cases narrow, medium, wide and training
+# (K2_CASES); at the serving shape (a 512^2 render's own inputs,
+# chip_smoke.py), where K3 without the stash is held to the same limits per
+# branch, the largest of K1's and K3's two branches' readings over seeds 0
+# and 1.  The two round at the same points but sum in other orders, so at
+# wider layers now and then a bf16 activation rounds the other way (2^-8 of
+# it) and carries through the later layers; in the narrow case (hidden 64)
+# they agree to f32 noise, so a kernel that loses precision fails there (one
+# that rounds its accumulators to bf16 between K-slices reads 2.2e-2).
+# Limits: twice the reading, never below K2's floor and never above
+# K1_LIMIT_CAP.
+K1_CASES = (*K2_CASES, "serving")
+_K1_READINGS = {
+    "feat_int": ((7.9e-8, 6.7e-8), (2.6e-4, 8.8e-5), (5.6e-4, 1.8e-4), (4.5e-4, 1.7e-4),
+                 (1.3e-3, 6.6e-4)),
+    "bg_alpha": ((0.0, 0.0), (3.5e-5, 9.4e-6), (2.6e-4, 5.1e-5), (2.7e-4, 5.1e-5),
+                 (2.6e-4, 6.6e-5)),
+    "depth": ((0.0, 0.0), (2.1e-4, 1.1e-4), (1.5e-3, 6.8e-4), (1.3e-3, 6.6e-4), (1.3e-3, 6.3e-4)),
+    "weights": ((0.0, 0.0), (9.2e-4, 2.4e-4), (3.7e-3, 7.8e-4), (3.7e-3, 7.8e-4), (6.5e-3, 1.9e-3)),
+}
+K1_LIMIT_CAP = 1e-2
+K1_LIMITS = {
+    case: {name: tuple(min(K1_LIMIT_CAP, max(K2_LIMIT_FACTOR * v, K2_LIMIT_FLOOR)) for v in r[i])
+           for name, r in _K1_READINGS.items()}
+    for i, case in enumerate(K1_CASES)
+}
 # The kernel's distance from the unrounded gradient over the larger of the
 # plain version's and of the plain version computed in float64: at most
 # 1.088 (dbmid) over the wide case's seeds 0-7 and the training case's 0-1
@@ -205,6 +228,13 @@ def limit_failures(got, want, limits) -> Tuple[Dict[str, Tuple[float, float]], L
             fails.append(f"{name}: ratio {ratio:.3e} (limit {lim_ratio:.1e}), "
                          f"relative L2 {rel:.3e} (limit {lim_rel:.1e})")
     return r, fails
+
+
+def k1_failures(case: str, got, want) -> Tuple[Dict[str, Tuple[float, float]], List[str]]:
+    """K1's four outputs against its plain version's in ``case``: the
+    readings, and a line for every output that is not finite or over its
+    limits."""
+    return limit_failures(Outputs(*got), Outputs(*want), K1_LIMITS[case])
 
 
 def k2_failures(case: str, got, want) -> Tuple[Dict[str, Tuple[float, float]], List[str]]:

@@ -30,6 +30,10 @@ KERNEL = "fused_field_fwd"
 # is compiled with this value, so the wrapper's checks and the kernel agree
 TILE_POINTS = 128
 DEFINES = {"TILE_POINTS": TILE_POINTS}
+# output columns of one pass of the tile's products, and the K-width of one
+# slice of the weight stream the kernels pack per call (csrc/field_fwd.cuh)
+PASS_COLS = 192
+SLICE_K = 32
 
 # kernel launches since import (or since a caller reset it); a render and
 # a training step each make two, one per field branch
@@ -37,8 +41,8 @@ launch_count = 0
 
 
 class FieldOperands(NamedTuple):
-    """Kernel operands: bf16 weights stored ``[out, in]`` (what one
-    ``mma.sync`` B-fragment register reads), f32 biases."""
+    """Kernel operands: bf16 weights stored ``[out, in]`` (rows contiguous
+    along K: the kernels copy K-slices of them), f32 biases."""
 
     w0e: torch.Tensor  # [H, Kp] fea_0 rows acting on the embedding, zero-padded
     wmid: torch.Tensor  # [6, H, H] fea_1..4, fea_6, fea_7
@@ -162,7 +166,7 @@ def fused_field_reference(embed, zvals, zdists, cb0, cb5, cbr1, w: FieldOperands
     return out, tuple(a.to(torch.bfloat16).reshape(B, R, S, -1) for a in (*acts, y0, y1))
 
 
-_ARGTYPES = [ctypes.c_void_p] * 22 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 23 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 
 
 def _library() -> ctypes.CDLL:
@@ -185,20 +189,45 @@ def check_tensor(name, t, device, dtype, shape):
         raise ValueError(f"{name}: not contiguous")
 
 
+def check_shapes(R, S, H, H2, Kp, De):
+    """Raise unless the tile body takes these shapes: whole rays in tiles of
+    ``TILE_POINTS`` points; activations and the embedding tile stored in
+    64-column blocks, and a layer of more than ``PASS_COLS`` columns
+    computed in two passes of half its width."""
+    T = TILE_POINTS
+    if S <= 0 or T % S or R % (T // S):
+        raise ValueError(
+            f"the kernel takes whole rays in tiles of {T} points: S={S} must divide {T} "
+            f"and R={R} be a multiple of {T // max(S, 1)}"
+        )
+    if H2 * 2 != H or not takes_hidden(H):
+        raise ValueError(f"hidden width {H}: the kernel takes multiples of 64 up to "
+                         f"{PASS_COLS} and multiples of 128 up to {2 * PASS_COLS}")
+    if Kp % 64 or Kp < De:
+        raise ValueError(f"padded embedding width {Kp} for De={De}: a multiple of 64 "
+                         f"at least De")
+
+
+def takes_hidden(H: int) -> bool:
+    """Whether the forward kernels take hidden width ``H``: its layers in one
+    pass of 64-column blocks, or two passes of half the width."""
+    return H <= 2 * PASS_COLS and H % (128 if H > PASS_COLS else 64) == 0
+
+
+def stream_slices(H: int, Kp: int) -> int:
+    """``[PASS_COLS, SLICE_K]`` slices of the weight stream a forward kernel
+    packs per call and branch (``stream_slices`` in csrc/field_fwd.cuh)."""
+    passes = 2 if H > PASS_COLS else 1
+    return passes * (2 * Kp + 8 * H) // SLICE_K + H // SLICE_K
+
+
 def _launch(embed, zvals, zdists, cb0, cb5, cbr1, w: FieldOperands):
     global launch_count
     B, R, S, De = embed.shape
     H, Kp = w.w0e.shape
     H2, C = w.wr2.shape
     dev = embed.device
-    if S <= 0 or TILE_POINTS % S or R % (TILE_POINTS // S):
-        raise ValueError(
-            f"the kernel takes whole rays in tiles of {TILE_POINTS} points: "
-            f"S={S} must divide {TILE_POINTS} and R={R} be a multiple of "
-            f"{TILE_POINTS // max(S, 1)}"
-        )
-    if H % 16 or H2 * 2 != H:
-        raise ValueError(f"hidden width {H} must be a multiple of 16")
+    check_shapes(R, S, H, H2, Kp, De)
     bf, f32 = torch.bfloat16, torch.float32
     expected = {
         "embed": (embed, bf, (B, R, S, De)),
@@ -222,16 +251,17 @@ def _launch(embed, zvals, zdists, cb0, cb5, cbr1, w: FieldOperands):
     }
     for name, (t, dtype, shape) in expected.items():
         check_tensor(name, t, dev, dtype, shape)
-    if Kp % 16 or Kp < De:
-        raise ValueError(f"padded embedding width {Kp} for De={De}")
     lib = _library()
     feat = torch.empty((B, R, C), dtype=f32, device=dev)
     bga = torch.empty((B, R), dtype=f32, device=dev)
     depth = torch.empty((B, R), dtype=f32, device=dev)
     wts = torch.empty((B, R, S), dtype=f32, device=dev)
     ins = [t for t, _, _ in expected.values()]
+    # scratch for the weight stream, packed by the call (alive only while
+    # the kernel runs: the stream repeats the weights)
+    stream = torch.empty((stream_slices(H, Kp), PASS_COLS, SLICE_K), dtype=bf, device=dev)
     err = lib.fused_field_fwd(
-        *(t.data_ptr() for t in ins),
+        *(t.data_ptr() for t in ins), stream.data_ptr(),
         *(t.data_ptr() for t in (feat, bga, depth, wts)),
         B, R, S, De, Kp, H, C,
         torch.cuda.current_stream(dev).cuda_stream,

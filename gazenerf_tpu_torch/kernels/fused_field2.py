@@ -76,7 +76,7 @@ def fused_dual_reference(embed, zvals, zdists, cb0, cb5, cbr1, w: FieldOperands,
     return tuple(o for o, _ in outs), tuple(a for _, a in outs)
 
 
-_ARGTYPES = [ctypes.c_void_p] * 23 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 24 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 
 
 def _library() -> ctypes.CDLL:
@@ -110,16 +110,7 @@ def _launch(embed, zvals, zdists, cb0, cb5, cbr1, w: FieldOperands, stash: bool)
     _, H, Kp = w.w0e.shape
     _, H2, C = w.wr2.shape
     dev = embed.device
-    T = ff.TILE_POINTS
-    if S <= 0 or T % S or R % (T // S):
-        raise ValueError(
-            f"the kernel takes whole rays in tiles of {T} points: S={S} must divide {T} "
-            f"and R={R} be a multiple of {T // max(S, 1)}"
-        )
-    if H % 16 or H2 * 2 != H:
-        raise ValueError(f"hidden width {H} must be a multiple of 16")
-    if Kp % 16 or Kp < De:
-        raise ValueError(f"padded embedding width {Kp} for De={De}")
+    ff.check_shapes(R, S, H, H2, Kp, De)
     bf, f32 = torch.bfloat16, torch.float32
     NB = N_BRANCHES
     expected = {
@@ -152,8 +143,11 @@ def _launch(embed, zvals, zdists, cb0, cb5, cbr1, w: FieldOperands, stash: bool)
     acts = empty_stash(B, R, S, H, dev) if stash else ()
     ptrs = (ctypes.c_void_p * (NB * N_SLOTS))(*(a.data_ptr() for br in acts for a in br))
     ins = [t for t, _, _ in expected.values()]
+    # scratch for both branches' weight streams, packed by the call
+    streams = torch.empty((NB, ff.stream_slices(H, Kp), ff.PASS_COLS, ff.SLICE_K), dtype=bf,
+                          device=dev)
     err = lib.fused_field2_fwd(
-        *(t.data_ptr() for t in ins),
+        *(t.data_ptr() for t in ins), streams.data_ptr(),
         *(t.data_ptr() for t in (feat, bga, depth, wts)),
         ptrs if stash else None, B, R, S, De, Kp, H, C,
         torch.cuda.current_stream(dev).cuda_stream,

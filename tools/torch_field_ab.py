@@ -1,0 +1,191 @@
+#!/usr/bin/env python3
+"""Time the PyTorch port's fused field forward kernels (K1, K3) and its
+training step in several source trees on one CUDA card, in turns.
+
+    python tools/torch_field_ab.py [--turns 2] [--iters 10] [--steps] SPEC [SPEC ...]
+
+SPEC is ``LABEL=TREE`` or ``LABEL=TREE+VARIANT``: TREE a checkout of this
+repository (``gazenerf_tpu_torch/`` and ``chip_smoke.py`` at its root, for
+example the parent commit unpacked by ``git archive`` into a directory that
+``.gitignore`` lists), VARIANT one of :data:`VARIANTS`, a named set of text
+edits applied to a copy of the tree under ``build/ab/`` (never to the tree
+itself): the attribution of a kernel's time by what it costs to leave a part
+out.  Each (tree, turn) runs in a child process with that tree's package on
+``sys.path`` (its kernels built into its own ``build/``), in the order of the
+specs and then reversed (A B, B A, ...), so that two trees are compared on
+one card under the same conditions.  Per child it prints one JSON line: the
+card, ``-Xptxas -v`` of the forward kernels, K1 at B=1 (one 512^2 render's
+shape, 4096 rays x 64 samples) and B=2 (the training step's), K3 at B=1
+without and at B=2 with and without the stash (ms per launch, CUDA events,
+hidden 384), and with ``--steps``, for the trees without a variant, the
+device time and peak memory of one full-width training step, ``phase_gm``
+and ``dual``.  Imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+FWD = "gazenerf_tpu_torch/csrc/field_fwd.cuh"
+
+# name -> [(file in the tree, text, replacement)]: each text must occur.
+VARIANTS = {
+    # the tile body with the weights streamed into a shared-memory ring by a
+    # producer warp and the products on wgmma
+    "no_products": [(FWD, "    if (on) {", "    if (false && on) {")],
+    "no_compositing": [(FWD, "  // compositing: a warp per ray,",
+                        "  if (kStash && tid == 0) asm volatile(\"cp.async.bulk.wait_group 0;\" ::: \"memory\");\n"
+                        "  return;\n  // compositing: a warp per ray,")],
+    "no_stash_stores": [(FWD, "        tma_store(map,", "        if (false) tma_store(map,")],
+    # the earlier tile body, whose warps read their B fragments from global
+    # memory with ldg32
+    "ldg32_constant_b": [(FWD, "const uint32_t b0 = ldg32(q), b1 = ldg32(q + 8);",
+                        "(void)q; const uint32_t b0 = 0x3c003c00u, b1 = 0x3c003c01u;")],
+    "ldg32_no_compositing": [(FWD, "  // compositing: one thread per ray",
+                            "  __syncthreads();\n  if (kStash) store_slot(slot(9, H2), X1, ldx, H2);\n"
+                            "  return;\n  // compositing: one thread per ray")],
+}
+
+
+def prepare(label: str, spec: str) -> Path:
+    """The directory a child runs in: the tree itself, or a copy of its
+    package and chip_smoke.py with the variant's edits."""
+    tree, _, variant = spec.partition("+")
+    tree = (ROOT / tree).resolve()
+    if not variant:
+        return tree
+    out = ROOT / "build" / "ab" / label
+    if out.exists():
+        shutil.rmtree(out)
+    out.mkdir(parents=True)
+    shutil.copytree(tree / "gazenerf_tpu_torch", out / "gazenerf_tpu_torch",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    shutil.copy(tree / "chip_smoke.py", out / "chip_smoke.py")
+    for name, old, new in VARIANTS[variant]:
+        path = out / name
+        text = path.read_text()
+        if old not in text:
+            raise SystemExit(f"{label}: variant {variant}: text not found in {name}: {old!r}")
+        path.write_text(text.replace(old, new))
+    return out
+
+
+def child(args) -> dict:
+    """Measure the tree on sys.path[0] (the child's working directory)."""
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("torch_field_ab: no CUDA device")
+    sys.path.insert(0, os.getcwd())
+    import chip_smoke as cs
+    from gazenerf_tpu_torch.kernels import build, checks
+    from gazenerf_tpu_torch.kernels import fused_field as ff
+    from gazenerf_tpu_torch.kernels import fused_field2 as ff2
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip()
+    logs = build.build({ff.KERNEL: ff.DEFINES, ff2.KERNEL: ff2.DEFINES})
+    ptxas = [line.strip() for log in logs.values() for line in log.splitlines()
+             if "Compiling entry" in line or "registers" in line or "spill" in line]
+    dev = torch.device("cuda")
+    out = {"label": args.label, "turn": args.turn, "card": smi, "ptxas": ptxas, "ms": {}}
+    with torch.no_grad():
+        args2, _ = checks.field_case(384, 64, 4096, dev)
+        args1 = tuple(t[:1].contiguous() for t in args2[:6]) + (args2[6],)
+        dargs, _ = checks.dual_case(384, 64, 4096, dev)
+        dargs1 = (*(t[:1].contiguous() for t in dargs[:3]),
+                  *(t[:, :1].contiguous() for t in dargs[3:6]), dargs[6])
+        runs = {
+            "K1 B=1": lambda: ff.fused_field_forward(*args1),
+            "K1 B=2": lambda: ff.fused_field_forward(*args2),
+            "K3 B=1 no stash": lambda: ff2.fused_dual_forward(*dargs1),
+            "K3 B=2 stash": lambda: ff2.fused_dual_forward(*dargs, stash=True),
+            "K3 B=2 no stash": lambda: ff2.fused_dual_forward(*dargs),
+        }
+        for name, fn in runs.items():
+            out["ms"][name] = cs.cuda_ms(fn, args.iters)
+    if args.steps:
+        import dataclasses
+
+        from gazenerf_tpu_torch import Config, Trainer
+        from gazenerf_tpu_torch.config import ModelConfig
+
+        cfg = ModelConfig(compute_dtype="bfloat16", renderer_dtype="bfloat16")
+        out["step"] = {}
+        for name, flags in (("phase_gm", {}), ("dual", cs.DUAL_FLAGS)):
+            mcfg = dataclasses.replace(cfg, **flags)
+            tcfg = Config(model=mcfg)
+            trainer = Trainer(tcfg, train_len=8, steps_per_epoch=1000, seed=0)
+            batch = cs.synthetic_batch(0, tcfg.train.batch_size, mcfg.pred_img_size,
+                                       mcfg.featmap_size)
+            for _ in range(2):
+                trainer.train_step(batch)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            prof = cs.device_profile(lambda: trainer.train_step(batch), mode="phase_gm")
+            out["step"][name] = {"device_ms": prof["device_ms"], "wall_ms": prof["wall_ms"],
+                                 "kernels_ms": prof.get("kernels_ms"),
+                                 "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+            del trainer
+            torch.cuda.empty_cache()
+    return out
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("specs", nargs="*")
+    ap.add_argument("--turns", type=int, default=2)
+    ap.add_argument("--iters", type=int, default=10, help="timed launches per kernel")
+    ap.add_argument("--steps", action="store_true", help="also time a training step")
+    ap.add_argument("--child", action="store_true", help=argparse.SUPPRESS)
+    ap.add_argument("--label", default="", help=argparse.SUPPRESS)
+    ap.add_argument("--turn", type=int, default=0, help=argparse.SUPPRESS)
+    args = ap.parse_args()
+    if args.child:
+        print(json.dumps(child(args)))
+        return 0
+    if not args.specs:
+        ap.error("give at least one LABEL=TREE[+VARIANT]")
+    dirs, variants = {}, set()
+    for spec in args.specs:
+        label, _, rest = spec.partition("=")
+        dirs[label] = prepare(label, rest)
+        if "+" in rest:
+            variants.add(label)
+    results = []
+    for turn in range(args.turns):
+        order = list(dirs) if turn % 2 == 0 else list(dirs)[::-1]
+        for label in order:
+            steps = args.steps and label not in variants
+            cmd = [sys.executable, str(Path(__file__).resolve()), "--child", "--label", label,
+                   "--turn", str(turn), "--iters", str(args.iters)] + (["--steps"] if steps else [])
+            proc = subprocess.run(cmd, cwd=dirs[label], capture_output=True, text=True)
+            if proc.returncode:
+                print(proc.stdout[-2000:], proc.stderr[-4000:], file=sys.stderr)
+                raise SystemExit(f"{label}, turn {turn}: exit {proc.returncode}")
+            line = json.loads(proc.stdout.strip().splitlines()[-1])
+            print(json.dumps(line), flush=True)
+            results.append(line)
+    summary = {}
+    for r in results:
+        s = summary.setdefault(r["label"], {})
+        for k, v in r["ms"].items():
+            s.setdefault(k, []).append(v)
+        for k, v in r.get("step", {}).items():
+            s.setdefault(f"{k} step device ms", []).append(v["device_ms"])
+            s.setdefault(f"{k} step peak GB", []).append(v["peak_memory_bytes"] / 1e9)
+    print(json.dumps({"summary": summary, "card": results[0]["card"]}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
