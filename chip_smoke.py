@@ -20,7 +20,8 @@ Phases (each raises on failure, so any failed phase exits non-zero):
    stencil (K5, K6) at its three levels and fused upsampler block (K7, K8)
    at its three blocks (bf16, B=2) against their plain versions, K8 also
    against the unrounded float64 gradient and for equal bits over two
-   launches; the dual-branch forward (K3) at the render's and the training
+   launches, with its device time per kernel (``k8_profile``); the
+   dual-branch forward (K3) at the render's and the training
    step's shapes against its plain version (outputs and stash) and against
    K1 on each branch, and its stash-reading backward (K4) in the narrow case
    and at the training step's shape against its plain version, against K2
@@ -47,8 +48,8 @@ Phases (each raises on failure, so any failed phase exits non-zero):
    single-branch step and the step without the stash, which launches K3
    once and K2 twice); then where a step's time goes.
 
-Prints ``k2_profile``, ``dw``, ``k4_profile``, ``serving``, ``training`` and
-``kernels`` JSON lines, the
+Prints ``k2_profile``, ``dw``, ``k8_profile``, ``k4_profile``, ``serving``,
+``training`` and ``kernels`` JSON lines, the
 ``nvidia-smi`` line and, last, the device JSON line.  Exits non-zero without
 a result when no CUDA card is present.  Imports nothing of JAX.
 """
@@ -413,6 +414,7 @@ def phase_renderer_kernels(seed, iters):
         timed("k6", errs[1], lambda: sb.shuffle_blur_backward(dy),
               lambda: sb.shuffle_blur_backward_reference(dy), stencil_bound(dy, dx))
 
+    k8_profile = {}
     for block in ("block0", "block1", "block2"):
         args, dy = checks.block_case(checks.BLOCK_CASES[block], dev, seed=seed)
         y = fu.fused_upsample_forward(*args)
@@ -440,6 +442,10 @@ def phase_renderer_kernels(seed, iters):
         timed("k8", float(max((a.float() - b.float()).abs().max() for a, b in zip(got, want))),
               lambda: fu.fused_upsample_backward(*args, dy),
               lambda: fu.fused_upsample_backward_reference(*args, dy), k8_bound(args, dy, got))
+        # K8's device time by CUDA kernel: dz3, the tile kernel, the dW GEMM
+        # and its partials' sum, the bias sums
+        k8_profile[block] = device_profile(lambda: fu.fused_upsample_backward(*args, dy), top=6)
+    print(json.dumps({"k8_profile": k8_profile}))
     check(not fails, "\n".join(fails))
 
     def entry(key, name, source, replaces):
@@ -732,6 +738,12 @@ def phase_serving(seed, cfg, n_requests, name):
     return app, requests, launches, times, img_k
 
 
+# the CUDA kernels of K7 (with the stencil's) and of K8, by name
+UPSAMPLER_FWD = ("chain_fwd_kernel",)
+UPSAMPLER_BWD = ("dz3_kernel", "block_bwd_kernel", "upsampler_dw_kernel",
+                 "upsampler_dwsum_kernel", "upsampler_sum_kernel")
+
+
 def kernel_ms(rows, mode):
     """Device ms per kernel of the ``kernels`` line from profiler rows (name,
     count, ms); the stencil launches belong to the mode's renderer kernels."""
@@ -746,10 +758,9 @@ def kernel_ms(rows, mode):
             name = "fused_field_fwd"
         elif any(f"field_{k}_kernel" in key for k in ("bwd", "dw", "dwsum", "head", "sum")):
             name = "fused_field_bwd"
-        elif renderer and ("stencil::fwd_kernel" in key or "chain_kernel" in key):
+        elif renderer and any(k in key for k in UPSAMPLER_FWD + ("stencil::fwd_kernel",)):
             name = f"{renderer}_fwd"
-        elif renderer and ("stencil::bwd_kernel" in key or "block_bwd_kernel" in key
-                           or "sum_slabs" in key):
+        elif renderer and any(k in key for k in UPSAMPLER_BWD + ("stencil::bwd_kernel",)):
             name = f"{renderer}_bwd"
         else:
             continue

@@ -88,9 +88,9 @@ struct Jobs {
 // A job list's numbering: output tiles in job order, each job row-major over
 // its [ceil(M / kBM), ceil(N / kBN)] tiles; the point ranges, as many as
 // make about two waves of kCtasPerSm CTAs on each of `sms` SMs (at most
-// kMaxSplits, at least kBK points each).  `part` holds kMaxSplits *
-// part_len floats.
-inline void number_tiles(Jobs& js, int sms, float* part) {
+// max_splits, at least kBK points each).  `part` holds splits * part_len
+// floats (at most max_splits * part_len).
+inline void number_tiles(Jobs& js, int sms, float* part, int max_splits = kMaxSplits) {
   int t = 0;
   size_t off = 0;
   for (int j = 0; j < js.n_jobs; ++j) {
@@ -105,7 +105,7 @@ inline void number_tiles(Jobs& js, int sms, float* part) {
   js.part_len = off;
   js.part = part;
   int splits = (2 * kCtasPerSm * sms + t / 2) / t;
-  splits = splits < 1 ? 1 : splits > kMaxSplits ? kMaxSplits : splits;
+  splits = splits < 1 ? 1 : splits > max_splits ? max_splits : splits;
   if (splits > js.P / kBK) splits = js.P / kBK;
   js.split_p = (js.P / kBK + splits - 1) / splits * kBK;
   js.splits = (js.P + js.split_p - 1) / js.split_p;

@@ -135,7 +135,13 @@ struct Act {
 };
 
 using tile::bf2f;
+using tile::bulk_load;
+using tile::desc;
 using tile::fence_proxy_async;
+using tile::mbar_arrive;
+using tile::mbar_expect_tx;
+using tile::mbar_init;
+using tile::mbar_wait;
 using tile::smem_addr;
 using tile::wgmma_commit;
 using tile::wgmma_fence;
@@ -161,13 +167,6 @@ __device__ __forceinline__ int swz(int r, int c) {
 // the 64-byte swizzle, the chunks permuted by n / 2
 __device__ __forceinline__ int stage_at(int n, int c) {
   return n * kSliceK * 2 + (((c ^ (n >> 1)) & 3) << 4);
-}
-
-// A wgmma shared-memory matrix descriptor: K-major, 8-row groups `sbo`
-// bytes apart, `swizzle` 1 (128-byte) or 2 (64-byte)
-__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t sbo, uint64_t swizzle) {
-  return (uint64_t)((addr >> 4) & 0x3FFF) | (uint64_t)1 << 16 |
-         (uint64_t)((sbo >> 4) & 0x3FFF) << 32 | swizzle << 62;
 }
 
 // d (+)= A . B^T for one m64n96k16 bf16 product, A ([64, 16]) and B ([96,
@@ -216,46 +215,6 @@ __device__ __forceinline__ float warp_prefix_product(float v) {
 // the consumer warps alone (named barrier 1): the producer warp runs ahead
 __device__ __forceinline__ void consumer_sync() {
   asm volatile("bar.sync 1, %0;\n" ::"n"(kConsumers) : "memory");
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count)
-               : "memory");
-}
-
-// Wait for the phase of `bar` with this parity to complete.  A wait that
-// never ends (a fault in the pipeline) traps instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  for (uint32_t n = 0;; ++n) {
-    uint32_t done;
-    asm volatile(
-        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-    if (done) return;
-    if (n > (1u << 24)) __trap();
-  }
-}
-
-// if `pred`, arrive on `bar`; predicated, not branched, so the warp stays
-// converged for the next wgmma
-__device__ __forceinline__ void mbar_arrive(uint32_t bar, bool pred) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %1, 0;\n@p mbarrier.arrive.shared::cta.b64 _, [%0];\n}\n"
-      ::"r"(bar), "r"((int)pred) : "memory");
-}
-
-// The producer's arrival on a stage's full barrier, with the stage's bytes
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               ::"r"(bar), "r"(bytes) : "memory");
-}
-
-// bytes from global src to shared dst, completing them on `bar`
-__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, int bytes, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
-      ::"r"(dst), "l"(src), "r"(bytes), "r"(bar) : "memory");
 }
 
 // The ring: kStages stages, each with a full barrier (the producer arrives

@@ -32,8 +32,6 @@
 // layer's products (csrc/field_fwd.cuh); its tensor maps, built here, are
 // kernel parameters.
 
-#include <cudaTypedefs.h>
-
 #include "field_fwd.cuh"
 
 namespace {
@@ -55,34 +53,11 @@ __global__ void __launch_bounds__(ffwd::kThreads, 1)
                              blockIdx.x * (ffwd::kRows / p.S));
 }
 
-// cuTensorMapEncodeTiled of the driver, found through the runtime (the
-// library links no driver library)
-PFN_cuTensorMapEncodeTiled_v12000 encode_tiled() {
-  static PFN_cuTensorMapEncodeTiled_v12000 fn = nullptr;
-  if (!fn) {
-    void* f = nullptr;
-    cudaDriverEntryPointQueryResult q;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault, &q) ==
-            cudaSuccess &&
-        q == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(f);
-  }
-  return fn;
-}
-
 // The tensor map of one stash slot, [P, N] bf16 rows at `base`, written in
 // [128, 64] boxes from the tile's 128-byte-swizzled sub-blocks (columns
 // past N, in a sub-block wider than the slot, are not written)
 bool stash_map(CUtensorMap* map, void* base, size_t P, size_t N) {
-  const PFN_cuTensorMapEncodeTiled_v12000 fn = encode_tiled();
-  if (!fn) return false;
-  const cuuint64_t dims[2] = {N, P};
-  const cuuint64_t strides[1] = {N * sizeof(ffwd::bf16)};
-  const cuuint32_t box[2] = {ffwd::kSub, ffwd::kRows};
-  const cuuint32_t step[2] = {1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, base, dims, strides, box, step,
-            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-            CU_TENSOR_MAP_L2_PROMOTION_NONE, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  return tile::bf16_map(map, base, P, N, N, ffwd::kRows, ffwd::kSub, CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 template <bool kStash>

@@ -67,21 +67,14 @@ __global__ void fwd_kernel(const Tin* __restrict__ x, Tout* __restrict__ y, int 
 __device__ __forceinline__ float w_prev(int M) { return M == 1 ? 0.5f : 0.25f; }
 __device__ __forceinline__ float w_next(int M, int L) { return M == L - 2 ? 0.5f : 0.25f; }
 
-// dx[b, h, w, k*C + c] = the adjoint of fwd_kernel at shuffled position
-// (M, N) = (2h + k/2, 2w + k%2), separable: each of the (up to) three rows
-// of dy is summed over its (up to) three columns first, in order.  dy is
-// [B, 2H, 2W, C]; one thread per element of dx [B, H, W, 4C].  Grid (row
-// chunks, H, B): block (., h, b) takes row h of dx in image b.
-template <typename Tin, typename Tout>
-__global__ void bwd_kernel(const Tin* __restrict__ dy, Tout* __restrict__ dx, int H, int W,
-                           int C) {
+// The adjoint of fwd_kernel at element (b, h, w, k*C + c) of its [B, H, W,
+// 4C] input, from dy [B, 2H, 2W, C]: shuffled position (M, N) = (2h + k/2,
+// 2w + k%2), separable: each of the (up to) three rows of dy is summed over
+// its (up to) three columns first, in order.
+template <typename Tin>
+__device__ __forceinline__ float adjoint_at(const Tin* __restrict__ dy, int b, int h, int w,
+                                            int k, int c, int H, int W, int C) {
   const int L = 2 * H, Lc = 2 * W;
-  const unsigned e_idx = blockIdx.x * blockDim.x + threadIdx.x;
-  if (e_idx >= 4u * W * C) return;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int w = (int)(e_idx / (4u * C));
-  const int r = (int)(e_idx - (unsigned)w * 4u * C);
-  const int k = r / C, c = r - k * C;
   const int M = 2 * h + (k >> 1), N = 2 * w + (k & 1);
   const Tin* db = dy + (size_t)b * L * Lc * C + c;
   float acc = 0.f;
@@ -96,7 +89,21 @@ __global__ void bwd_kernel(const Tin* __restrict__ dy, Tout* __restrict__ dx, in
     if (N + 1 < Lc) rs += w_next(N, Lc) * load_f(row + (size_t)(N + 1) * C);
     acc += (dm < 0 ? w_prev(M) : dm > 0 ? w_next(M, L) : 0.5f) * rs;
   }
-  store_f(dx + ((size_t)b * H + h) * W * 4 * C + e_idx, acc);
+  return acc;
+}
+
+// dx [B, H, W, 4C] = the adjoint of fwd_kernel, one thread per element.
+// Grid (row chunks, H, B): block (., h, b) takes row h of dx in image b.
+template <typename Tin, typename Tout>
+__global__ void bwd_kernel(const Tin* __restrict__ dy, Tout* __restrict__ dx, int H, int W,
+                           int C) {
+  const unsigned e_idx = blockIdx.x * blockDim.x + threadIdx.x;
+  if (e_idx >= 4u * W * C) return;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int w = (int)(e_idx / (4u * C));
+  const int r = (int)(e_idx - (unsigned)w * 4u * C);
+  const int k = r / C, c = r - k * C;
+  store_f(dx + ((size_t)b * H + h) * W * 4 * C + e_idx, adjoint_at(dy, b, h, w, k, c, H, W, C));
 }
 
 constexpr int kThreads = 256;

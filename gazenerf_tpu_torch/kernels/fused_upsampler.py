@@ -18,12 +18,16 @@ applied here as the gather :func:`residual_index` encodes (the same values,
 and it takes no gradient).
 
 The kernels are hand-written CUDA for Hopper (``csrc/fused_upsampler_fwd.cu``,
-``csrc/fused_upsampler_bwd.cu``; their headers state the bound and the
-design); each takes the bf16 configuration (``use_bf16=True``).
+``csrc/fused_upsampler_bwd.cu``, one chain body ``csrc/upsampler_chain.cuh``;
+their headers state the bound and the design); each takes the bf16
+configuration (``use_bf16=True``).  K8 takes the pixels in chunks of whole
+tiles of 64, 128 or 256 pixels (:func:`group_rows`, :func:`plan_chunks`) and
+its weight gradients as a GEMM over each chunk's pixels, chunk after chunk.
 
 * :func:`fused_upsample_reference` / :func:`fused_upsample_backward_reference`:
   the plain versions with the Pallas kernels' rounding points, for
-  ``use_bf16`` True and False;
+  ``use_bf16`` True and False (the backward's weight gradients also in the
+  kernel's chunked order);
 * :func:`fused_upsample_forward` / :func:`fused_upsample_backward`: the
   wrappers, the kernels for CUDA tensors, the plain versions for CPU tensors;
 * :class:`FusedUpsample`: the autograd op, whose backward is K8.
@@ -32,7 +36,7 @@ design); each takes the bf16 configuration (``use_bf16=True``).
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -47,13 +51,21 @@ from gazenerf_tpu_torch.kernels.shuffle_blur import (
 KERNEL_FWD = "fused_upsampler_fwd"
 KERNEL_BWD = "fused_upsampler_bwd"
 DEFINES: dict = {}
-TILE_PIXELS = 32  # pixels per tile in both kernels (csrc/tile_mma.cuh kRows)
+# pixels of a warpgroup's rows: a tile is 64, 128 or 256 (csrc/upsampler_chain.cuh)
+GROUP_PIXELS = 64
+# the bytes of K8's chunk buffer (its weight gradients' operands) that a
+# chunk of more than one wave of tiles may take: at B=2 the chunks of the
+# second and third blocks stay near 50 MB, below the 90-130 MB that their
+# f32 dz3 and per-CTA weight-gradient slabs took in the earlier design
+CHUNK_BYTES = 64 << 20
+# shared memory a CTA may take (H100: 227 KB)
+SMEM_LIMIT = 232448
 
 # kernel launches since import (or since a caller reset them): K7 and K8.  A
 # renderer pass in shuffle_mode="fused" makes one K7 launch per upsample
 # block (each is two CUDA launches, the chain and the stencil, counted
-# once); its backward one K8 launch per block (three CUDA launches: the
-# stencil's adjoint, the chain's backward, the slab sum).
+# once); its backward one K8 launch per block (per chunk the tile kernel and
+# the weight-gradient GEMM's launches, then the bias sums).
 launch_count_fwd = 0
 launch_count_bwd = 0
 
@@ -70,8 +82,47 @@ def residual_index(F: int) -> np.ndarray:
     return (4 * c + k) % F
 
 
-def _pad16(n: int) -> int:
-    return -(-n // 16) * 16
+def _pad32(n: int) -> int:
+    return -(-n // 32) * 32
+
+
+def chunk_bytes(F: int, F3: int, tile: int) -> int:
+    """Bytes of K8's chunk buffer per tile of ``tile`` pixels: per pixel bf16
+    h1, the four phases of z, dz3's two halves, dzp and dz, and dh1p, each
+    padded to 32."""
+    Fp, F2p, F3p = _pad32(F), _pad32(2 * F), _pad32(F3)
+    return tile * 2 * (12 * Fp + 2 * F2p + 8 * F3p)
+
+
+def plan_chunks(P: int, F: int, F3: int, tile: int, sms: int):
+    """K8's chunks of ``P`` pixels in tiles of ``tile`` pixels:
+    ``(chunk_tiles, n_chunks)``.  At most one wave of tiles (``sms``) takes
+    one chunk whatever its bytes; more take whole waves, as many as keep a
+    chunk's buffer within ``CHUNK_BYTES`` (at least one)."""
+    n_tiles = -(-P // tile)
+    if n_tiles <= sms:
+        return n_tiles, 1
+    waves = max(1, CHUNK_BYTES // (sms * chunk_bytes(F, F3, tile)))
+    chunk_tiles = min(n_tiles, sms * waves)
+    return chunk_tiles, -(-n_tiles // chunk_tiles)
+
+
+def group_rows(smem, P: int, sms: int, tile_bytes=None) -> int:
+    """The row groups of a kernel's tile (its tile is 64 times as many
+    pixels): the most of 4, 2, 1 whose shared memory (``smem(nrg)``, bytes)
+    fits, whose tiles still make about one per SM (at least 7/8 of ``sms``)
+    and, given ``tile_bytes(tile pixels)``, whose wave of tiles keeps K8's
+    chunk within ``CHUNK_BYTES``; else 1.  Raises if not even 1 fits."""
+    for nrg in (4, 2, 1):
+        if smem(nrg) > SMEM_LIMIT:
+            continue
+        tile = GROUP_PIXELS * nrg
+        tiles = -(-P // tile)
+        small = tile_bytes is None or min(tiles, sms) * tile_bytes(tile) <= CHUNK_BYTES
+        if nrg == 1 or (tiles >= sms - sms // 8 and small):
+            return nrg
+    raise ValueError(f"the block's widths need {smem(1)} bytes of shared memory per tile, more "
+                     f"than {SMEM_LIMIT}")
 
 
 class UpsampleGrads(NamedTuple):
@@ -129,15 +180,38 @@ def fused_upsample_reference(x, W1, b1, W2g, b2g, W3, b3, use_bf16: bool = True)
     return shuffle_blur_reference(z3.reshape(B, H, W, -1), out_dtype=x.dtype)
 
 
+def chunked_weight_grads(xf, dh1p, h1, dzp, z, dz3, chunk_pixels: int, rnd):
+    """The weight gradients in K8's order: per chunk of ``chunk_pixels``
+    pixels (the last one shorter) the contractions ``bf16(x)^T bf16(dh1p)``,
+    ``h1^T bf16(dzp)`` and, over the chunk's ``[4 P, F]`` phase rows of z and
+    dz3 (``z[P, 4F]`` read as ``[4P, F]``), ``bf16(z)^T bf16(dz3)``, the
+    chunks' sums added in order (``kernels/field_dw.py``).  Returns ``(dW1,
+    dW2g, dW3)``."""
+    from gazenerf_tpu_torch.kernels.field_dw import weight_grad_reference
+
+    P, F = xf.shape
+    z4, d4 = rnd(z).reshape(4 * P, F), rnd(dz3).reshape(4 * P, -1)
+    out = [None, None, None]
+    for p0 in range(0, P, chunk_pixels):
+        c = slice(p0, min(P, p0 + chunk_pixels))
+        c4 = slice(4 * c.start, 4 * c.stop)
+        for i, (a, b) in enumerate(((xf[c], rnd(dh1p[c])), (h1[c], rnd(dzp[c])),
+                                    (z4[c4], d4[c4]))):
+            out[i] = weight_grad_reference(a, b, out[i])
+    return tuple(out)
+
+
 def fused_upsample_backward_reference(
-    x, W1, b1, W2g, b2g, W3, b3, dy, use_bf16: bool = True
+    x, W1, b1, W2g, b2g, W3, b3, dy, use_bf16: bool = True, chunk_pixels: Optional[int] = None
 ) -> UpsampleGrads:
     """Plain K8, written out with the Pallas kernel's formulas and rounding
     points: dz3 the stencil's adjoint of dy in f32; ``dz_k = dz3_k W3^T`` a
     product of f32 operands; ``dzp = lrelu'(zp) dz``; ``dh1 = bf16(dzp)
     bf16(W2g)^T``; ``dx = bf16(dh1p) bf16(W1)^T + P bf16(dz)``; weight
     gradients as products of bf16 activations and bf16-rounded cotangents,
-    f32 bias sums.  ``dx`` in x's dtype, the rest in the compute dtype."""
+    f32 bias sums.  ``dx`` in x's dtype, the rest in the compute dtype.
+    Given ``chunk_pixels``, the weight gradients are summed in the kernel's
+    chunked order (:func:`chunked_weight_grads`)."""
     B, H, W, F = x.shape
     F3 = W3.shape[1]
     cd = _compute_dtype(x)
@@ -159,6 +233,10 @@ def fused_upsample_backward_reference(
     dx_res = torch.zeros_like(xf).index_add_(1, res, rnd(dz))
     dh1p = torch.where(h1p > 0, dh1, 0.2 * dh1)
     dx = rnd(dh1p) @ rnd(W1.to(cd)).t() + dx_res
+    if chunk_pixels is not None:
+        dW1, dW2g, dW3 = chunked_weight_grads(xf, dh1p, h1, dzp, z, dz3, chunk_pixels, rnd)
+        return UpsampleGrads(dx=dx.reshape(x.shape).to(x.dtype), dW1=dW1, db1=dh1p.sum(0),
+                             dW2g=dW2g, db2g=dzp.sum(0), dW3=dW3, db3=db3)
     return UpsampleGrads(
         dx=dx.reshape(x.shape).to(x.dtype),
         dW1=xf.t() @ rnd(dh1p), db1=dh1p.sum(0),
@@ -185,29 +263,44 @@ def _padded(t: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
     return out
 
 
+def _tile_x(x: torch.Tensor, rows: int) -> torch.Tensor:
+    """bf16(x) as the kernels' tensor copies take it: ``[rows, pad(F)]``, zero
+    past x's pixels and channels (x itself where nothing is padded)."""
+    F = x.shape[-1]
+    Fp, P = _pad32(F), x.numel() // F
+    xb = x.reshape(P, F).to(torch.bfloat16)
+    if Fp == F and rows == P:
+        return xb.contiguous()
+    out = torch.zeros(rows, Fp, dtype=torch.bfloat16, device=x.device)
+    out[:P, :F] = xb
+    return out
+
+
 def _forward_operands(W1, W2g, W3):
-    """The chain's bf16 weights, ``[out, in]`` and zero-padded to the mma
-    tile, built on every call (the weights change every training step):
-    ``W1^T [pad(2F), pad(F)]``, per phase ``W2g^T [4, pad(F), pad(2F)]``,
-    ``W3^T [pad(F3), pad(F)]``."""
+    """The chain's bf16 weights as ``[N, K]`` matrices (out, in), K
+    zero-padded to 32, built on every call (the weights change every
+    training step): ``W1^T [2F, pad(F)]``, per phase ``W2g^T`` stacked
+    ``[4 pad(F), pad(2F)]`` (rows past F of a phase zero), ``W3^T [F3,
+    pad(F)]``."""
     F, F3 = W3.shape
-    Fp, F2p, F3p = _pad16(F), _pad16(2 * F), _pad16(F3)
-    w2f = torch.zeros(4, Fp, F2p, dtype=torch.bfloat16, device=W1.device)
-    w2f[:, :F, : 2 * F] = W2g.t().reshape(4, F, 2 * F)
-    return _padded(W1.t(), F2p, Fp), w2f, _padded(W3.t(), F3p, Fp)
+    Fp, F2p = _pad32(F), _pad32(2 * F)
+    w2t = torch.zeros(4, Fp, F2p, dtype=torch.bfloat16, device=W1.device)
+    w2t[:, :F, : 2 * F] = W2g.t().reshape(4, F, 2 * F)
+    return _padded(W1.t(), 2 * F, Fp), w2t.reshape(4 * Fp, F2p), _padded(W3.t(), F3, Fp)
 
 
 def _backward_operands(W1, W2g, W3):
-    """The data-gradient products' bf16 weights: ``W1 [pad(F), pad(2F)]``,
-    ``W2g [pad(2F), 4 pad(F)]`` (phase-padded columns) and the f32 ``W3`` as
-    a high and a low bf16 half ``[pad(F), pad(F3)]``."""
+    """The data-gradient products' bf16 weights as ``[N, K]`` matrices, K
+    zero-padded to 32: the f32 ``W3`` as a high and a low bf16 half ``[F,
+    pad(F3)]``, ``W2g [2F, 4 pad(F)]`` (phase-padded columns), ``W1 [F,
+    pad(2F)]``."""
     F, F3 = W3.shape
-    Fp, F2p, F3p = _pad16(F), _pad16(2 * F), _pad16(F3)
-    w2b = torch.zeros(F2p, 4, Fp, dtype=torch.bfloat16, device=W1.device)
-    w2b[: 2 * F, :, :F] = W2g.reshape(2 * F, 4, F)
-    w3hi = _padded(W3, Fp, F3p)
-    w3lo = _padded(W3.float() - w3hi[:F, :F3].float(), Fp, F3p)
-    return _padded(W1, Fp, F2p), w2b.reshape(F2p, 4 * Fp), w3hi, w3lo
+    Fp, F2p, F3p = _pad32(F), _pad32(2 * F), _pad32(F3)
+    w2 = torch.zeros(2 * F, 4, Fp, dtype=torch.bfloat16, device=W1.device)
+    w2[:, :, :F] = W2g.reshape(2 * F, 4, F)
+    w3hi = _padded(W3, F, F3p)
+    w3lo = _padded(W3.float() - w3hi[:, :F3].float(), F, F3p)
+    return w3hi, w3lo, w2.reshape(2 * F, 4 * Fp), _padded(W1, F, F2p)
 
 
 def _check_block(x, W1, b1, W2g, b2g, W3, b3):
@@ -221,6 +314,9 @@ def _check_block(x, W1, b1, W2g, b2g, W3, b3):
     if W3.dim() != 2:
         raise ValueError(f"W3: shape {tuple(W3.shape)}, expected [F, F3]")
     F3 = W3.shape[1]
+    if B * H * W * max(F, 4 * F3) >= 2**31:
+        raise ValueError(f"x: {B * H * W} pixels of {F} channels (and {4 * F3} of dz3): the "
+                         "kernels index them in 32 bits")
     for name, t, shape in (("W1", W1, (F, 2 * F)), ("b1", b1, (2 * F,)), ("W2g", W2g, (2 * F, 4 * F)),
                            ("b2g", b2g, (4 * F,)), ("W3", W3, (F, F3)), ("b3", b3, (F3,))):
         if t.device != x.device or t.dtype != torch.float32 or tuple(t.shape) != shape:
@@ -249,16 +345,17 @@ def fused_upsample_forward(x, W1, b1, W2g, b2g, W3, b3, use_bf16: bool = True):
     if not _is_cuda(x, use_bf16, "forward"):
         return fused_upsample_reference(x, W1, b1, W2g, b2g, W3, b3, use_bf16)
     B, H, W, F, F3 = _check_block(x, W1, b1, W2g, b2g, W3, b3)
+    lib = _library(KERNEL_FWD)
+    nrg = group_rows(lambda n: lib.fused_upsampler_fwd_smem(F, F3, n), B * H * W, _sms(x.device))
     xb = x.to(torch.bfloat16).contiguous()  # the kernel's rounding of x
-    w1f, w2f, w3f = _forward_operands(W1, W2g, W3)
+    w1t, w2t, w3t = _forward_operands(W1, W2g, W3)
     b1, b2g, b3 = (t.contiguous() for t in (b1, b2g, b3))
     z3 = torch.empty((B * H * W, 4 * F3), dtype=torch.float32, device=x.device)
     y = torch.empty((B, 2 * H, 2 * W, F3), dtype=x.dtype, device=x.device)
-    err = _library(KERNEL_FWD).fused_upsampler_fwd(
-        xb.data_ptr(), w1f.data_ptr(), b1.data_ptr(), w2f.data_ptr(), b2g.data_ptr(),
-        w3f.data_ptr(), b3.data_ptr(),
-        z3.data_ptr(), y.data_ptr(), B, H, W, F, F3, int(x.dtype == torch.bfloat16),
-        torch.cuda.current_stream(x.device).cuda_stream,
+    err = lib.fused_upsampler_fwd(
+        xb.data_ptr(), w1t.data_ptr(), b1.data_ptr(), w2t.data_ptr(), b2g.data_ptr(),
+        w3t.data_ptr(), b3.data_ptr(), z3.data_ptr(), y.data_ptr(), B, H, W, F, F3, nrg,
+        int(x.dtype == torch.bfloat16), torch.cuda.current_stream(x.device).cuda_stream,
     )
     if err:
         raise RuntimeError(f"{KERNEL_FWD} launch failed with CUDA error {err}")
@@ -269,20 +366,22 @@ def fused_upsample_forward(x, W1, b1, W2g, b2g, W3, b3, use_bf16: bool = True):
 def _library(name: str) -> ctypes.CDLL:
     lib = build.load(name, DEFINES)
     if name == KERNEL_FWD:
-        lib.fused_upsampler_fwd.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+        lib.fused_upsampler_fwd_smem.argtypes = [ctypes.c_int] * 3
+        lib.fused_upsampler_fwd_smem.restype = ctypes.c_longlong
+        lib.fused_upsampler_fwd.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
         lib.fused_upsampler_fwd.restype = ctypes.c_int
     else:
-        lib.fused_upsampler_bwd_layout.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        lib.fused_upsampler_bwd_smem.argtypes = [ctypes.c_int] * 3
+        lib.fused_upsampler_bwd_smem.restype = ctypes.c_longlong
+        lib.fused_upsampler_bwd_layout.argtypes = [ctypes.c_int] * 8 + [ctypes.c_void_p]
         lib.fused_upsampler_bwd_layout.restype = None
-        lib.fused_upsampler_bwd.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+        lib.fused_upsampler_bwd.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 13 + [ctypes.c_void_p]
         lib.fused_upsampler_bwd.restype = ctypes.c_int
     return lib
 
 
-def _bwd_layout(lib, F: int, F3: int):
-    out = (ctypes.c_longlong * 7)()
-    lib.fused_upsampler_bwd_layout(F, F3, out)
-    return list(out)
+def _sms(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def fused_upsample_backward(x, W1, b1, W2g, b2g, W3, b3, dy, use_bf16: bool = True) -> UpsampleGrads:
@@ -298,37 +397,47 @@ def fused_upsample_backward(x, W1, b1, W2g, b2g, W3, b3, dy, use_bf16: bool = Tr
     if dy.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"dy: dtype {dy.dtype}, expected float32 or bfloat16")
     check_tensor("dy", dy, x.device, dy.dtype, (B, 2 * H, 2 * W, F3))
-    xb = x.to(torch.bfloat16).contiguous()
-    w1f, w2f, _ = _forward_operands(W1, W2g, W3)
-    w1b, w2b, w3hi, w3lo = _backward_operands(W1, W2g, W3)
-    b1, b2g = b1.contiguous(), b2g.contiguous()
+    dev, P = x.device, B * H * W
     lib = _library(KERNEL_BWD)
-    offs = _bwd_layout(lib, F, F3)
-    n_tiles = -(-B * H * W // TILE_PIXELS)
-    G = min(n_tiles, torch.cuda.get_device_properties(x.device).multi_processor_count)
-    dev = x.device
-    dz3 = torch.empty((B * H * W, 4 * F3), dtype=torch.float32, device=dev)
+    sms = _sms(dev)
+    nrg = group_rows(lambda n: lib.fused_upsampler_bwd_smem(F, F3, n), P, sms,
+                     lambda tile: chunk_bytes(F, F3, tile))
+    tile = GROUP_PIXELS * nrg
+    chunk_tiles, n_chunks = plan_chunks(P, F, F3, tile, sms)
+    offs = (ctypes.c_longlong * 6)()
+    lib.fused_upsampler_bwd_layout(B, H, W, F, F3, nrg, chunk_tiles, sms, offs)
+    n_tiles = -(-P // tile)
+    xb = _tile_x(x, n_tiles * tile)  # also dW1's operand, in whole tiles
+    w1t, w2t, _ = _forward_operands(W1, W2g, W3)
+    w3hi, w3lo, w2, w1 = _backward_operands(W1, W2g, W3)
+    b1, b2g = b1.contiguous(), b2g.contiguous()
     dx = torch.empty((B, H, W, F), dtype=x.dtype, device=dev)
-    slabs = torch.empty((G, offs[6]), dtype=torch.float32, device=dev)
-    grads = torch.empty(offs[6], dtype=torch.float32, device=dev)
-    err = lib.fused_upsampler_bwd(
-        xb.data_ptr(), dy.data_ptr(), w1f.data_ptr(), b1.data_ptr(),
-        w2f.data_ptr(), b2g.data_ptr(), w1b.data_ptr(), w2b.data_ptr(),
-        w3hi.data_ptr(), w3lo.data_ptr(), dz3.data_ptr(), dx.data_ptr(), slabs.data_ptr(),
-        grads.data_ptr(), B, H, W, F, F3, G, int(dy.dtype == torch.bfloat16),
-        int(x.dtype == torch.bfloat16), torch.cuda.current_stream(dev).cuda_stream,
-    )
-    if err:
-        raise RuntimeError(f"{KERNEL_BWD} launch failed with CUDA error {err}")
+    scratch = torch.empty((offs[5],), dtype=torch.uint8, device=dev)
+    grads = torch.empty((offs[4],), dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    for i in range(n_chunks):
+        t0 = i * chunk_tiles
+        err = lib.fused_upsampler_bwd(
+            xb.data_ptr(), dy.data_ptr(), w1t.data_ptr(), b1.data_ptr(), w2t.data_ptr(),
+            b2g.data_ptr(), w3hi.data_ptr(), w3lo.data_ptr(), w2.data_ptr(), w1.data_ptr(),
+            dx.data_ptr(), scratch.data_ptr(), grads.data_ptr(), B, H, W, F, F3, nrg,
+            chunk_tiles, t0, min(chunk_tiles, n_tiles - t0), int(i == 0), int(i == n_chunks - 1),
+            int(dy.dtype == torch.bfloat16), int(x.dtype == torch.bfloat16), stream,
+        )
+        if err:
+            raise RuntimeError(f"{KERNEL_BWD} launch failed with CUDA error {err}")
     launch_count_bwd += 1
 
-    def part(i, shape):
-        n = int(np.prod(shape))
-        return grads[offs[i] : offs[i] + n].view(shape)
+    Fp, F2p, F3p = _pad32(F), _pad32(2 * F), _pad32(F3)
 
+    def block(i, rows, cols):
+        return grads[offs[i] : offs[i] + rows * cols].view(rows, cols)
+
+    db = grads[offs[3] : offs[3] + 6 * F + F3]
     return UpsampleGrads(
-        dx=dx, dW1=part(0, (F, 2 * F)), db1=part(1, (2 * F,)), dW2g=part(2, (2 * F, 4 * F)),
-        db2g=part(3, (4 * F,)), dW3=part(4, (F, F3)), db3=part(5, (F3,)),
+        dx=dx, dW1=block(0, Fp, F2p)[:F, : 2 * F].contiguous(), db1=db[: 2 * F],
+        dW2g=block(1, F2p, 4 * Fp).view(F2p, 4, Fp)[: 2 * F, :, :F].reshape(2 * F, 4 * F),
+        db2g=db[2 * F : 6 * F], dW3=block(2, Fp, F3p)[:F, :F3].contiguous(), db3=db[6 * F :],
     )
 
 

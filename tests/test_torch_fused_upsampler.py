@@ -175,3 +175,82 @@ def test_wrappers_take_the_plain_version_only_for_cpu_tensors(backward):
             fu.fused_upsample_backward(*meta, g.to("meta"))
         else:
             fu.fused_upsample_forward(*meta)
+
+
+# The card's kernel (K8) sums the weight gradients in another order than the
+# TPU kernel: chunk by chunk of whole tiles, dW3 over each chunk's [4P, F]
+# phase rows.  Chunks of 8 and 24 pixels split the quarter-tile and the odd
+# shape (16 and 64 pixels) into two and three, the last one shorter.
+CHUNKED = [((1, 4, 4, 8, 4), 8), ((1, 8, 8, 129, 64), 24)]
+
+
+@pytest.mark.parametrize("shape, chunk", CHUNKED)
+def test_chunked_weight_grads_match_pallas_kernel(jax_results, shape, chunk):
+    """The plain backward with the weight gradients in K8's chunked order
+    against the Pallas kernel at ``BF16_LIMITS``; every other cotangent is
+    the unchunked plain backward's, to the bit."""
+    want = jax_results[shape, True][1]
+    args, g = _torch_args(shape, True)
+    got = fu.fused_upsample_backward_reference(*args, g, chunk_pixels=chunk)
+    plain = fu.fused_upsample_backward_reference(*args, g)
+    for name, a, b, p in zip(NAMES, got, want, plain):
+        err = np.abs(a.float().numpy() - b).max() / np.abs(b).max()
+        assert err <= BF16_LIMITS[name], (name, err)
+        if name not in ("W1", "W2g", "W3"):
+            torch.testing.assert_close(a, p, atol=0, rtol=0, msg=name)
+
+
+@pytest.mark.parametrize("F", [8, 129])
+def test_phase_rows_are_the_group_major_columns(F):
+    """``z[P, 4F]`` read as ``[4P, F]``: row 4p + k is phase k of pixel p, so
+    one contraction over the phase rows is the sum of the four phases'."""
+    rng = np.random.default_rng(F)
+    P, F3 = 6, 5
+    z = torch.from_numpy(rng.standard_normal((P, 4 * F)))
+    d = torch.from_numpy(rng.standard_normal((P, 4 * F3)))
+    z4, d4 = z.reshape(4 * P, F), d.reshape(4 * P, F3)
+    for p in range(P):
+        for k in range(4):
+            torch.testing.assert_close(z4[4 * p + k], z[p, k * F:(k + 1) * F], atol=0, rtol=0)
+    per_phase = sum(z[:, k * F:(k + 1) * F].t() @ d[:, k * F3:(k + 1) * F3] for k in range(4))
+    torch.testing.assert_close(z4.t() @ d4, per_phase, atol=1e-12, rtol=0)
+
+
+@pytest.mark.parametrize("P, F, F3, tile, want", [
+    (8192, 258, 129, 64, (128, 1)),      # the first block at B=2: one wave, one chunk
+    (32768, 129, 64, 64, (132, 4)),      # the second: chunks of a wave
+    (131072, 64, 32, 128, (132, 8)),     # the third
+    (60, 72, 36, 64, (1, 1)),            # the ragged case: one partial tile
+])
+def test_chunk_plan(P, F, F3, tile, want):
+    """K8's chunks on a card of 132 SMs: one wave of tiles whatever its
+    bytes, else whole waves within ``CHUNK_BYTES``."""
+    assert fu.plan_chunks(P, F, F3, tile, 132) == want
+
+
+def test_group_rows_take_the_most_rows_that_fit():
+    """The tile's row groups: the most whose shared memory fits, whose tiles
+    still make about one per SM and (for K8) whose wave of tiles keeps a
+    chunk within ``CHUNK_BYTES``, else one; raise if none fits."""
+    fits = lambda nrg: 1000 * nrg  # noqa: E731
+    assert fu.group_rows(fits, 131072, 132) == 4
+    assert fu.group_rows(fits, 16384, 132) == 2      # 128 tiles of 128 pixels
+    assert fu.group_rows(fits, 4096, 132) == 1
+    assert fu.group_rows(lambda nrg: fu.SMEM_LIMIT + 1 if nrg > 1 else 0, 131072, 132) == 1
+    # the renderer's last block at B=2: a wave of 256-pixel tiles would
+    # outgrow the chunk, one of 128-pixel tiles does not
+    assert fu.group_rows(fits, 131072, 132, lambda t: fu.chunk_bytes(64, 32, t)) == 2
+    with pytest.raises(ValueError, match="shared memory"):
+        fu.group_rows(lambda nrg: fu.SMEM_LIMIT + 1, 131072, 132)
+
+
+def test_tile_x_pads_with_zeros():
+    """The kernels' bf16 x: whole rows of pad32(F), zero past the pixels and
+    channels; x itself where nothing is padded."""
+    x = torch.randn(1, 2, 3, 5)
+    t = fu._tile_x(x, 8)
+    assert t.shape == (8, 32) and t.dtype == torch.bfloat16
+    torch.testing.assert_close(t[:6, :5], x.reshape(6, 5).to(torch.bfloat16), atol=0, rtol=0)
+    assert not t[6:].any() and not t[:, 5:].any()
+    x32 = torch.randn(2, 2, 2, 32).to(torch.bfloat16)
+    assert fu._tile_x(x32, 8).data_ptr() == x32.data_ptr()

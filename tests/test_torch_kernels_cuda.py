@@ -299,7 +299,7 @@ def test_fused_upsampler_matches_plain_version(card, case):
 @pytest.mark.parametrize("case", list(checks.BLOCK_CASES))
 def test_fused_upsampler_backward_matches_plain_version(card, case):
     """K8 against its plain version, every output within ``K8_LIMITS``;
-    two launches give the same bits (the slabs are summed in CTA order)."""
+    two launches give the same bits (every sum in a fixed order)."""
     args, dy = checks.block_case(checks.BLOCK_CASES[case], card)
     before = _counts()
     got = fu.fused_upsample_backward(*args, dy)

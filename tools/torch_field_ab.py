@@ -54,9 +54,10 @@ VARIANTS = {
 }
 
 
-def prepare(label: str, spec: str) -> Path:
+def prepare(label: str, spec: str, variants=None) -> Path:
     """The directory a child runs in: the tree itself, or a copy of its
-    package and chip_smoke.py with the variant's edits."""
+    package and chip_smoke.py with the variant's edits (from ``variants``,
+    :data:`VARIANTS` by default)."""
     tree, _, variant = spec.partition("+")
     tree = (ROOT / tree).resolve()
     if not variant:
@@ -68,7 +69,7 @@ def prepare(label: str, spec: str) -> Path:
     shutil.copytree(tree / "gazenerf_tpu_torch", out / "gazenerf_tpu_torch",
                     ignore=shutil.ignore_patterns("__pycache__"))
     shutil.copy(tree / "chip_smoke.py", out / "chip_smoke.py")
-    for name, old, new in VARIANTS[variant]:
+    for name, old, new in (variants or VARIANTS)[variant]:
         path = out / name
         text = path.read_text()
         if old not in text:
@@ -114,59 +115,59 @@ def child(args) -> dict:
         for name, fn in runs.items():
             out["ms"][name] = cs.cuda_ms(fn, args.iters)
     if args.steps:
-        import dataclasses
-
-        from gazenerf_tpu_torch import Config, Trainer
-        from gazenerf_tpu_torch.config import ModelConfig
-
-        cfg = ModelConfig(compute_dtype="bfloat16", renderer_dtype="bfloat16")
-        out["step"] = {}
-        for name, flags in (("phase_gm", {}), ("dual", cs.DUAL_FLAGS)):
-            mcfg = dataclasses.replace(cfg, **flags)
-            tcfg = Config(model=mcfg)
-            trainer = Trainer(tcfg, train_len=8, steps_per_epoch=1000, seed=0)
-            batch = cs.synthetic_batch(0, tcfg.train.batch_size, mcfg.pred_img_size,
-                                       mcfg.featmap_size)
-            for _ in range(2):
-                trainer.train_step(batch)
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            prof = cs.device_profile(lambda: trainer.train_step(batch), mode="phase_gm")
-            out["step"][name] = {"device_ms": prof["device_ms"], "wall_ms": prof["wall_ms"],
-                                 "kernels_ms": prof.get("kernels_ms"),
-                                 "peak_memory_bytes": torch.cuda.max_memory_allocated()}
-            del trainer
-            torch.cuda.empty_cache()
+        out["step"] = step_profiles(cs, {"phase_gm": {}, "dual": cs.DUAL_FLAGS})
     return out
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("specs", nargs="*")
-    ap.add_argument("--turns", type=int, default=2)
-    ap.add_argument("--iters", type=int, default=10, help="timed launches per kernel")
-    ap.add_argument("--steps", action="store_true", help="also time a training step")
-    ap.add_argument("--child", action="store_true", help=argparse.SUPPRESS)
-    ap.add_argument("--label", default="", help=argparse.SUPPRESS)
-    ap.add_argument("--turn", type=int, default=0, help=argparse.SUPPRESS)
-    args = ap.parse_args()
-    if args.child:
-        print(json.dumps(child(args)))
-        return 0
-    if not args.specs:
-        ap.error("give at least one LABEL=TREE[+VARIANT]")
-    dirs, variants = {}, set()
+def step_profiles(cs, variants: dict) -> dict:
+    """Per variant (name -> ModelConfig flags over the bf16 defaults): the
+    device ms, wall ms, device ms per kernel and peak memory of one
+    full-width training step after two warm-up steps.  ``cs`` is the tree's
+    chip_smoke module."""
+    import dataclasses
+
+    import torch
+
+    from gazenerf_tpu_torch import Config, Trainer
+    from gazenerf_tpu_torch.config import ModelConfig
+
+    cfg = ModelConfig(compute_dtype="bfloat16", renderer_dtype="bfloat16")
+    out = {}
+    for name, flags in variants.items():
+        mcfg = dataclasses.replace(cfg, **flags)
+        tcfg = Config(model=mcfg)
+        trainer = Trainer(tcfg, train_len=8, steps_per_epoch=1000, seed=0)
+        batch = cs.synthetic_batch(0, tcfg.train.batch_size, mcfg.pred_img_size, mcfg.featmap_size)
+        for _ in range(2):
+            trainer.train_step(batch)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        prof = cs.device_profile(lambda: trainer.train_step(batch), mode=mcfg.shuffle_mode)
+        out[name] = {"device_ms": prof["device_ms"], "wall_ms": prof["wall_ms"],
+                     "kernels_ms": prof.get("kernels_ms"),
+                     "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+        del trainer
+        torch.cuda.empty_cache()
+    return out
+
+
+def run_turns(script: str, args, variants=None) -> list:
+    """Prepare every spec of ``args.specs`` and run ``script --child`` in
+    each tree for ``args.turns`` turns, in the specs' order and then
+    reversed; ``--steps`` only for the trees without a variant.  Prints and
+    returns each child's JSON line."""
+    dirs, with_variant = {}, set()
     for spec in args.specs:
         label, _, rest = spec.partition("=")
-        dirs[label] = prepare(label, rest)
+        dirs[label] = prepare(label, rest, variants)
         if "+" in rest:
-            variants.add(label)
+            with_variant.add(label)
     results = []
     for turn in range(args.turns):
         order = list(dirs) if turn % 2 == 0 else list(dirs)[::-1]
         for label in order:
-            steps = args.steps and label not in variants
-            cmd = [sys.executable, str(Path(__file__).resolve()), "--child", "--label", label,
+            steps = args.steps and label not in with_variant
+            cmd = [sys.executable, str(Path(script).resolve()), "--child", "--label", label,
                    "--turn", str(turn), "--iters", str(args.iters)] + (["--steps"] if steps else [])
             proc = subprocess.run(cmd, cwd=dirs[label], capture_output=True, text=True)
             if proc.returncode:
@@ -175,6 +176,12 @@ def main() -> int:
             line = json.loads(proc.stdout.strip().splitlines()[-1])
             print(json.dumps(line), flush=True)
             results.append(line)
+    return results
+
+
+def summarise(results: list) -> None:
+    """Print the ``summary`` line: per label, each timing and each step's
+    device ms and peak GB over the turns."""
     summary = {}
     for r in results:
         s = summary.setdefault(r["label"], {})
@@ -184,6 +191,29 @@ def main() -> int:
             s.setdefault(f"{k} step device ms", []).append(v["device_ms"])
             s.setdefault(f"{k} step peak GB", []).append(v["peak_memory_bytes"] / 1e9)
     print(json.dumps({"summary": summary, "card": results[0]["card"]}))
+
+
+def parse_args(doc: str):
+    ap = argparse.ArgumentParser(description=doc.split("\n")[0])
+    ap.add_argument("specs", nargs="*")
+    ap.add_argument("--turns", type=int, default=2)
+    ap.add_argument("--iters", type=int, default=10, help="timed launches per kernel")
+    ap.add_argument("--steps", action="store_true", help="also time a training step")
+    ap.add_argument("--child", action="store_true", help=argparse.SUPPRESS)
+    ap.add_argument("--label", default="", help=argparse.SUPPRESS)
+    ap.add_argument("--turn", type=int, default=0, help=argparse.SUPPRESS)
+    args = ap.parse_args()
+    if not args.child and not args.specs:
+        ap.error("give at least one LABEL=TREE[+VARIANT]")
+    return args
+
+
+def main() -> int:
+    args = parse_args(__doc__)
+    if args.child:
+        print(json.dumps(child(args)))
+        return 0
+    summarise(run_turns(__file__, args))
     return 0
 
 
