@@ -27,7 +27,9 @@ Phases (each raises on failure, so any failed phase exits non-zero):
    and at the training step's shape against its plain version, against K2
    on each branch (the weight gradients to the bit), against the unrounded
    float64 gradient and for equal bits over two launches (``k4_profile``);
-   each timed (CUDA events) beside its bound.  The
+   each timed (CUDA events; K5 and K6 from a CUDA graph of their launches,
+   which take less time on the card than their wrappers on the host)
+   beside its bound.  The
    limits are in ``kernels/checks.py``;
 4. serving: per variant (the renderer modes ``phase_gm``, ``pallas``,
    ``fused``, and ``dual``: both fields in the dual-branch kernels with the
@@ -121,19 +123,37 @@ def check(cond, msg):
         raise RuntimeError(msg)
 
 
-def cuda_ms(fn, iters, warmup=2):
+def cuda_ms(fn, iters, warmup=2, graph=False):
+    """ms per call of ``fn`` from CUDA events around ``iters`` calls after
+    ``warmup``; with ``graph``, around four replays of one CUDA graph of
+    ``iters`` calls, so that a kernel that takes less time on the card than
+    its wrapper on the host is timed on the card."""
     import torch
 
     for _ in range(warmup):
         fn()
+    replays = 1
+    if graph:
+        stream = torch.cuda.Stream()
+        stream.wait_stream(torch.cuda.current_stream())
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g, stream=stream):
+            for _ in range(iters):
+                fn()
+        g.replay()
+        run, replays = g.replay, 4
+    else:
+        def run():
+            for _ in range(iters):
+                fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
-    for _ in range(iters):
-        fn()
+    for _ in range(replays):
+        run()
     end.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    return start.elapsed_time(end) / (replays * iters)
 
 
 def random_biases_(module, gen):
@@ -389,10 +409,10 @@ def phase_renderer_kernels(seed, iters):
     tot = {k: [0.0, 0.0, 0.0, 0.0, {"bytes": 0.0, "operations": 0.0}]
            for k in ("k5", "k6", "k7", "k8")}
 
-    def timed(key, err, fn, plain, bnd):
+    def timed(key, err, fn, plain, bnd, graph=False):
         t = tot[key]
         t[0] = max(t[0], err)
-        t[1] += cuda_ms(fn, iters)
+        t[1] += cuda_ms(fn, iters, graph=graph)
         t[2] += cuda_ms(plain, max(2, iters // 4), warmup=1)
         t[3] += bnd[0]
         t[4][bnd[1]] += bnd[0]
@@ -409,10 +429,12 @@ def phase_renderer_kernels(seed, iters):
                   f"(limit {checks.STENCIL_MAX_ABS_ERR})")
             if not (got.dtype == want.dtype and errs[-1] <= checks.STENCIL_MAX_ABS_ERR):
                 fails.append(f"{key} {level}: max abs err {errs[-1]:.3e}, dtype {got.dtype}")
+        # K5 and K6 take less time on the card than their wrappers on the
+        # host: timed from a CUDA graph of their launches
         timed("k5", errs[0], lambda: sb.shuffle_blur_forward(x),
-              lambda: sb.shuffle_blur_reference(x), stencil_bound(x, y))
+              lambda: sb.shuffle_blur_reference(x), stencil_bound(x, y), graph=True)
         timed("k6", errs[1], lambda: sb.shuffle_blur_backward(dy),
-              lambda: sb.shuffle_blur_backward_reference(dy), stencil_bound(dy, dx))
+              lambda: sb.shuffle_blur_backward_reference(dy), stencil_bound(dy, dx), graph=True)
 
     k8_profile = {}
     for block in ("block0", "block1", "block2"):

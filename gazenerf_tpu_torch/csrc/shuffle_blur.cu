@@ -17,12 +17,16 @@
 // (C = 129, 64, 32 at H = W = 64, 128, 256) move 8.5, 16.8 and 33.6 MB in
 // bf16 each way (5, 10 and 20 us at 3.35 TB/s).
 //
-// Design (correct and simple first): one thread per output element, the
-// neighbours' clamped indices computed per tap; a warp reads 32 consecutive
-// channels of each neighbour and the nine reads of a pixel's neighbourhood
-// hit L1 / L2.  The grid's y and z take the output row and the image, so
-// the per-element index arithmetic is 32-bit.  Halo reuse in shared memory
-// and vector loads are later work.
+// Design (phase_stencil.cuh states it in full): a CTA takes a strip of
+// columns and a run of rows and walks down the rows with the three rows (K6:
+// three pairs of dy rows) its outputs need in a shared-memory ring, one row
+// copied per step by 16-byte cp.async while the previous one is computed, so
+// each input byte comes from device memory about once.  A thread takes one
+// pixel and up to 16 bytes of consecutive channels: four vector reads per
+// output from shared memory (the 2 x 2 outputs of a pixel share their
+// 4 x 4 neighbourhood), four vector stores, and no division per element.
+// The fused upsampler's forward (K7) runs the same forward on its f32
+// scratch.
 
 #include "phase_stencil.cuh"
 

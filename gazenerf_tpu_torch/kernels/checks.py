@@ -266,14 +266,22 @@ def truth_failures(got, want, want64, exact, ratio: float, exempt: Tuple[str, ..
 # upsampler block (K7, K8)
 
 # The stencil's cases, (B, H, W, C) with C the folded width: the renderer's
-# three levels at B=2, and the single-tile and non-square shapes the JAX
-# package tests its kernel at.
+# three levels at B=2; the single-tile and non-square shapes the JAX package
+# tests its kernel at; and the kernels' edges: a width that is no multiple of
+# the strip width (64 pixels at C = 32 in bf16, 32 in f32), an odd width at
+# an odd C (the level0 width, whose bf16 pixels are 8-byte aligned), one
+# pixel (the whole halo clamped), and rows of dy and y that start off a
+# 16-byte boundary in f32 and bf16 (2W C = 70 values).
 STENCIL_CASES = {
     "level0": (2, 64, 64, 129),
     "level1": (2, 128, 128, 64),
     "level2": (2, 256, 256, 32),
     "single_tile": (1, 4, 4, 3),
     "non_square": (1, 16, 12, 6),
+    "ragged": (2, 6, 70, 32),
+    "odd": (1, 7, 9, 129),
+    "one_pixel": (2, 1, 1, 8),
+    "rows_off_16": (1, 5, 7, 5),
 }
 # K5 and K6 against their plain versions: max |kernel - plain|.  Every tap
 # is a power of two, so each product is exact and a fused multiply-add

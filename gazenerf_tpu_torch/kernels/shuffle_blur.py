@@ -4,7 +4,11 @@ Counterpart of the JAX package's ``kernels/shuffle_blur.py``: its Pallas
 ``_fwd_kernel`` (launched by ``_stencil_fwd``) and ``_bwd_kernel`` (launched
 by ``_stencil_bwd``), wrapped by the custom VJP ``pallas_shuffle_blur_gm``.
 The kernels are hand-written CUDA for Hopper (``csrc/shuffle_blur.cu`` and
-``csrc/phase_stencil.cuh``; the header states the bound and the design).
+``csrc/phase_stencil.cuh``; the header states the bound and the design): a
+CTA walks a strip of columns down its rows with the rows it needs in a
+shared-memory ring, one row copied per step, so each input byte is read
+from device memory about once, and a thread computes the 2 x 2 outputs of a
+pixel over up to 16 bytes of channels from their shared neighbourhood.
 
 * :func:`shuffle_blur_reference` / :func:`shuffle_blur_backward_reference`:
   the plain versions, with the kernels' rounding points (f32 sums, one

@@ -10,7 +10,9 @@ JAX package runs by default:
   upstream order), so the four pixel-shuffle phases are contiguous slices;
 * the channel-tile residual ``x.repeat(1, 4, 1, 1)`` in group-major order is
   the 0/1 matrix ``P`` with ``P[(4c + k) % F, k*F + c] = 1``; ``x @ P`` is
-  applied as the column gather it encodes (the same values);
+  applied as the tile and transpose it encodes (:func:`tile_gm`: the same
+  values, and a gradient summed over the four tiles in f32 and rounded once,
+  as JAX's product rounds it, where a gather's gradient is a scatter);
 * each ``feat_layer`` is folded in front of the blur-shuffle, per phase
   (exact: channel mixing commutes with the per-channel stencil whose taps
   sum to 1);
@@ -37,7 +39,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from gazenerf_tpu_torch.kernels.fused_upsampler import FusedUpsample, residual_index
+from gazenerf_tpu_torch.kernels.fused_upsampler import FusedUpsample, residual_index  # noqa: F401 (re-exported)
 from gazenerf_tpu_torch.kernels.shuffle_blur import shuffle_blur_gm
 from gazenerf_tpu_torch.models.conv1x1 import Conv1x1
 from gazenerf_tpu_torch.ops.image import pixel_shuffle2_blur_gm, upsample2x_blur_cf
@@ -52,6 +54,17 @@ def gm_permutation(F_: int) -> np.ndarray:
         for k in range(4):
             perm[k * F_ + c] = c * 4 + k
     return perm
+
+
+def tile_gm(x: torch.Tensor) -> torch.Tensor:
+    """``[..., F]`` -> ``[..., 4F]`` with channel ``k*F + c`` equal to
+    ``x[..., (4c + k) % F]`` (``x[..., residual_index(F)]``): the four-fold
+    channel tile, read as ``[F, 4]`` and transposed to group-major order.  Its
+    gradient is the tile's, a sum over the four tiles (in f32 for bf16,
+    rounded once)."""
+    F_ = x.shape[-1]
+    t = x.repeat(*([1] * (x.dim() - 1)), 4).unflatten(-1, (F_, 4))
+    return t.transpose(-1, -2).flatten(-2)
 
 
 class PixelShuffleUpsample(nn.Module):
@@ -72,9 +85,6 @@ class PixelShuffleUpsample(nn.Module):
         self.register_buffer(
             "perm", torch.from_numpy(gm_permutation(in_feature)), persistent=False
         )
-        self.register_buffer(
-            "res_idx", torch.from_numpy(residual_index(in_feature)), persistent=False
-        )
 
     def forward(self, x: torch.Tensor, fold: Conv1x1) -> torch.Tensor:
         """``[B, H, W, F]`` -> ``[B, 2H, 2W, F']`` where ``fold`` maps F -> F'."""
@@ -91,7 +101,7 @@ class PixelShuffleUpsample(nn.Module):
             )
         out = F.leaky_relu(self.layer_1(x, dt), 0.2)
         out2 = F.leaky_relu(out @ k2.to(dt) + b2.to(dt), 0.2)
-        z = out2 + x.to(dt)[..., self.res_idx]
+        z = out2 + tile_gm(x.to(dt))
         B, H, W, _ = z.shape
         z = fold(z.reshape(B, H, W, 4, Fi), dt).reshape(B, H, W, -1)
         if self.shuffle_mode == "pallas":

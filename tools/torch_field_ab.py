@@ -119,11 +119,19 @@ def child(args) -> dict:
     return out
 
 
-def step_profiles(cs, variants: dict) -> dict:
+# kernels of PyTorch's indexing and sorting (a gather's scatter backward)
+INDEX_KERNELS = ("index", "sort", "scatter", "gather")
+
+
+def step_profiles(cs, variants: dict, top: int = 0) -> dict:
     """Per variant (name -> ModelConfig flags over the bf16 defaults): the
     device ms, wall ms, device ms per kernel and peak memory of one
-    full-width training step after two warm-up steps.  ``cs`` is the tree's
-    chip_smoke module."""
+    full-width training step after two warm-up steps (the caching
+    allocator's peak, which rounds blocks and so depends on what was
+    allocated before, and the peak of the bytes the tensors requested);
+    given ``top``, also its ``top`` kernels by device time and the device ms
+    of the indexing and sorting kernels (``INDEX_KERNELS``).  ``cs`` is the
+    tree's chip_smoke module."""
     import dataclasses
 
     import torch
@@ -134,6 +142,7 @@ def step_profiles(cs, variants: dict) -> dict:
     cfg = ModelConfig(compute_dtype="bfloat16", renderer_dtype="bfloat16")
     out = {}
     for name, flags in variants.items():
+        torch.cuda.empty_cache()  # no blocks cached by earlier work
         mcfg = dataclasses.replace(cfg, **flags)
         tcfg = Config(model=mcfg)
         trainer = Trainer(tcfg, train_len=8, steps_per_epoch=1000, seed=0)
@@ -142,12 +151,19 @@ def step_profiles(cs, variants: dict) -> dict:
             trainer.train_step(batch)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        prof = cs.device_profile(lambda: trainer.train_step(batch), mode=mcfg.shuffle_mode)
+        # every kernel's row where the indexing kernels are summed
+        prof = cs.device_profile(lambda: trainer.train_step(batch), mode=mcfg.shuffle_mode,
+                                 top=100000 if top else 0)
         out[name] = {"device_ms": prof["device_ms"], "wall_ms": prof["wall_ms"],
                      "kernels_ms": prof.get("kernels_ms"),
-                     "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+                     "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+                     "peak_requested_bytes": torch.cuda.memory_stats()["requested_bytes.all.peak"]}
+        if top and "top" in prof:
+            rows = prof["top"]
+            index = [r for r in rows if any(k in r["kernel"].lower() for k in INDEX_KERNELS)]
+            out[name].update(top=rows[:top], index_ms=sum(r["ms"] for r in index),
+                             index_kernels=index)
         del trainer
-        torch.cuda.empty_cache()
     return out
 
 
@@ -180,16 +196,22 @@ def run_turns(script: str, args, variants=None) -> list:
 
 
 def summarise(results: list) -> None:
-    """Print the ``summary`` line: per label, each timing and each step's
-    device ms and peak GB over the turns."""
+    """Print the ``summary`` line: per label, each timing (of the ``ms`` and
+    ``device_ms`` tables) and each step's device ms, peak GB (allocated and
+    requested) and, where read, indexing kernels' ms over the turns."""
     summary = {}
     for r in results:
         s = summary.setdefault(r["label"], {})
-        for k, v in r["ms"].items():
-            s.setdefault(k, []).append(v)
+        for table in ("ms", "device_ms"):
+            for k, v in r.get(table, {}).items():
+                s.setdefault(k if table == "ms" else f"{k} {table}", []).append(v)
         for k, v in r.get("step", {}).items():
             s.setdefault(f"{k} step device ms", []).append(v["device_ms"])
             s.setdefault(f"{k} step peak GB", []).append(v["peak_memory_bytes"] / 1e9)
+            s.setdefault(f"{k} step peak requested GB", []).append(
+                v["peak_requested_bytes"] / 1e9)
+            if "index_ms" in v:
+                s.setdefault(f"{k} step index ms", []).append(v["index_ms"])
     print(json.dumps({"summary": summary, "card": results[0]["card"]}))
 
 
