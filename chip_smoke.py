@@ -27,13 +27,20 @@ Phases (each raises on failure, so any failed phase exits non-zero):
    and at the training step's shape against its plain version, against K2
    on each branch (the weight gradients to the bit), against the unrounded
    float64 gradient and for equal bits over two launches (``k4_profile``);
-   each timed (CUDA events; K5 and K6 from a CUDA graph of their launches,
+   K1 writing the single-branch stash at the training step's shape against
+   its plain version (outputs and stash) and K1 without it, and K2 reading
+   it, with and without ``dens_vpu``, in the narrow case and at the
+   training step's shape against its plain version, the unrounded float64
+   gradient, itself over two launches and K2 recomputing (to the bit;
+   ``k2_stash_profile``); each timed (CUDA events; K5 and K6 from a CUDA graph of their launches,
    which take less time on the card than their wrappers on the host)
    beside its bound.  The
    limits are in ``kernels/checks.py``;
 4. serving: per variant (the renderer modes ``phase_gm``, ``pallas``,
-   ``fused``, and ``dual``: both fields in the dual-branch kernels with the
-   ``phase_gm`` renderer), a full-width bf16 ``ViewerApp`` with the same
+   ``fused``; ``dual``: both fields in the dual-branch kernels with the
+   ``phase_gm`` renderer; ``stash``: K1 writing and K2 reading the
+   single-branch stash with ``dens_vpu``, the ``phase_gm`` renderer, whose
+   image must be ``phase_gm``'s to the bit), a full-width bf16 ``ViewerApp`` with the same
    seeded random weights answers ``--requests`` render requests (512x512
    PNGs) with launch counts read around them; one request is rendered again
    with the plain versions in place of the kernels and the two images
@@ -48,10 +55,20 @@ Phases (each raises on failure, so any failed phase exits non-zero):
    one step's gradients with the kernels are held against the same step
    with the plain versions (on the dual path also against the
    single-branch step and the step without the stash, which launches K3
-   once and K2 twice); then where a step's time goes.
+   once and K2 twice; the ``stash`` step also against ``phase_gm``'s);
+   then where a step's time goes, with both memory peaks (the caching
+   allocator's and the tensors' requested bytes);
+7. cli: ``python -m gazenerf_tpu_torch.cli.train`` in-process at the
+   reference shape with ``--pallas_tuning auto`` on one synthetic 512x512
+   subject for 2 epochs and, resumed from the last checkpoint, a third:
+   finite losses, a checkpoint per epoch, the restored state equal to the
+   saved one, K1 and K2 twice a step in the overrides' mode, ``summary.csv``
+   with every epoch.  It needs h5py; without it the phase says so on a
+   line of its own and does not run.
 
-Prints ``k2_profile``, ``dw``, ``k8_profile``, ``k4_profile``, ``serving``,
-``training`` and ``kernels`` JSON lines, the
+Prints ``k2_profile``, ``dw``, ``k8_profile``, ``k4_profile``,
+``k2_stash_profile``, ``serving``, ``training``, ``cli`` and ``kernels``
+JSON lines, the
 ``nvidia-smi`` line and, last, the device JSON line.  Exits non-zero without
 a result when no CUDA card is present.  Imports nothing of JAX.
 """
@@ -77,6 +94,11 @@ MODES = ("phase_gm", "pallas", "fused")
 # the activation stash (K3, K4), with the phase_gm renderer
 DUAL = "dual"
 DUAL_FLAGS = {"pallas_dual_branch": True, "pallas_stash_acts": True}
+# and the single-branch fields with the stash and the dens_vpu density head
+# (K1 writing the stash, K2 reading it), with the phase_gm renderer: what
+# the training CLI's --pallas_tuning auto selects at S <= 64
+STASH = "stash"
+STASH_FLAGS = {"pallas_stash_acts": True, "pallas_dens_vpu": True}
 # the kernels' counters, in the order of the ``kernels`` line
 KERNELS = ("fused_field_fwd", "fused_field_bwd", "shuffle_blur_fwd", "shuffle_blur_bwd",
            "fused_upsampler_fwd", "fused_upsampler_bwd", "fused_dual_fwd", "fused_dual_bwd")
@@ -116,6 +138,14 @@ DUAL_GRAD_REL_L2 = GRAD_REL_L2
 # the dual path's image against the single-branch path's on the same
 # weights: K3 is K1 per branch to the bit
 DUAL_IMAGE_ATOL = 0.0
+# the stash variant's image against phase_gm's: a render writes no stash
+# and the density head is the same, so the same bits
+STASH_IMAGE_ATOL = 0.0
+# the stash variant's step gradients against phase_gm's on the same state:
+# K2 reading K1's stash gives K2's recompute to the bit but for dWd, which
+# dens_vpu takes from the unrounded density cotangent.  Held as the dual
+# path's
+STASH_GRAD_REL_L2 = DUAL_GRAD_REL_L2
 
 
 def check(cond, msg):
@@ -331,6 +361,33 @@ def k4_bound(args, cot, acts, grads):
     moved = nbytes(*args[:3], *ops, *(t for g in cot for t in g),
                    *(a for br in acts for a in br), *grads)
     return bound([ops_count / PEAK_BF16_FLOPS], moved / PEAK_BYTES_PER_S)
+
+
+def k1_stash_bound(args, outs, acts):
+    """K1 writing the stash, K3's bound on one branch: the bf16 products (per
+    point, the feature head per ray) vs every input read once and the
+    outputs and the stash written once."""
+    embed, ops = args[0], args[6]
+    B, R, S, De = embed.shape
+    H, H2, C = ops.w0e.shape[0], ops.wr2.shape[0], ops.wr2.shape[1]
+    ops_count = 2 * (B * R * S * field_macs(De, H) + B * R * H2 * C)
+    return bound([ops_count / PEAK_BF16_FLOPS], nbytes(*args[:6], *ops, *outs, *acts)
+                 / PEAK_BYTES_PER_S)
+
+
+def k2_stash_bound(args, cot, acts, grads):
+    """K2 reading the stash, K4's bound on one branch: the data and the
+    weight gradients (each the forward's multiply-adds), the density and
+    folded feature head read back from x7 and y1, and the head's per-ray
+    products, vs the inputs, cotangents and stash read once and the
+    gradients written once."""
+    embed, ops = args[0], args[6]
+    B, R, S, De = embed.shape
+    H, H2, C = ops.w0e.shape[0], ops.wr2.shape[0], ops.wr2.shape[1]
+    P = B * R * S
+    ops_count = 2 * (2 * P * field_macs(De, H) + P * (H + H2) + 2 * B * R * H2 * C)
+    return bound([ops_count / PEAK_BF16_FLOPS], nbytes(*args[:3], *ops, *cot, *acts, *grads)
+                 / PEAK_BYTES_PER_S)
 
 
 def bound(t_ops, t_bytes):
@@ -568,6 +625,104 @@ def phase_kernels(seed, cfg, iters):
                         bound_ms, bound_by)
 
 
+def phase_stash_kernels(seed, iters):
+    """The single-branch stash.  K1 writing it at the training shape (B=2,
+    4096 rays x 64 samples, hidden 384) against its plain version, the
+    outputs and the ten stash tensors, and its outputs against K1 without
+    the stash (the same bits).  K2 reading K1's stash, with and without
+    ``dens_vpu``, in the narrow case (hidden 64) and at the training shape:
+    against its plain version reading the same stash, against the unrounded
+    float64 gradient, for equal bits over two launches, and against K2
+    recomputing on the same inputs (every output to the bit; with
+    ``dens_vpu`` all but dWd).  Limits in ``kernels/checks.py``.  K1 with
+    the stash and K2 reading it with ``dens_vpu`` (what the training CLI
+    runs at S <= 64) timed at the training shape beside K3's and K4's
+    bounds for one branch.  Returns the readings that join K1's and K2's
+    entries of the ``kernels`` line."""
+    import torch
+
+    from gazenerf_tpu_torch.kernels import checks
+    from gazenerf_tpu_torch.kernels import fused_field as ff
+    from gazenerf_tpu_torch.kernels import fused_field_bwd as ffb
+
+    dev = torch.device("cuda")
+    fails = []
+    for case in checks.K2_STASH_CASES:
+        args, cot = checks.field_case(*checks.K2_CASES[case], dev, seed=seed)
+        with torch.no_grad():
+            out, acts = ff.fused_field_forward(*args, stash=True)
+            torch.cuda.synchronize()
+            line = {"stash_case": case, "seed": seed}
+            if case == "training":
+                plain_out, plain_acts = ff.fused_field_reference(*args, stash=True)
+                line["k1_readings"], f1 = checks.k1_failures("training", out, plain_out)
+                line["k1_stash_readings"], f1s = checks.k1_stash_failures(acts, plain_acts)
+                k1_err = max(float((a - b).abs().max()) for a, b in zip(out, plain_out))
+                del plain_out, plain_acts
+                no_stash = ff.fused_field_forward(*args)
+                err = max(float((a - b).abs().max()) for a, b in zip(out, no_stash))
+                line["k1_vs_no_stash_max_abs_err"] = err
+                if err > checks.K1_STASH_VS_K1_MAX_ABS_ERR:
+                    f1.append(f"outputs vs K1 without the stash: max abs err {err:.3e}")
+                fails += [f"K1 stash: {f}" for f in f1 + f1s]
+            recompute = ffb.fused_field_backward(*args, *cot)
+        for dens_vpu in (False, True):
+            tag = "dens_vpu" if dens_vpu else "rounded"
+            with torch.no_grad():
+                got = ffb.fused_field_backward(*args, *cot, stash=acts, dens_vpu=dens_vpu)
+                again = ffb.fused_field_backward(*args, *cot, stash=acts, dens_vpu=dens_vpu)
+                torch.cuda.synchronize()
+                want = ffb.fused_field_backward_reference(*args, *cot, stash=acts,
+                                                          dens_vpu=dens_vpu)
+                want64 = ffb.fused_field_backward_reference(
+                    *args, *cot, stash=acts, dens_vpu=dens_vpu, dtype=torch.float64)
+            exact = ffb.fused_field_backward_unrounded(*args, *cot)
+            r, f = checks.k2_stash_failures(case, got, want)
+            dist, ft = checks.truth_failures(got, want, want64, exact,
+                                             checks.K2_STASH_TRUTH_RATIO,
+                                             checks.K2_STASH_TRUTH_EXEMPT)
+            f += ft
+            del want64, exact
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                f.append("two launches on the same inputs differ")
+            vs = {n: float((a - b).abs().max()) for n, a, b in
+                  zip(got._fields, got, recompute) if not (dens_vpu and n == "dWd")}
+            differ = {n: e for n, e in vs.items() if e > checks.K2_STASH_VS_RECOMPUTE_MAX_ABS_ERR}
+            if differ:
+                f.append(f"vs K2 recomputing: {differ}")
+            line[tag] = {"readings": r, "unrounded_distance": dist,
+                         "vs_recompute_max_abs_err": max(vs.values())}
+            fails += [f"K2 stash {tag} {case}: {x}" for x in f]
+            if case == "training" and dens_vpu:
+                k2_err = float(max((a - b).abs().max() for a, b in zip(got, want)))
+                k2_grads = got
+            del got, again, want
+        print(json.dumps(line))
+    check(not fails, "\n".join(fails))
+    with torch.no_grad():
+        k1_ms = cuda_ms(lambda: ff.fused_field_forward(*args, stash=True), iters)
+        k1_plain_ms = cuda_ms(lambda: ff.fused_field_reference(*args, stash=True),
+                              max(2, iters // 4), warmup=1)
+        k2_iters = max(4, iters // 4)
+        k2_ms = cuda_ms(lambda: ffb.fused_field_backward(*args, *cot, stash=acts, dens_vpu=True),
+                        k2_iters)
+        k2_plain_ms = cuda_ms(lambda: ffb.fused_field_backward_reference(
+            *args, *cot, stash=acts, dens_vpu=True), max(2, k2_iters // 4), warmup=1)
+        print(json.dumps({"k2_stash_profile": device_profile(
+            lambda: ffb.fused_field_backward(*args, *cot, stash=acts, dens_vpu=True), top=6)}))
+    k1_bnd = k1_stash_bound(args, out, acts)
+    k2_bnd = k2_stash_bound(args, cot, acts, k2_grads)
+    print(f"K1 with the stash, training shape: {k1_ms:.4f} ms, plain {k1_plain_ms:.4f} ms, "
+          f"bound {k1_bnd[0]:.4f} ms ({k1_bnd[1]}); K2 reading it (dens_vpu): {k2_ms:.4f} ms, "
+          f"plain {k2_plain_ms:.4f} ms, bound {k2_bnd[0]:.4f} ms ({k2_bnd[1]})")
+    return (
+        {"mode": "stash write, training shape", "max_abs_err": k1_err, "ms": k1_ms,
+         "plain_ms": k1_plain_ms, "bound_ms": k1_bnd[0], "bound_by": k1_bnd[1]},
+        {"mode": "stash read with dens_vpu, training shape", "max_abs_err": k2_err, "ms": k2_ms,
+         "plain_ms": k2_plain_ms, "bound_ms": k2_bnd[0], "bound_by": k2_bnd[1]},
+    )
+
+
 def phase_dual_kernels(seed, cfg, iters):
     """The dual-branch kernels.  K3 at the serving shape (B=1, a render's
     own inputs, no stash) against its plain version and against K1 on each
@@ -776,7 +931,7 @@ def kernel_ms(rows, mode):
             name = "fused_dual_fwd"
         elif any(f"dual_{k}_kernel" in key for k in ("bwd", "dw", "dwsum", "head", "sum")):
             name = "fused_dual_bwd"
-        elif "field_fwd_kernel" in key:
+        elif "field_fwd_kernel" in key or "field_fwd_stash_kernel" in key:
             name = "fused_field_fwd"
         elif any(f"field_{k}_kernel" in key for k in ("bwd", "dw", "dwsum", "head", "sum")):
             name = "fused_field_bwd"
@@ -1050,6 +1205,7 @@ def phase_training(seed, cfg, n_steps, name):
         times.append((time.perf_counter() - t0) * 1e3)
     launches = launch_counts()
     peak = torch.cuda.max_memory_allocated()
+    peak_requested = torch.cuda.memory_stats()["requested_bytes.all.peak"]
     last = read(losses)
     for loss, v in {**first, **last}.items():
         check(v == v and abs(v) != float("inf"), f"{mode}: training loss {loss} is not finite")
@@ -1068,6 +1224,7 @@ def phase_training(seed, cfg, n_steps, name):
         "losses_last_step": last,
         "steps": 2 + n_steps,
         "peak_memory_bytes": peak,
+        "peak_requested_bytes": peak_requested,
         "grad_rel_l2_kernel_vs_plain": grads,
         "breakdown": parts,
     }
@@ -1137,6 +1294,10 @@ def phase_grad_check(trainer, batch, seed, name):
         recompute = grads(dataclasses.replace(cfg, pallas_stash_acts=False))
         out["stash_vs_recompute"] = compare("stash (K4) vs recompute (K2 per branch)",
                                             with_kernels, recompute, DUAL_GRAD_REL_L2)
+    elif cfg.pallas_stash_acts:
+        phase_gm = grads(dataclasses.replace(cfg, pallas_stash_acts=False, pallas_dens_vpu=False))
+        out["stash_vs_phase_gm"] = compare("stash and dens_vpu vs phase_gm (K2 recomputing)",
+                                           with_kernels, phase_gm, STASH_GRAD_REL_L2)
     trainer.optimizer.zero_grad(set_to_none=True)
     return out
 
@@ -1207,6 +1368,119 @@ def phase_step_breakdown(trainer, batch):
     return {"stages_ms": ms, "step_profile": profile}
 
 
+def phase_cli(seed):
+    """The training entry point from files: one synthetic subject of 8
+    frames at 512x512 (``data/synthetic``) in a temporary directory;
+    ``gazenerf_tpu_torch.cli.train.main`` in-process at the reference shape
+    with ``--pallas_tuning auto`` for 2 epochs (4 steps each), then resumed
+    from the last checkpoint for a third.  Checks: finite losses, one
+    checkpoint per epoch, the restored state equal to the saved one to the
+    bit, K1 and K2 twice a step each in the mode the overrides chose (the
+    stash written and read, ``dens_vpu``), and ``summary.csv`` with all
+    three epochs.  Returns the ``cli`` line, or None where h5py is not
+    installed (the phase then does not run)."""
+    try:
+        import h5py  # noqa: F401
+    except ImportError:
+        print("cli: not run: h5py is not installed here, and the loader reads h5 files")
+        return None
+    import csv
+    import logging
+    import os
+    import tempfile
+
+    import torch
+
+    from gazenerf_tpu_torch.cli import train as cli_train
+    from gazenerf_tpu_torch.cli.common import tuned_kernel_overrides
+    from gazenerf_tpu_torch.config import Config
+    from gazenerf_tpu_torch.data.synthetic import write_synthetic_subject
+    from gazenerf_tpu_torch.kernels import fused_field as ff
+    from gazenerf_tpu_torch.kernels import fused_field_bwd as ffb
+    from gazenerf_tpu_torch.train.checkpoint import load_checkpoint
+    from gazenerf_tpu_torch.train.trainer import Trainer
+
+    # the modes each launch ran in, seen by wrappers around the two wrappers
+    modes = {"k1": [], "k2": []}
+    fwd, bwd = ff.fused_field_forward, ffb.fused_field_backward
+
+    def fwd_spy(*a, stash=False, **k):
+        modes["k1"].append(stash)
+        return fwd(*a, stash=stash, **k)
+
+    def bwd_spy(*a, stash=None, dens_vpu=False, **k):
+        modes["k2"].append((stash is not None, dens_vpu))
+        return bwd(*a, stash=stash, dens_vpu=dens_vpu, **k)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        data, ck = os.path.join(tmp, "data"), os.path.join(tmp, "ck")
+        write_synthetic_subject(data, num_frames=8, img_size=512, seed=seed)
+        argv = ["--img_dir", data, "--checkpoint_dir", ck, "--pallas_tuning", "auto",
+                "--allow_random_frozen_nets", "true", "--num_workers", "2", "--seed", str(seed)]
+        ff.fused_field_forward, ffb.fused_field_backward = fwd_spy, bwd_spy
+        reset_launch_counts()
+        try:
+            check(cli_train.main(argv + ["--num_epochs", "2"]) == 0, "cli: train failed")
+            check(sorted(os.listdir(ck)) == ["epoch_1", "epoch_2", "summary.csv", "train.log"],
+                  f"cli: {sorted(os.listdir(ck))} after 2 epochs")
+            last = os.path.join(ck, "epoch_2")
+            check(cli_train.main(argv + ["--num_epochs", "3", "--resume", last]) == 0,
+                  "cli: the resumed run failed")
+        finally:
+            ff.fused_field_forward, ffb.fused_field_backward = fwd, bwd
+            root = logging.getLogger()  # the CLI's handlers write into the temporary directory
+            for h in list(root.handlers):
+                h.close()
+                root.removeHandler(h)
+        launches = launch_counts()
+        check(os.path.isdir(os.path.join(ck, "epoch_3")), "cli: no checkpoint of epoch 3")
+        with open(os.path.join(ck, "summary.csv")) as f:
+            rows = list(csv.DictReader(f))
+        check([int(r["epoch"]) for r in rows] == [0, 1, 2], f"cli: summary.csv rows {rows}")
+        losses = [float(r["loss"]) for r in rows]
+        check(all(v == v and abs(v) != float("inf") for v in losses), f"cli: losses {losses}")
+        steps = sum(int(r["batches"]) for r in rows)
+        want = dict.fromkeys(KERNELS, 0)
+        want["fused_field_fwd"] = want["fused_field_bwd"] = 2 * steps
+        check(launches == want, f"cli: {steps} steps launched {launches} (expected {want})")
+        tuned = tuned_kernel_overrides(64, 64)
+        mode = (tuned["pallas_stash_acts"], tuned["pallas_dens_vpu"])
+        check(modes["k1"] == [mode[0]] * 2 * steps and modes["k2"] == [mode] * 2 * steps,
+              f"cli: the kernels ran in modes {set(modes['k1'])}, {set(modes['k2'])}, "
+              f"the overrides chose {mode}")
+
+        # the restored state against the saved file, tensor by tensor
+        with open(os.path.join(last, "config.json")) as f:
+            cfg = Config.from_json(json.dumps(json.load(f)["config"]))
+        saved = torch.load(os.path.join(last, "state"), map_location="cuda", weights_only=False)
+        trainer = Trainer(cfg, train_len=8, steps_per_epoch=4)
+        load_checkpoint(last, trainer)
+        def tensors(tree):  # the tensors of a nested dict, in key order
+            if isinstance(tree, dict):
+                return [t for k in sorted(tree, key=str) for t in tensors(tree[k])]
+            return [tree] if isinstance(tree, torch.Tensor) else []
+
+        restored = tensors({"model": trainer.model.state_dict(), "offsets": dict(trainer.offsets),
+                            "optimizer": trainer.optimizer.state_dict()["state"]})
+        stored = tensors({"model": saved["model"], "offsets": saved["offsets"],
+                          "optimizer": saved["optimizer"]["state"]})
+        check(len(restored) == len(stored) and
+              all(torch.equal(a, b) for a, b in zip(stored, restored)),
+              "cli: the restored state differs from the saved one")
+        check(torch.equal(trainer.generator.get_state(), saved["generator"].cpu()) and
+              trainer.step == saved["step"] == 8, "cli: the generator or the step differs")
+        del trainer, saved
+    torch.cuda.empty_cache()
+    line = {"steps": steps, "epochs": len(rows), "losses": losses,
+            "overrides": {k: v for k, v in tuned.items()},
+            "ms_per_step": [1e3 * float(r["seconds"]) / int(r["batches"]) for r in rows],
+            "loader_wait_ms_per_batch": [1e3 * float(r["loader_wait_s"]) / int(r["batches"])
+                                         for r in rows],
+            "state_tensors_equal": len(stored)}
+    print(json.dumps({"cli": line}))
+    return line
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1250,6 +1524,7 @@ def main() -> int:
     # the stash (phase_gm renderer)
     configs = {mode: dataclasses.replace(cfg, shuffle_mode=mode) for mode in MODES}
     configs[DUAL] = dataclasses.replace(cfg, **DUAL_FLAGS)
+    configs[STASH] = dataclasses.replace(cfg, **STASH_FLAGS)
 
     # 3. kernels vs plain versions
     k1 = phase_kernels(args.seed, cfg, args.iters)
@@ -1257,6 +1532,8 @@ def main() -> int:
     phase_dw(args.seed, args.iters)
     k5, k6, k7, k8 = phase_renderer_kernels(args.seed, args.iters)
     k3, k4 = phase_dual_kernels(args.seed, cfg, args.iters)
+    torch.cuda.empty_cache()
+    k1["stash"], k2["stash_read"] = phase_stash_kernels(args.seed, args.iters)
     torch.cuda.empty_cache()
 
     # 4. serving, per variant, on the same weights
@@ -1268,7 +1545,7 @@ def main() -> int:
     for name in configs:
         if name == "phase_gm":
             continue
-        atol = DUAL_IMAGE_ATOL if name == DUAL else MODE_IMAGE_ATOL
+        atol = {DUAL: DUAL_IMAGE_ATOL, STASH: STASH_IMAGE_ATOL}.get(name, MODE_IMAGE_ATOL)
         err = float((serving[name].pop("image") - serving["phase_gm"]["image"]).abs().max())
         serving[name]["image_vs_phase_gm_max_abs_err"] = err
         print(f"serving {name}: image vs phase_gm's max abs err {err:.3e} (atol {atol})")
@@ -1280,6 +1557,7 @@ def main() -> int:
 
     # 5. breakdown
     dual_app = apps.pop(DUAL)
+    del apps[STASH]  # a render in the stash variant is phase_gm's
     line = phase_breakdown(apps, requests, smi)
     line["dual_viewer_request"] = device_profile(lambda: dual_app.render_image(*requests[0]),
                                                  top=8, mode=DUAL)
@@ -1295,16 +1573,21 @@ def main() -> int:
     print(json.dumps({"training": {
         "card": smi,
         "config": "ModelConfig(compute_dtype=bfloat16, renderer_dtype=bfloat16, shuffle_mode=...; "
-                  "dual: pallas_dual_branch=True, pallas_stash_acts=True), LossConfig(), "
+                  "dual: pallas_dual_branch=True, pallas_stash_acts=True; stash: "
+                  "pallas_stash_acts=True, pallas_dens_vpu=True), LossConfig(), "
                   "TrainConfig(); B=2, 4096 rays x 64 samples, 512x512",
         "modes": training,
     }}))
+    phase_cli(args.seed)
     k2["launches"] = training["phase_gm"]["launches"]["fused_field_bwd"]
     k6["launches"] = training["pallas"]["launches"]["shuffle_blur_bwd"]
     k8["launches"] = training["fused"]["launches"]["fused_upsampler_bwd"]
     # K3 and K4 timed at the training shape: their launches on the dual training path
     k3["launches"] = training[DUAL]["launches"]["fused_dual_fwd"]
     k4["launches"] = training[DUAL]["launches"]["fused_dual_bwd"]
+    # K1 writing and K2 reading the stash: their launches in the stash variant
+    k1["stash"]["launches"] = training[STASH]["launches"]["fused_field_fwd"]
+    k2["stash_read"]["launches"] = training[STASH]["launches"]["fused_field_bwd"]
 
     print(json.dumps({"kernels": [k1, k2, k5, k6, k7, k8, k3, k4]}))
     print(smi)

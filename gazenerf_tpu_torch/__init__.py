@@ -14,16 +14,21 @@ CUDA card unless the caller passes ``device="cpu"``.
 * ``gazenerf_tpu_torch.models``  — field MLP, neural renderer, GazeNeRF,
                                    the loss stack's VGG16
 * ``gazenerf_tpu_torch.losses``  — the training loss
-* ``gazenerf_tpu_torch.train``   — offsets, per-group Adam, the trainer
+* ``gazenerf_tpu_torch.data``    — the HDF5 loader, synthetic subjects,
+                                   cameras
+* ``gazenerf_tpu_torch.train``   — offsets, per-group Adam, the trainer,
+                                   checkpoints
+* ``gazenerf_tpu_torch.cli``     — the training entry point
 * ``gazenerf_tpu_torch.viewer``  — the browser viewer over the no-grad render
 * ``gazenerf_tpu_torch.utils``   — weight bridge to and from the JAX package,
-                                   PNG codec
+                                   PNG codec, logging
 """
 
 __version__ = "0.1.0"
 
 from gazenerf_tpu_torch.config import (
     Config,
+    DataConfig,
     LossConfig,
     ModelConfig,
     TrainConfig,
@@ -37,6 +42,7 @@ from gazenerf_tpu_torch.viewer.server import ViewerApp
 
 __all__ = [
     "Config",
+    "DataConfig",
     "LossConfig",
     "ModelConfig",
     "TrainConfig",

@@ -1,10 +1,11 @@
 """Configuration for the PyTorch / CUDA port.
 
-Field-for-field copies of the JAX package's ``ModelConfig``, ``LossConfig``
-and ``TrainConfig`` (same names, same defaults), so
+Field-for-field copies of the JAX package's ``ModelConfig``, ``LossConfig``,
+``TrainConfig`` and ``DataConfig`` (same names, same defaults), so
 ``LossConfig(**dataclasses.asdict(jax_cfg.loss))`` builds the same section
-here; :class:`Config` groups them.  The data and parallel sections come with
-the slices that need them.
+here; :class:`Config` groups them, and its JSON form is the JAX package's
+(a JAX checkpoint's ``config.json`` loads).  The port runs on one card: a
+``parallel`` section loads only when it asks for one device.
 
 Fields that select TPU kernel variants (``pallas_*``) keep their names so
 that a JAX config loads unchanged; :class:`~gazenerf_tpu_torch.models.
@@ -14,6 +15,7 @@ gaze_nerf.GazeNeRF` states which of them the port runs.
 from __future__ import annotations
 
 import dataclasses
+import json
 import math
 from typing import Any
 
@@ -191,10 +193,50 @@ class TrainConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class DataConfig:
+    """Input-pipeline knobs (upstream ``datasets/eth_xgaze.py``)."""
+
+    dataset: str = "eth_xgaze"  # eth_xgaze | mpii_face_gaze | columbia | gaze_capture
+    img_dir: str = ""
+    num_workers: int = 4
+    prefetch: int = 2
+    img_size: int = 512
+    # frames per subject for the training split
+    frames_per_subject: int = 900
+
+
+# the JAX package's mesh layout: the port runs on one card
+_ONE_DEVICE = {"data_parallel": 1, "ray_parallel": 1}
+
+
+@dataclasses.dataclass(frozen=True)
 class Config:
     model: ModelConfig = dataclasses.field(default_factory=ModelConfig)
     loss: LossConfig = dataclasses.field(default_factory=LossConfig)
     train: TrainConfig = dataclasses.field(default_factory=TrainConfig)
+    data: DataConfig = dataclasses.field(default_factory=DataConfig)
+
+    def to_json(self) -> str:
+        return json.dumps(dataclasses.asdict(self), indent=2, sort_keys=True)
+
+    @classmethod
+    def from_json(cls, s: str) -> "Config":
+        """A config from its JSON form, the port's or the JAX package's (whose
+        ``parallel`` section must ask for one device)."""
+        d = json.loads(s)
+        par = d.get("parallel", {})
+        mesh = {k: par.get(k, 1) for k in _ONE_DEVICE}
+        if mesh != _ONE_DEVICE:
+            raise NotImplementedError(
+                f"parallel {mesh}: the port runs on one device (more devices: ROADMAP Queue 1 "
+                f"item 7)"
+            )
+        return cls(
+            model=ModelConfig(**d.get("model", {})),
+            loss=LossConfig(**d.get("loss", {})),
+            train=TrainConfig(**d.get("train", {})),
+            data=DataConfig(**d.get("data", {})),
+        )
 
     def replace(self, **sections: Any) -> "Config":
         return dataclasses.replace(self, **sections)

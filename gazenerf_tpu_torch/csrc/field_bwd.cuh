@@ -493,6 +493,7 @@ struct BwdWeights {
   const bf16* w5x_t;    // [H, H]
   const bf16* wr0_t;    // [H, H]
   const bf16* wr1x_t;   // [H, H/2]
+  int dens_vpu;         // dWd from the f32 density cotangent, else from its bf16
 };
 
 // pre-ReLU density of the tile's points from x7 in A: 4 threads per row (the
@@ -714,10 +715,13 @@ __device__ inline void backward_tile(const Shared& sh, const BwdWeights& W, cons
   __syncthreads();
   store_tile(d_rows(io, 1, H), Dh, ld, H);  // bf16(dy0)
   add_colsum(sm + L.br0, cs, H);
-  for (int j = tid; j < H; j += kThreads) {  // dWd = x7^T bf16(ddens)
+  for (int j = tid; j < H; j += kThreads) {  // dWd = x7^T ddens, bf16(ddens) unless dens_vpu
     float s = 0.f;
-    for (int r = 0; r < kRows; ++r)
-      s = __fmaf_rn(bf2f(A[r * ld + j]), bf2f(__float2bfloat16(dpd[r])), s);
+    if (W.dens_vpu)
+      for (int r = 0; r < kRows; ++r) s = __fmaf_rn(bf2f(A[r * ld + j]), dpd[r], s);
+    else
+      for (int r = 0; r < kRows; ++r)
+        s = __fmaf_rn(bf2f(A[r * ld + j]), bf2f(__float2bfloat16(dpd[r])), s);
     sm[L.wd + j] += s;
   }
   gemm_rows<true>({Dh, Dl, ld, W.wr0_t, H}, none, 1, H, stages, acc);  // dx7

@@ -461,6 +461,13 @@ __host__ __device__ inline Layout layout(int S, int Kp, int H) {
 // dynamic shared memory to ask for: the layout and room to align it
 inline size_t smem_bytes(int S, int Kp, int H) { return layout(S, Kp, H).total + 1024; }
 
+// The tensor map of one stash slot, [P, N] bf16 rows at `base`, written in
+// [128, 64] boxes from the tile's 128-byte-swizzled sub-blocks (columns
+// past N, in a sub-block wider than the slot, are not written)
+inline bool stash_map(CUtensorMap* map, void* base, size_t P, size_t N) {
+  return tile::bf16_map(map, base, P, N, N, kRows, kSub, CU_TENSOR_MAP_SWIZZLE_128B);
+}
+
 // The tile of batch b starting at ray r0.  kStash: write the tile's rows of
 // the ten stash slots through the tensor maps `stash` (x0..x7, y0b: [B R S,
 // H] bf16; y1: [B R S, H/2]), which lie in the kernel's parameters.

@@ -230,6 +230,7 @@ int fused_field2_bwd(const void* embed, const float* zvals, const float* zdists,
     q.w.w5x_t = static_cast<const bf16*>(w5x_t) + i * h * h;
     q.w.wr0_t = static_cast<const bf16*>(wr0_t) + i * h * h;
     q.w.wr1x_t = static_cast<const bf16*>(wr1x_t) + i * h * h2;
+    q.w.dens_vpu = 0;  // the dual path rounds the density cotangent, as JAX's
     q.gfeat = gfeat + i * b * r * c;
     q.gbga = gbga + i * b * r;
     q.gdepth = gdepth + i * b * r;

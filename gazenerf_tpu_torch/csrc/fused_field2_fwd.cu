@@ -53,13 +53,6 @@ __global__ void __launch_bounds__(ffwd::kThreads, 1)
                              blockIdx.x * (ffwd::kRows / p.S));
 }
 
-// The tensor map of one stash slot, [P, N] bf16 rows at `base`, written in
-// [128, 64] boxes from the tile's 128-byte-swizzled sub-blocks (columns
-// past N, in a sub-block wider than the slot, are not written)
-bool stash_map(CUtensorMap* map, void* base, size_t P, size_t N) {
-  return tile::bf16_map(map, base, P, N, N, ffwd::kRows, ffwd::kSub, CU_TENSOR_MAP_SWIZZLE_128B);
-}
-
 template <bool kStash>
 int launch(const DualParams& dp, int B, int R, int S, int Kp, int H, cudaStream_t stream) {
   const size_t smem = ffwd::smem_bytes(S, Kp, H);
@@ -126,7 +119,7 @@ int fused_field2_fwd(const void* embed, const float* zvals, const float* zdists,
     p.depth_out = depth_out + i * b * r;
     p.w_out = w_out + i * b * r * s;
     for (int k = 0; k < ffwd::kSlots && stash; ++k)
-      if (!stash_map(&dp.stash[i][k], stash[i * ffwd::kSlots + k], b * r * s,
+      if (!ffwd::stash_map(&dp.stash[i][k], stash[i * ffwd::kSlots + k], b * r * s,
                      k + 1 < ffwd::kSlots ? h : h2))
         return (int)cudaErrorInvalidValue;
     p.R = R;

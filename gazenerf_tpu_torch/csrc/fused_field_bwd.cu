@@ -1,13 +1,17 @@
-// Fused field backward for NVIDIA Hopper (sm_90a), recompute mode: for every
-// 64-point tile (whole rays) it recomputes the field MLP's forward, runs the
-// volume-integration backward, then backpropagates through the heads and the
-// 8-layer trunk, giving the embedding, z-value and segment-length cotangents
-// per point and the weight, bias and conditioning-row gradients summed over
-// all points.
+// Fused field backward for NVIDIA Hopper (sm_90a): for every 64-point tile
+// (whole rays) it recomputes the field MLP's forward (recompute mode) or
+// reads the bf16 activations x0..x7, y0b and y1 that the forward stashed
+// (stash mode; only the density pre-activation is recomputed, from x7),
+// runs the volume-integration backward, then backpropagates through the
+// heads and the 8-layer trunk, giving the embedding, z-value and
+// segment-length cotangents per point and the weight, bias and
+// conditioning-row gradients summed over all points.
 //
 // Replaces the TPU kernel gazenerf_tpu/kernels/fused_field_bwd.py:_bwd_kernel
-// (launched by pallas_backward) with stash_acts=False, split_dw=False,
-// dens_vpu=False and embed_in_kernel=False.
+// (launched by pallas_backward) with stash_acts False or True (stash_every=1,
+// bf16), dens_vpu False or True, split_dw=False and embed_in_kernel=False.
+// dens_vpu is one rounding point here: with it, dWd = x7^T ddens takes the
+// f32 density cotangent, without it its bf16 rounding.
 //
 // Numerics follow that kernel: the recomputed activations round to bf16 at
 // K1's points (csrc/fused_field_fwd.cu); data gradients are f32 (as bf16
@@ -21,13 +25,18 @@
 // weight gradients: ~3.9 M per point, ~4.1 TFLOP at B=2, R=4096, S=64,
 // hidden 384, against ~0.25 GB of global traffic that the function needs
 // (embedding and cotangents in, embedding / z cotangents and gradients out).
-// It is bound by bf16 tensor-core operations.
+// It is bound by bf16 tensor-core operations.  In stash mode the recompute
+// goes (~2.6 M per point, ~2.8 TFLOP) and the stash is read (~3.83 GB, ~1.1
+// ms at 3.35 TB/s): still bound by operations.
 //
 // Design.  The points go in chunks of whole tiles (the caller's plan,
 // kernels/field_dw.py); per chunk, three launches on the stream:
 //  * field_bwd_kernel: one CTA per SM walks the chunk's tiles, recomputes
 //    each tile's activations (their rows go to the chunk buffer: x0..x7,
-//    y0b and the padded embedding) and runs the tile body, which writes each
+//    y0b and the padded embedding) or, in stash mode, reads x7 and y1 from
+//    the stash (the padded embedding still goes to the chunk buffer; x0..x7
+//    and y0b are read from the stash where the body and the GEMM need them,
+//    as in the dual-branch backward), and runs the tile body, which writes each
 //    layer's bf16 cotangent and each ray's folded-head sums to the chunk
 //    buffer and adds the biases, conditioning rows and dWd into its CTA's
 //    small f32 buffer;
@@ -37,8 +46,11 @@
 // After the last chunk field_sum_kernel sums the per-CTA buffers in CTA
 // order.  No atomics: the same bits on every run.  Scratch: the chunk
 // buffer, ~14.3 KB per point at hidden 384 (x0..x7, y0b, the embedding and
-// the ten cotangents), the GEMM's partial sums (42 MB) and gridDim.x small
-// buffers of ~5 K floats: ~0.53 GB for chunks of 528 tiles.
+// the ten cotangents; ~7.4 KB in stash mode, without x0..x7 and y0b), the
+// GEMM's partial sums (42 MB) and gridDim.x small buffers of ~5 K floats:
+// ~0.53 GB for chunks of 528 tiles (~0.29 GB in stash mode).  The stash
+// equals the recompute to the bit (one forward tile code, the same
+// products), so both modes give the same gradients.
 
 #include "field_bwd.cuh"
 
@@ -72,9 +84,11 @@ struct Params {
   float* dembed;        // [B, R, S, De]
   float* dzvals;        // [B, R, S]
   float* dzdists;       // [B, R, S]
+  // the forward's stash (stash mode): x0..x7, y0b [B, R, S, H], y1 [B, R, S, H/2]
+  const bf16* stash[kXSlots + 1];
   // scratch
   float* small;             // [G, total - small] per-CTA sums
-  bf16* xbase[kXSlots];     // the chunk buffer's x0..x7, y0b [P, H]
+  bf16* xbase[kXSlots];     // the chunk buffer's x0..x7, y0b [P, H] (recompute mode)
   bf16* e;                  // its padded embedding [P, Kp]
   bf16* dbase[kDSlots];     // its cotangents dy1 [P, H/2], dy0, dpre7 .. dpre0 [P, H]
   float* aw;                // its folded-head sums [P / S, H/2 + 1]
@@ -83,6 +97,7 @@ struct Params {
   Grads L;
 };
 
+template <bool kStash>
 __global__ void __launch_bounds__(kThreads, 1)
     field_bwd_kernel(const __grid_constant__ Params p) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -112,23 +127,31 @@ __global__ void __launch_bounds__(kThreads, 1)
     __syncthreads();
     store_tile(p.e + lp0 * Kp, E, lde, Kp);
 
-    // ---- recompute: x0..x7, y0b into the chunk buffer, y1 in A ----
-    fwd_layer({E, nullptr, lde, p.w0e, Kp}, none, 1, H, p.cb0 + (size_t)b * H, true, A, ld,
-              sh.W, p.xbase[0] + lp0 * H);
+    if (kStash) {  // ---- the stash: x7 (its density), then y1 into A ----
+      load_tile(A, ld, p.stash[7] + p0 * H, H);
+      __syncthreads();
+      density_pre(sh, ld, p.w.wd, p.w.bd, H);
+      __syncthreads();
+      load_tile(A, ld, p.stash[9] + p0 * H2, H2);  // A[:, :H2] = y1
+      __syncthreads();
+    } else {  // ---- recompute: x0..x7, y0b into the chunk buffer, y1 in A ----
+      fwd_layer({E, nullptr, lde, p.w0e, Kp}, none, 1, H, p.cb0 + (size_t)b * H, true, A, ld,
+                sh.W, p.xbase[0] + lp0 * H);
 #pragma unroll 1
-    for (int i = 1; i < 8; ++i) {
-      if (i == 5)
-        fwd_layer({E, nullptr, lde, p.w5e, Kp}, {A, nullptr, ld, p.w5x, H}, 2, H,
-                  p.cb5 + (size_t)b * H, true, A, ld, sh.W, p.xbase[i] + lp0 * H);
-      else
-        fwd_layer({A, nullptr, ld, p.wmid + mid_slot(i) * HH, H}, none, 1, H,
-                  p.bmid + mid_slot(i) * H, true, A, ld, sh.W, p.xbase[i] + lp0 * H);
+      for (int i = 1; i < 8; ++i) {
+        if (i == 5)
+          fwd_layer({E, nullptr, lde, p.w5e, Kp}, {A, nullptr, ld, p.w5x, H}, 2, H,
+                    p.cb5 + (size_t)b * H, true, A, ld, sh.W, p.xbase[i] + lp0 * H);
+        else
+          fwd_layer({A, nullptr, ld, p.wmid + mid_slot(i) * HH, H}, none, 1, H,
+                    p.bmid + mid_slot(i) * H, true, A, ld, sh.W, p.xbase[i] + lp0 * H);
+      }
+      density_pre(sh, ld, p.w.wd, p.w.bd, H);
+      fwd_layer({A, nullptr, ld, p.wr0, H}, none, 1, H, p.br0, false, A, ld, sh.W,
+                p.xbase[8] + lp0 * H);
+      fwd_layer({A, nullptr, ld, p.wr1x, H}, none, 1, H2, p.cbr1 + (size_t)b * H2, true, A,
+                ld, sh.W, nullptr);  // A[:, :H2] = y1
     }
-    density_pre(sh, ld, p.w.wd, p.w.bd, H);
-    fwd_layer({A, nullptr, ld, p.wr0, H}, none, 1, H, p.br0, false, A, ld, sh.W,
-              p.xbase[8] + lp0 * H);
-    fwd_layer({A, nullptr, ld, p.wr1x, H}, none, 1, H2, p.cbr1 + (size_t)b * H2, true, A, ld,
-              sh.W, nullptr);  // A[:, :H2] = y1
 
     TileIO io;
     io.b = b;
@@ -139,8 +162,13 @@ __global__ void __launch_bounds__(kThreads, 1)
     io.gbga = p.gbga;
     io.gdepth = p.gdepth;
     io.gw = p.gw;
-    io.x = p.xbase;
-    io.xrow = lp0;
+    if (kStash) {  // the masks from the stash, rows indexed in 64 bits
+      io.x = p.stash;
+      io.xrow = p0;
+    } else {
+      io.x = p.xbase;
+      io.xrow = lp0;
+    }
     io.d = p.dbase;
     io.drow = lp0;
     io.aw = p.aw + lp0 / S * (H2 + 1);
@@ -178,14 +206,15 @@ extern "C" {
 // The buffers' layout: out[0..14] the offsets (in floats) of W0e, Wmid, bmid,
 // W5e, W5x, Wd, bd, Wr0, br0, Wr1x, Wr2, br2, cb0, cb5, cbr1 in `grads` (each
 // block row-major), out[15] the length of `grads`, out[16] the bytes of
-// scratch for G CTAs and chunks of up to chunk_tiles tiles.
+// scratch for G CTAs and chunks of up to chunk_tiles tiles (in stash mode
+// without the chunk buffer's x0..x7 and y0b).
 void fused_field_bwd_layout(int B, int S, int Kp, int H, int C, int G, int chunk_tiles,
-                            long long* out) {
+                            int stash, long long* out) {
   const Grads s = grad_layout(B, Kp, H, C);
   const size_t v[16] = {s.w0e, s.wmid, s.bmid, s.w5e, s.w5x, s.wd, s.bd, s.wr0,
                         s.br0, s.wr1x, s.wr2, s.br2, s.cb0, s.cb5, s.cbr1, s.total};
   for (int i = 0; i < 16; ++i) out[i] = (long long)v[i];
-  const Chunk c = chunk_layout((size_t)chunk_tiles * kRows, S, Kp, H, true, 1);
+  const Chunk c = chunk_layout((size_t)chunk_tiles * kRows, S, Kp, H, !stash, 1);
   out[16] = (long long)(align256((size_t)G * (s.total - s.small) * sizeof(float)) + c.total);
 }
 
@@ -195,7 +224,9 @@ void fused_field_bwd_layout(int B, int S, int Kp, int H, int C, int G, int chunk
 // success).  The caller (kernels/fused_field_bwd.py) has checked the shapes:
 // S divides 64, R*S is a multiple of 64, H is a multiple of 64 and at most
 // 384, Kp a multiple of 32; nt <= chunk_tiles; it allocates `scratch` (the
-// layout's bytes) and `grads`.
+// layout's bytes) and `grads`.  `stash` is null (recompute mode) or ten
+// pointers: x0..x7, y0b ([B, R, S, H] bf16 each) and y1 ([B, R, S, H/2]).
+// `dens_vpu`: dWd from the unrounded density cotangent.
 int fused_field_bwd(const void* embed, const float* zvals, const float* zdists,
                     const float* cb0, const float* cb5, const float* cbr1,
                     const void* w0e, const void* wmid, const float* bmid, const void* w5e,
@@ -204,10 +235,10 @@ int fused_field_bwd(const void* embed, const float* zvals, const float* zdists,
                     const void* w0e_t, const void* wmid_t, const void* w5e_t,
                     const void* w5x_t, const void* wr0_t, const void* wr1x_t,
                     const float* gfeat, const float* gbga, const float* gdepth,
-                    const float* gw, float* dembed, float* dzvals, float* dzdists,
-                    void* scratch, float* grads, int B, int R, int S, int De, int Kp, int H,
-                    int C, int G, int chunk_tiles, int t0, int nt, int first, int last,
-                    void* stream) {
+                    const float* gw, void* const* stash, float* dembed, float* dzvals,
+                    float* dzdists, void* scratch, float* grads, int B, int R, int S, int De,
+                    int Kp, int H, int C, int G, int chunk_tiles, int t0, int nt, int first,
+                    int last, int dens_vpu, void* stream) {
   Params p;
   p.embed = static_cast<const bf16*>(embed);
   p.zvals = zvals;
@@ -233,6 +264,9 @@ int fused_field_bwd(const void* embed, const float* zvals, const float* zdists,
   p.w.w5x_t = static_cast<const bf16*>(w5x_t);
   p.w.wr0_t = static_cast<const bf16*>(wr0_t);
   p.w.wr1x_t = static_cast<const bf16*>(wr1x_t);
+  p.w.dens_vpu = dens_vpu;
+  for (int k = 0; k <= kXSlots; ++k)
+    p.stash[k] = stash ? static_cast<const bf16*>(stash[k]) : nullptr;
   p.gfeat = gfeat;
   p.gbga = gbga;
   p.gdepth = gdepth;
@@ -253,8 +287,9 @@ int fused_field_bwd(const void* embed, const float* zvals, const float* zdists,
   p.small = static_cast<float*>(scratch);
   unsigned char* chunk =
       static_cast<unsigned char*>(scratch) + align256((size_t)G * small_len * sizeof(float));
-  const Chunk CL = chunk_layout((size_t)chunk_tiles * kRows, S, Kp, H, true, 1);
-  for (int i = 0; i < kXSlots; ++i) p.xbase[i] = reinterpret_cast<bf16*>(chunk + CL.x[i]);
+  const Chunk CL = chunk_layout((size_t)chunk_tiles * kRows, S, Kp, H, !stash, 1);
+  for (int i = 0; i < kXSlots; ++i)
+    p.xbase[i] = stash ? nullptr : reinterpret_cast<bf16*>(chunk + CL.x[i]);
   p.e = reinterpret_cast<bf16*>(chunk + CL.e);
   for (int j = 0; j < kDSlots; ++j) p.dbase[j] = reinterpret_cast<bf16*>(chunk + CL.d[0][j]);
   p.aw = reinterpret_cast<float*>(chunk + CL.aw[0]);
@@ -266,10 +301,11 @@ int fused_field_bwd(const void* embed, const float* zvals, const float* zdists,
     if (err != cudaSuccess) return (int)err;
   }
   const size_t smem = smem_bytes(S, Kp, H, C);
-  err = cudaFuncSetAttribute(field_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  auto tile_kernel = stash ? field_bwd_kernel<true> : field_bwd_kernel<false>;
+  err = cudaFuncSetAttribute(tile_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem);
   if (err != cudaSuccess) return (int)err;
-  field_bwd_kernel<<<nt < G ? nt : G, kThreads, smem, st>>>(p);
+  tile_kernel<<<nt < G ? nt : G, kThreads, smem, st>>>(p);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
@@ -278,7 +314,10 @@ int fused_field_bwd(const void* embed, const float* zvals, const float* zdists,
   if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
   if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
     return (int)err;
-  const fdw::Jobs js = weight_jobs(p.xbase, p.e, p.dbase, grads, p.L, Kp, H, P, !first, sms,
+  const size_t pt0 = (size_t)t0 * kRows;  // the chunk's first point
+  const bf16* x[kXSlots];  // the GEMM's X: the chunk's rows of the stash or the chunk buffer
+  for (int k = 0; k < kXSlots; ++k) x[k] = stash ? p.stash[k] + pt0 * H : p.xbase[k];
+  const fdw::Jobs js = weight_jobs(x, p.e, p.dbase, grads, p.L, Kp, H, P, !first, sms,
                                    reinterpret_cast<float*>(chunk + CL.part));
   err = cudaFuncSetAttribute(field_dw_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)fdw::kSmem);

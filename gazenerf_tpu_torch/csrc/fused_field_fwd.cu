@@ -4,8 +4,14 @@
 // sample weights.  The [N, 384] activations and the [N, 258] per-sample
 // features never leave the SM.
 //
+// Under a gradient it also writes the bf16 activation stash (x0..x7, y0b
+// and y1 per point), which the backward (csrc/fused_field_bwd.cu) can read
+// instead of recomputing the trunk.
+//
 // Replaces the TPU kernel gazenerf_tpu/kernels/fused_field.py:_field_kernel
-// (launched by _pallas_forward) in its no-stash forward configuration.
+// (launched by _pallas_forward), with and without its stash (stash_every=1,
+// bf16).  Its dens_vpu mode computes the same density head: the port's is
+// always an f32 dot product of bf16 values on the CUDA cores.
 //
 // Numerics follow that kernel: bf16 operands with f32 accumulation; bias,
 // conditioning rows and ReLU applied in f32 and the result rounded to bf16
@@ -16,7 +22,9 @@
 // one launch does ~1.30 M multiply-adds per point on the tensor cores
 // (~0.68 TFLOP) against ~40 MB of global traffic (bf16 embedding in, f32
 // outputs, 2.7 MB of weights), far above the H100's ~295 FLOP per byte: it
-// is bound by bf16 tensor-core operations.
+// is bound by bf16 tensor-core operations.  With the stash at the training
+// shape (B=2) it writes 7,296 bytes per point, ~3.83 GB (~1.1 ms at 3.35
+// TB/s) against ~1.4 ms of products: still bound by operations.
 //
 // Design: one CTA takes 128 points = 128 / S whole rays, so the compositing
 // needs no cross-CTA step.  The tile body, its layout and its numerics are
@@ -24,7 +32,9 @@
 // (csrc/fused_field2_fwd.cu) shares: the weights streamed once per CTA into
 // a shared-memory ring by a producer warp's bulk copies, the products on
 // wgmma, the layers in three rotating column blocks, compositing a warp per
-// ray.
+// ray.  The stash leaves shared memory by tensor stores (TMA) behind the
+// next layer's products, through ten tensor maps over [B R S, N] rows built
+// here and passed in the kernel's parameters, as in the dual-branch forward.
 
 #include "field_fwd.cuh"
 
@@ -32,6 +42,27 @@ namespace {
 
 __global__ void __launch_bounds__(ffwd::kThreads, 1) field_fwd_kernel(ffwd::Params p) {
   ffwd::forward_tile<false>(p, nullptr, blockIdx.y, blockIdx.x * (ffwd::kRows / p.S));
+}
+
+struct StashParams {
+  ffwd::Params p;
+  CUtensorMap stash[ffwd::kSlots];  // x0..x7, y0b, y1
+};
+
+__global__ void __launch_bounds__(ffwd::kThreads, 1)
+    field_fwd_stash_kernel(const __grid_constant__ StashParams sp) {
+  ffwd::forward_tile<true>(sp.p, sp.stash, blockIdx.y, blockIdx.x * (ffwd::kRows / sp.p.S));
+}
+
+template <typename Kernel, typename Arg>
+int launch(Kernel kernel, const Arg& arg, int B, int R, int S, int Kp, int H, cudaStream_t st) {
+  const size_t smem = ffwd::smem_bytes(S, Kp, H);
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(R / (ffwd::kRows / S), B);
+  kernel<<<grid, ffwd::kThreads, smem, st>>>(arg);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -42,7 +73,9 @@ extern "C" {
 // The caller (kernels/fused_field.py) has checked the shapes: S divides
 // kRows, R is a multiple of kRows / S, H is a multiple of 64 up to 192 or
 // of 128 up to 384, and Kp a multiple of 64.  `wstream` is scratch for
-// stream_slices(H, Kp) slices, which pack_stream fills first.
+// stream_slices(H, Kp) slices, which pack_stream fills first.  `stash` is
+// null (no stash) or ten pointers: x0..x7, y0b ([B, R, S, H] bf16 each) and
+// y1 ([B, R, S, H/2]).
 int fused_field_fwd(const void* embed, const float* zvals, const float* zdists,
                     const float* cb0, const float* cb5, const float* cbr1,
                     const void* w0e, const void* wmid, const float* bmid,
@@ -50,8 +83,8 @@ int fused_field_fwd(const void* embed, const float* zvals, const float* zdists,
                     const float* bd, const void* wr0, const float* br0,
                     const void* wr1x, const void* wr2, const float* br2, void* wstream,
                     float* feat_out, float* bga_out, float* depth_out,
-                    float* w_out, int B, int R, int S, int De, int Kp, int H,
-                    int C, void* stream) {
+                    float* w_out, void* const* stash, int B, int R, int S, int De, int Kp,
+                    int H, int C, void* stream) {
   typedef ffwd::bf16 bf16;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const ffwd::StreamPlan plan = ffwd::stream_plan(
@@ -84,13 +117,14 @@ int fused_field_fwd(const void* embed, const float* zvals, const float* zdists,
   p.Kp = Kp;
   p.H = H;
   p.C = C;
-  const size_t smem = ffwd::smem_bytes(S, Kp, H);
-  cudaError_t err = cudaFuncSetAttribute(
-      field_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid(R / (ffwd::kRows / S), B);
-  field_fwd_kernel<<<grid, ffwd::kThreads, smem, st>>>(p);
-  return (int)cudaGetLastError();
+  if (!stash) return launch(field_fwd_kernel, p, B, R, S, Kp, H, st);
+  StashParams sp = {};
+  sp.p = p;
+  const size_t points = (size_t)B * R * S;
+  for (int k = 0; k < ffwd::kSlots; ++k)
+    if (!ffwd::stash_map(&sp.stash[k], stash[k], points, k + 1 < ffwd::kSlots ? H : H / 2))
+      return (int)cudaErrorInvalidValue;
+  return launch(field_fwd_stash_kernel, sp, B, R, S, Kp, H, st);
 }
 
 }  // extern "C"

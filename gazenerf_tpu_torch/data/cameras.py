@@ -1,5 +1,7 @@
-"""Demo-render camera: the upstream 32x32 inverse intrinsics scaled to the
-featmap, and the frontal base camera."""
+"""Cameras: the demo render's (the upstream 32x32 inverse intrinsics scaled
+to the featmap, the frontal base camera) and the datasets' calibrations
+(per-camera intrinsics and distortion, and the lookup by camera index).
+The calibration readers import ``cv2`` or ``scipy`` when called."""
 
 from __future__ import annotations
 
@@ -35,3 +37,53 @@ def base_camera(featmap_size: int) -> Dict[str, np.ndarray]:
         "Tvecs": T[None, :, None],
         "inv_inmats": base_inv_inmat(featmap_size)[None],
     }
+
+
+def load_camera_calibrations(dataset: str, cam_dir: str):
+    """Per-camera ``(K, dist)`` calibrations (upstream ``evaluate_metrics.py``
+    ``load_cams``): ETH-XGaze 18 OpenCV XML files ``cam00.xml`` ..
+    ``cam17.xml``, MPIIFaceGaze 15 ``CameraNN.mat``, Columbia and
+    GazeCapture one ``cam00.xml``.  Returns a list of pairs, or the one
+    pair."""
+    import os
+
+    def read_xml(path):
+        import cv2
+
+        fs = cv2.FileStorage(path, cv2.FILE_STORAGE_READ)
+        K = fs.getNode("Camera_Matrix").mat()
+        d = fs.getNode("Distortion_Coefficients").mat()
+        fs.release()
+        return np.asarray(K, np.float64), np.asarray(d, np.float64)
+
+    if dataset == "eth_xgaze":
+        return [read_xml(os.path.join(cam_dir, "cam%02d.xml" % i)) for i in range(18)]
+    if dataset == "mpii_face_gaze":
+        import scipy.io
+
+        out = []
+        for i in range(15):
+            mat = scipy.io.loadmat(os.path.join(cam_dir, "Camera%02d.mat" % i))
+            out.append((np.asarray(mat["cameraMatrix"], np.float64),
+                        np.asarray(mat["distCoeffs"], np.float64)))
+        return out
+    return read_xml(os.path.join(cam_dir, "cam00.xml"))
+
+
+def make_cam_lookup(dataset: str, cams, subject: str = ""):
+    """``cam_index -> (K, dist)`` (upstream ``select_cam_matrix``):
+    MPIIFaceGaze takes the subject's camera by its number and pins the
+    principal point to 256; Columbia and GazeCapture have one camera."""
+
+    def lookup(cam_ind: int):
+        if dataset == "eth_xgaze":
+            return cams[cam_ind]
+        if dataset == "mpii_face_gaze":
+            K, d = cams[int(subject[-5:-3])]
+            K = np.array(K, np.float64, copy=True)
+            K[0, 2] = 256.0
+            K[1, 2] = 256.0
+            return K, d
+        return cams
+
+    return lookup

@@ -26,7 +26,10 @@ against the unrounded float64 gradient.  So are the dual-branch kernels:
 the forward (K3) per output and stash slot against its plain version and,
 without the stash, to the bit against K1 on each branch; the stash-reading
 backward (K4) per output against its plain version, against K2 on each
-branch and against the unrounded float64 gradient.  The weight-gradient GEMM
+branch and against the unrounded float64 gradient; K1 writing the single-branch
+stash and K2 reading it, with and without ``dens_vpu``, against their
+plain versions, K2 also against its recompute mode on the same inputs and
+against the unrounded float64 gradient.  The weight-gradient GEMM
 the two backwards share (``kernels/field_dw.py``) is held per product
 against its plain version, chunk by chunk.
 """
@@ -543,6 +546,83 @@ def k4_failures(case: str, got, want) -> Tuple[Dict[str, Tuple[float, float]], L
 def k4_vs_k2_failures(case: str, got, want) -> Tuple[Dict[str, Tuple[float, float]], List[str]]:
     """K4's outputs against K2's on each branch, summed, in ``case``."""
     return limit_failures(got, want, K4_VS_K2_LIMITS[case])
+
+
+# ---------------------------------------------------------------------------
+# the single-branch stash: K1 writing it, K2 reading it (with and without
+# dens_vpu)
+
+# K1's stash against its plain version's at the training shape (K2_CASES),
+# per slot: (max |kernel - plain| over max |plain|, relative L2), seed 0,
+# on an NVIDIA H100 80GB HBM3 (700 W).  K1 with the stash is K3's tile body
+# on one branch and reads as K3 does: now and then an activation rounds to
+# the other bf16 neighbour and carries on through the later layers.
+_K1_STASH_READINGS = {
+    "x0": (2.7e-3, 1.6e-5), "x1": (3.2e-3, 5.0e-5), "x2": (4.0e-3, 1.1e-4),
+    "x3": (4.9e-3, 1.8e-4), "x4": (6.7e-3, 2.6e-4), "x5": (3.1e-3, 2.3e-4),
+    "x6": (3.9e-3, 3.7e-4), "x7": (5.0e-3, 4.7e-4), "y0b": (6.4e-3, 5.6e-4),
+    "y1": (5.2e-3, 6.5e-4),
+}
+K1_STASH_LIMITS = {name: _limits(r, True) for name, r in _K1_STASH_READINGS.items()}
+# K1 with the stash against K1 without it: the same tile body, the stores
+# apart, so the same outputs to the bit.
+K1_STASH_VS_K1_MAX_ABS_ERR = 0.0
+
+# K2 reading the stash against its plain version reading the same stash,
+# per output and case (narrow, training): (max |kernel - plain| over max
+# |plain|, relative L2), the larger of the readings with and without
+# dens_vpu, seed 0, on an NVIDIA H100 80GB HBM3 (700 W).  The two read the
+# same stash, so they differ only by f32 summation order and the folded
+# feature head, as K4 and its plain version do.
+K2_STASH_CASES = ("narrow", "training")
+_K2_STASH_READINGS = {
+    "dembed": ((6.0e-6, 4.2e-6), (5.0e-6, 4.7e-6)),
+    "dzvals": ((0.0, 0.0), (2.6e-6, 6.3e-7)),
+    "dzdists": ((4.7e-8, 7.5e-8), (2.5e-7, 2.1e-7)),
+    "dcb0": ((6.2e-6, 5.7e-6), (3.8e-6, 5.2e-6)),
+    "dcb5": ((4.3e-6, 4.2e-6), (1.6e-6, 1.6e-6)),
+    "dcbr1": ((1.6e-7, 2.0e-7), (2.9e-7, 3.4e-7)),
+    "dW0e": ((3.2e-5, 7.2e-6), (2.4e-4, 1.8e-4)),
+    "dWmid": ((1.6e-4, 4.9e-5), (4.6e-5, 5.3e-5)),
+    "dbmid": ((3.9e-6, 3.4e-6), (1.1e-6, 1.8e-6)),
+    "dW5e": ((9.9e-5, 2.6e-5), (1.6e-4, 1.2e-4)),
+    "dW5x": ((5.0e-5, 2.4e-5), (7.3e-5, 7.5e-5)),
+    "dWd": ((5.0e-7, 3.6e-7), (2.6e-5, 3.1e-5)),
+    "dbd": ((3.4e-7, 3.4e-7), (9.3e-7, 9.3e-7)),
+    "dWr0": ((2.2e-6, 5.5e-7), (2.1e-5, 2.7e-5)),
+    "dbr0": ((1.1e-6, 1.2e-6), (8.3e-7, 7.2e-7)),
+    "dWr1x": ((1.7e-7, 6.7e-8), (1.8e-5, 1.9e-5)),
+    "dWr2": ((1.8e-3, 1.6e-3), (3.7e-4, 3.4e-4)),
+    "dbr2": ((1.3e-7, 1.2e-7), (4.4e-7, 4.6e-7)),
+}
+K2_STASH_LIMITS = {
+    case: {name: _limits(r[i]) for name, r in _K2_STASH_READINGS.items()}
+    for i, case in enumerate(K2_STASH_CASES)
+}
+# K2 reading K1's stash against K2 recomputing on the same inputs: K1's
+# stash equals K2's recompute to the bit (one forward tile code, the same
+# products) and the two modes share the tile body and the GEMM, so every
+# output is equal to the bit; with dens_vpu every output but dWd.
+K2_STASH_VS_RECOMPUTE_MAX_ABS_ERR = 0.0
+# K2 reading the stash against the unrounded float64 gradient: K2's rule,
+# with no output exempt.  Kernel and plain version read the same stash, so
+# no ReLU mask flips between them (the ratio read at most 1.0001 in both
+# cases and modes, seed 0, on an NVIDIA H100 80GB HBM3, 700 W); with
+# dens_vpu the density cotangent is not rounded before dWd either.
+K2_STASH_TRUTH_RATIO = K2_TRUTH_RATIO
+K2_STASH_TRUTH_EXEMPT: Tuple[str, ...] = ()
+
+
+def k1_stash_failures(got, want) -> Tuple[Dict[str, Tuple[float, float]], List[str]]:
+    """K1's ten stash tensors against its plain version's at the training
+    shape, per slot."""
+    return limit_failures(Stash(*got), Stash(*want), K1_STASH_LIMITS)
+
+
+def k2_stash_failures(case: str, got, want) -> Tuple[Dict[str, Tuple[float, float]], List[str]]:
+    """K2 reading the stash against its plain version reading the same
+    stash, in ``case``."""
+    return limit_failures(got, want, K2_STASH_LIMITS[case])
 
 
 # ---------------------------------------------------------------------------

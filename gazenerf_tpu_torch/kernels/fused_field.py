@@ -1,11 +1,13 @@
 """Fused field forward: field MLP + volume integration in one kernel.
 
 Counterpart of the JAX package's ``kernels/fused_field.py`` (its Pallas
-``_field_kernel``, launched by ``_pallas_forward``) in the no-stash forward
-configuration that the render and the recompute-mode training step run.
-The kernel is hand-written CUDA for Hopper (``csrc/fused_field_fwd.cu``;
-its header states its bound and design); :func:`fused_field_reference` is
-its plain PyTorch version with the same rounding points.
+``_field_kernel``, launched by ``_pallas_forward``), with and without the
+bf16 activation stash (``stash_acts``, ``stash_every=1``) that the backward
+can read in place of its recompute; its ``dens_vpu`` density head is the
+port's only one (an f32 dot product of bf16 values).  The kernel is
+hand-written CUDA for Hopper (``csrc/fused_field_fwd.cu``; its header
+states its bound and design); :func:`fused_field_reference` is its plain
+PyTorch version with the same rounding points.
 
 Call chain: :func:`split_params` and :func:`prepare_operands` (once per
 weight set) -> :func:`fused_field_render` (the per-call conditioning
@@ -166,7 +168,8 @@ def fused_field_reference(embed, zvals, zdists, cb0, cb5, cbr1, w: FieldOperands
     return out, tuple(a.to(torch.bfloat16).reshape(B, R, S, -1) for a in (*acts, y0, y1))
 
 
-_ARGTYPES = [ctypes.c_void_p] * 23 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 24 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+N_SLOTS = 10  # the stash: x0..x7, y0b, y1
 
 
 def _library() -> ctypes.CDLL:
@@ -221,7 +224,19 @@ def stream_slices(H: int, Kp: int) -> int:
     return passes * (2 * Kp + 8 * H) // SLICE_K + H // SLICE_K
 
 
-def _launch(embed, zvals, zdists, cb0, cb5, cbr1, w: FieldOperands):
+def stash_shapes(B: int, R: int, S: int, H: int):
+    """The stash's ten ``[B, R, S, width]`` bf16 slots: x0..x7 and y0b at
+    width ``H``, y1 at ``H/2`` (the JAX ``stash_layout`` with
+    ``stash_every=1``)."""
+    return [(B, R, S, H)] * (N_SLOTS - 1) + [(B, R, S, H // 2)]
+
+
+def pointer_array(tensors):
+    """A C array of the tensors' device pointers (a kernel's ``void* const*``)."""
+    return (ctypes.c_void_p * len(tensors))(*(t.data_ptr() for t in tensors))
+
+
+def _launch(embed, zvals, zdists, cb0, cb5, cbr1, w: FieldOperands, stash: bool = False):
     global launch_count
     B, R, S, De = embed.shape
     H, Kp = w.w0e.shape
@@ -256,6 +271,8 @@ def _launch(embed, zvals, zdists, cb0, cb5, cbr1, w: FieldOperands):
     bga = torch.empty((B, R), dtype=f32, device=dev)
     depth = torch.empty((B, R), dtype=f32, device=dev)
     wts = torch.empty((B, R, S), dtype=f32, device=dev)
+    acts = tuple(torch.empty(s, dtype=bf, device=dev) for s in stash_shapes(B, R, S, H)) \
+        if stash else ()
     ins = [t for t, _, _ in expected.values()]
     # scratch for the weight stream, packed by the call (alive only while
     # the kernel runs: the stream repeats the weights)
@@ -263,27 +280,31 @@ def _launch(embed, zvals, zdists, cb0, cb5, cbr1, w: FieldOperands):
     err = lib.fused_field_fwd(
         *(t.data_ptr() for t in ins), stream.data_ptr(),
         *(t.data_ptr() for t in (feat, bga, depth, wts)),
+        pointer_array(acts) if stash else None,
         B, R, S, De, Kp, H, C,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     if err:
         raise RuntimeError(f"{KERNEL} launch failed with CUDA error {err}")
     launch_count += 1
-    return feat, bga, depth, wts
+    out = (feat, bga, depth, wts)
+    return (out, acts) if stash else out
 
 
 def fused_field_forward(
-    embed, zvals, zdists, cb0, cb5, cbr1, w: FieldOperands
+    embed, zvals, zdists, cb0, cb5, cbr1, w: FieldOperands, stash: bool = False
 ) -> Tuple[torch.Tensor, ...]:
     """The kernel's wrapper.  CUDA tensors launch the kernel (on the current
     stream, no synchronisation); CPU tensors take
-    :func:`fused_field_reference`.  No autograd: :func:`fused_field_render`
-    wraps it in :class:`FusedField`, whose backward is the backward kernel."""
+    :func:`fused_field_reference`.  With ``stash`` it returns ``(outputs,
+    acts)``, the ten stash tensors as the plain version gives them.  No
+    autograd: :func:`fused_field_render` wraps it in :class:`FusedField`,
+    whose backward is the backward kernel."""
     if embed.device.type == "cpu":
-        return fused_field_reference(embed, zvals, zdists, cb0, cb5, cbr1, w)
+        return fused_field_reference(embed, zvals, zdists, cb0, cb5, cbr1, w, stash=stash)
     if embed.device.type != "cuda":
         raise ValueError(f"no fused field kernel for device {embed.device}")
-    return _launch(embed, zvals, zdists, cb0, cb5, cbr1, w)
+    return _launch(embed, zvals, zdists, cb0, cb5, cbr1, w, stash=stash)
 
 
 # the split_params blocks that carry gradients, in FusedField's input order
@@ -294,22 +315,30 @@ WEIGHT_KEYS = (
 
 class FusedField(torch.autograd.Function):
     """Field + integration with the backward kernel as its gradient (the
-    JAX package's ``custom_vjp`` around the two Pallas kernels, recompute
-    mode).
+    JAX package's ``custom_vjp`` around the two Pallas kernels).
 
-    Inputs: the bf16 kernel operands (values), then the embedding, z values,
-    segment lengths, conditioning rows and the :data:`WEIGHT_KEYS` blocks
-    (f32 views of the parameters, which receive the weight gradients).  The
-    forward launches the forward kernel and saves its inputs, no
-    activations; the backward recomputes them.  The embedding's cotangent
-    comes back in the embedding's dtype."""
+    Inputs: the bf16 kernel operands (values), whether to stash, whether
+    the backward takes the ``dens_vpu`` density head, then the embedding, z
+    values, segment lengths, conditioning rows and the :data:`WEIGHT_KEYS`
+    blocks (f32 views of the parameters, which receive the weight
+    gradients).  The forward launches the forward kernel and saves its
+    inputs; with the stash it keeps the ten stash tensors on the context,
+    which holds them until autograd frees the graph (a backward with
+    ``retain_graph`` can run again on them), and the backward reads them;
+    without the stash the backward recomputes them.  The embedding's
+    cotangent comes back in the embedding's dtype."""
 
     @staticmethod
-    def forward(ctx, ops: FieldOperands, embed, zvals, zdists, cb0, cb5, cbr1, *weights):
+    def forward(ctx, ops: FieldOperands, stash: bool, dens_vpu: bool, embed, zvals, zdists,
+                cb0, cb5, cbr1, *weights):
         e = embed.to(torch.bfloat16).contiguous()
-        out = fused_field_forward(e, zvals, zdists, cb0, cb5, cbr1, ops)
+        out = fused_field_forward(e, zvals, zdists, cb0, cb5, cbr1, ops, stash=stash)
+        ctx.acts = None
+        if stash:
+            out, ctx.acts = out
         ctx.save_for_backward(e, zvals, zdists, cb0, cb5, cbr1, *ops)
         ctx.embed_dtype = embed.dtype
+        ctx.dens_vpu = dens_vpu
         return out
 
     @staticmethod
@@ -325,29 +354,40 @@ class FusedField(torch.autograd.Function):
             return g.to(torch.float32).contiguous()
 
         C = ops[-1].shape[0]
+        # the modes in use only: a recompute-mode call takes the plain signature
+        mode = {k: v for k, v in (("stash", ctx.acts), ("dens_vpu", ctx.dens_vpu)) if v}
         g = fused_field_bwd.fused_field_backward(
             e, zvals, zdists, cb0, cb5, cbr1, FieldOperands(*ops),
             cot(gfeat, (B, R, C)), cot(gbga, (B, R)), cot(gdepth, (B, R)), cot(gw, (B, R, S)),
+            **mode,
         )
         return (
-            None, g.dembed.to(ctx.embed_dtype), g.dzvals, g.dzdists, g.dcb0, g.dcb5, g.dcbr1,
+            None, None, None, g.dembed.to(ctx.embed_dtype), g.dzvals, g.dzdists, g.dcb0, g.dcb5, g.dcbr1,
             g.dW0e, g.dWmid, g.dbmid, g.dW5e, g.dW5x, g.dWd, g.dbd,
             g.dWr0, g.dbr0, g.dWr1x, g.dWr2, g.dbr2,
         )
 
 
-def fused_field_render(p, ops: FieldOperands, embed, sc, ac, zvals, zdists):
+def fused_field_render(p, ops: FieldOperands, embed, sc, ac, zvals, zdists,
+                       stash_acts: bool = False, dens_vpu: bool = False):
     """Field evaluation + integration for one branch.
 
     ``p``: the field's :func:`split_params` blocks and ``ops`` its
     :func:`prepare_operands` (the bf16 values the kernels read, built once
     per weight set).  The call goes through :class:`FusedField`: under
     autograd the gradients reach ``p``'s blocks, the codes and the
-    embedding.  Returns ``(feat_int [B,R,C], bg_alpha [B,R], depth [B,R],
-    weights [B,R,S])``.
+    embedding.  With ``stash_acts`` the forward writes the activation stash
+    for the backward to read, only where a backward will run (under a
+    gradient, some input requiring one), as the JAX primal call skips it;
+    ``dens_vpu`` selects the backward's ``dens_vpu`` rounding of dWd.
+    Returns ``(feat_int [B,R,C], bg_alpha [B,R], depth [B,R], weights
+    [B,R,S])``.
     """
     cb0, cb5, cbr1 = conditioning_rows(p, sc, ac)
+    weights = [p[k] for k in WEIGHT_KEYS]
+    stash = stash_acts and torch.is_grad_enabled() and any(
+        t.requires_grad for t in (embed, sc, ac, zvals, zdists, *weights))
     return FusedField.apply(
-        ops, embed, zvals.to(torch.float32).contiguous(), zdists.to(torch.float32).contiguous(),
-        cb0, cb5, cbr1, *(p[k] for k in WEIGHT_KEYS),
+        ops, stash, dens_vpu, embed, zvals.to(torch.float32).contiguous(),
+        zdists.to(torch.float32).contiguous(), cb0, cb5, cbr1, *weights,
     )

@@ -1,9 +1,11 @@
 """Fused field backward: the gradient of the fused field forward.
 
 Counterpart of the JAX package's ``kernels/fused_field_bwd.py`` (its Pallas
-``_bwd_kernel``, launched by ``pallas_backward``) in recompute mode: no
-activation stash, the weight gradients computed by the kernel's own GEMM
-over chunks of points (``kernels/field_dw.py``).  The kernel is hand-written
+``_bwd_kernel``, launched by ``pallas_backward``) in recompute mode or
+reading the forward's bf16 activation stash (``stash_acts``,
+``stash_every=1``), with or without ``dens_vpu``, the weight gradients
+computed by the kernel's own GEMM over chunks of points
+(``kernels/field_dw.py``).  The kernel is hand-written
 CUDA for Hopper (``csrc/fused_field_bwd.cu``; its header states its bound,
 design, scratch and determinism); :func:`fused_field_backward_reference` is
 its plain PyTorch version with the Pallas kernel's rounding points.
@@ -23,6 +25,7 @@ import torch
 
 from gazenerf_tpu_torch.kernels import build
 from gazenerf_tpu_torch.kernels import field_dw
+from gazenerf_tpu_torch.kernels import fused_field as ff
 from gazenerf_tpu_torch.kernels.fused_field import FieldOperands, check_tensor
 from gazenerf_tpu_torch.ops.integrate import exclusive_transmittance, integrate_rays
 
@@ -86,7 +89,7 @@ def prepare_backward_operands(w: FieldOperands) -> BackwardOperands:
 
 def fused_field_backward_reference(
     embed, zvals, zdists, cb0, cb5, cbr1, w: FieldOperands, gfeat, gbga, gdepth, gw,
-    dtype=torch.float32, stash=None, chunks=None,
+    dtype=torch.float32, stash=None, chunks=None, dens_vpu=False,
 ) -> FieldGrads:
     """Plain PyTorch version of the kernel, with the Pallas kernel's
     formulas and rounding points: the forward recomputed with K1's bf16
@@ -100,14 +103,18 @@ def fused_field_backward_reference(
     place, as the Pallas kernel's stash-read mode does.  ``chunks``, a
     :func:`~gazenerf_tpu_torch.kernels.field_dw.plan_chunks` plan, sums every
     weight gradient chunk by chunk in the kernel's order, else over all
-    points at once."""
+    points at once.  ``dens_vpu``: the density head's weight gradient takes
+    the density cotangent unrounded (the Pallas kernel's ``dens_vpu``
+    mode), not its bf16 rounding."""
     grads, dembed5, dembed0 = fused_field_backward_parts(
-        embed, zvals, zdists, cb0, cb5, cbr1, w, gfeat, gbga, gdepth, gw, dtype, stash, chunks)
+        embed, zvals, zdists, cb0, cb5, cbr1, w, gfeat, gbga, gdepth, gw, dtype, stash, chunks,
+        dens_vpu)
     return grads._replace(dembed=dembed5 + dembed0)
 
 
 def fused_field_backward_parts(embed, zvals, zdists, cb0, cb5, cbr1, w: FieldOperands, gfeat,
-                               gbga, gdepth, gw, dtype=torch.float32, stash=None, chunks=None):
+                               gbga, gdepth, gw, dtype=torch.float32, stash=None, chunks=None,
+                               dens_vpu=False):
     """:func:`fused_field_backward_reference` with the embedding cotangent
     in its two parts, through ``fea_5``'s and through ``fea_0``'s embedding
     rows (``dembed`` is None): the dual-branch backward sums them across
@@ -124,8 +131,8 @@ def fused_field_backward_parts(embed, zvals, zdists, cb0, cb5, cbr1, w: FieldOpe
     def dgrad(g, w_out_in):  # g @ W^T
         return g @ w_out_in.to(f32)
 
-    def outer(x, g):  # x^T @ bf16(g) over every point of every batch
-        x, g = x.reshape(-1, x.shape[-1]), rnd(g).reshape(-1, g.shape[-1])
+    def outer(x, g, round_g=True):  # x^T @ bf16(g) over every point of every batch
+        x, g = x.reshape(-1, x.shape[-1]), (rnd(g) if round_g else g).reshape(-1, g.shape[-1])
         if chunks is None:
             return x.t() @ g
         return field_dw.chunked_weight_grad_reference(x, g, chunks)
@@ -174,7 +181,7 @@ def fused_field_backward_parts(embed, zvals, zdists, cb0, cb5, cbr1, w: FieldOpe
     dWr2 = outer(y1, dfeat)
     dWr1x = outer(y0b, dy1)
     dWr0 = outer(x7, dy0)
-    dWd = outer(x7, dpre_dens[..., None])
+    dWd = outer(x7, dpre_dens[..., None], round_g=not dens_vpu)
 
     # ---- trunk backward ----
     dWmid, dbmid = [None] * 6, [None] * 6
@@ -256,7 +263,7 @@ def fused_field_backward_unrounded(
     )
 
 
-_ARGTYPES = [ctypes.c_void_p] * 33 + [ctypes.c_int] * 13 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 34 + [ctypes.c_int] * 14 + [ctypes.c_void_p]
 # the gradient blocks in the order of the offsets the library gives
 _GRAD_BLOCKS = ("dW0e", "dWmid", "dbmid", "dW5e", "dW5x", "dWd", "dbd", "dWr0", "dbr0", "dWr1x",
                 "dWr2", "dbr2", "dcb0", "dcb5", "dcbr1")
@@ -266,7 +273,7 @@ def _library() -> ctypes.CDLL:
     lib = build.load(KERNEL, DEFINES)
     lib.fused_field_bwd.argtypes = _ARGTYPES
     lib.fused_field_bwd.restype = ctypes.c_int
-    lib.fused_field_bwd_layout.argtypes = [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    lib.fused_field_bwd_layout.argtypes = [ctypes.c_int] * 8 + [ctypes.c_void_p]
     lib.fused_field_bwd_layout.restype = None
     return lib
 
@@ -282,11 +289,13 @@ def grad_shapes(B: int, Kp: int, H: int, C: int) -> Dict[str, tuple]:
     return {name: shapes[name] for name in _GRAD_BLOCKS}
 
 
-def layout(layout_fn, B: int, S: int, Kp: int, H: int, C: int, G: int, chunk_tiles: int):
+def layout(layout_fn, B: int, S: int, Kp: int, H: int, C: int, G: int, chunk_tiles: int,
+           *mode: int):
     """A backward library's buffer layout: the gradient blocks' offsets (in
-    floats), the gradient buffer's length and the scratch's bytes."""
+    floats), the gradient buffer's length and the scratch's bytes.  ``mode``:
+    the library's further arguments (K2's: whether it reads a stash)."""
     out = (ctypes.c_longlong * (len(_GRAD_BLOCKS) + 2))()
-    layout_fn(B, S, Kp, H, C, G, chunk_tiles, out)
+    layout_fn(B, S, Kp, H, C, G, chunk_tiles, *mode, out)
     n = len(_GRAD_BLOCKS)
     return list(out[:n]), out[n], out[n + 1]
 
@@ -297,8 +306,8 @@ def persistent_ctas(dev, n_tiles: int) -> int:
     return min(torch.cuda.get_device_properties(dev).multi_processor_count, n_tiles)
 
 
-def _launch(embed, zvals, zdists, cb0, cb5, cbr1, w: FieldOperands, gfeat, gbga, gdepth, gw
-            ) -> FieldGrads:
+def _launch(embed, zvals, zdists, cb0, cb5, cbr1, w: FieldOperands, gfeat, gbga, gdepth, gw,
+            stash=None, dens_vpu=False) -> FieldGrads:
     global launch_count
     B, R, S, De = embed.shape
     H, Kp = w.w0e.shape
@@ -347,23 +356,29 @@ def _launch(embed, zvals, zdists, cb0, cb5, cbr1, w: FieldOperands, gfeat, gbga,
     }
     for name, (t, dtype, shape) in expected.items():
         check_tensor(name, t, dev, dtype, shape)
+    if stash is not None:
+        if len(stash) != ff.N_SLOTS:
+            raise ValueError(f"stash: {len(stash)} tensors, expected {ff.N_SLOTS}")
+        for i, (t, shape) in enumerate(zip(stash, ff.stash_shapes(B, R, S, H))):
+            check_tensor(f"stash[{i}]", t, dev, bf, shape)
     lib = _library()
     chunks = field_dw.plan_chunks(B, R, S)
     G = persistent_ctas(dev, B * R * S // TILE_POINTS)
     chunk_tiles = chunks[0].tiles
     offsets, total, scratch_bytes = layout(lib.fused_field_bwd_layout, B, S, Kp, H, C, G,
-                                           chunk_tiles)
+                                           chunk_tiles, stash is not None)
     scratch = torch.empty((scratch_bytes,), dtype=torch.uint8, device=dev)
     grads = torch.empty((total,), dtype=f32, device=dev)
     dembed = torch.empty((B, R, S, De), dtype=f32, device=dev)
     dzvals = torch.empty((B, R, S), dtype=f32, device=dev)
     dzdists = torch.empty((B, R, S), dtype=f32, device=dev)
     ptrs = [t.data_ptr() for t, _, _ in expected.values()]
+    ptrs += [None if stash is None else ff.pointer_array(stash)]
     ptrs += [t.data_ptr() for t in (dembed, dzvals, dzdists, scratch, grads)]
     stream = torch.cuda.current_stream(dev).cuda_stream
     for i, ch in enumerate(chunks):
         err = lib.fused_field_bwd(*ptrs, B, R, S, De, Kp, H, C, G, chunk_tiles, ch.tile0,
-                                  ch.tiles, i == 0, i == len(chunks) - 1, stream)
+                                  ch.tiles, i == 0, i == len(chunks) - 1, dens_vpu, stream)
         if err:
             raise RuntimeError(f"{KERNEL} launch failed with CUDA error {err}")
     launch_count += 1
@@ -377,15 +392,18 @@ def _launch(embed, zvals, zdists, cb0, cb5, cbr1, w: FieldOperands, gfeat, gbga,
 
 
 def fused_field_backward(
-    embed, zvals, zdists, cb0, cb5, cbr1, w: FieldOperands, gfeat, gbga, gdepth, gw
+    embed, zvals, zdists, cb0, cb5, cbr1, w: FieldOperands, gfeat, gbga, gdepth, gw,
+    stash=None, dens_vpu=False,
 ) -> FieldGrads:
     """The kernel's wrapper.  CUDA tensors launch the kernel (on the current
     stream, no synchronisation); CPU tensors take
     :func:`fused_field_backward_reference`.  ``embed`` is the bf16 embedding
-    the forward read; the cotangents are f32."""
+    the forward read; the cotangents are f32.  ``stash``, the forward's ten
+    bf16 stash tensors (``fused_field_forward(..., stash=True)``), is read in
+    place of the recompute; ``dens_vpu`` as the plain version's."""
     args = (embed, zvals, zdists, cb0, cb5, cbr1, w, gfeat, gbga, gdepth, gw)
     if embed.device.type == "cpu":
-        return fused_field_backward_reference(*args)
+        return fused_field_backward_reference(*args, stash=stash, dens_vpu=dens_vpu)
     if embed.device.type != "cuda":
         raise ValueError(f"no fused field backward kernel for device {embed.device}")
-    return _launch(*args)
+    return _launch(*args, stash=stash, dens_vpu=dens_vpu)

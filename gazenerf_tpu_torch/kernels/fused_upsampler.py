@@ -71,7 +71,7 @@ launch_count_bwd = 0
 
 _ROADMAP_F32 = (
     "the fused upsampler kernels take the bf16 renderer (use_bf16=True) only; "
-    "the f32 renderer's fused mode on the card is ROADMAP.md Queue 2, remaining mode 5"
+    "the f32 renderer's fused mode on the card is ROADMAP.md Queue 2b, mode 5"
 )
 
 

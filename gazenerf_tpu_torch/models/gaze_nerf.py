@@ -8,16 +8,23 @@ shared by both branches.
 
 With ``compute_dtype="bfloat16"`` and ``use_pallas`` the fields run through
 the fused field kernels (``kernels/fused_field``: the forward kernel, and
-under autograd the backward kernel as its gradient, recompute mode), or
-with ``pallas_dual_branch`` both fields in one dual-branch kernel
-(``kernels/fused_field2``; with ``pallas_stash_acts`` its backward reads the
-forward's bf16 activation stash); otherwise through :class:`NeRFFieldMLP`
-in the compute dtype, then :func:`integrate_rays`.
+under autograd the backward kernel as its gradient; with
+``pallas_stash_acts`` the backward reads the forward's bf16 activation
+stash, else it recomputes; ``pallas_dens_vpu`` selects its ``dens_vpu``
+density head), or with ``pallas_dual_branch`` both fields in one
+dual-branch kernel (``kernels/fused_field2``; with ``pallas_stash_acts``
+its backward reads the stash; ``pallas_dens_vpu`` is cleared there, as the
+JAX package does); otherwise through :class:`NeRFFieldMLP` in the compute
+dtype, then :func:`integrate_rays`.
 
 The port runs the render and the training forward (``train=True``: jittered
-samples) in the default configuration and with the dual-branch kernels;
-the options below raise ``NotImplementedError``, naming the ROADMAP item
-that ports them.
+samples) in the default configuration, with the stash and ``dens_vpu``
+(what the training CLI's ``--pallas_tuning auto`` selects) and with the
+dual-branch kernels; the options below raise ``NotImplementedError``,
+naming the ROADMAP item that ports them.  ``pallas_interpret``,
+``pallas_tile_rays``, ``pallas_bwd_tile_rays`` and ``pallas_vmem_mb`` are
+the TPU kernels' interpreter switch and tiling and memory knobs: accepted,
+and of no effect in the port.
 """
 
 from __future__ import annotations
@@ -40,17 +47,16 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float64": torc
 
 # settings not ported yet: (field, value the port runs, the ROADMAP item)
 _PORTED = (
-    ("hier_sampling", False, "Queue 1 item 8"),
-    ("include_vd", False, "Queue 1 item 8"),
-    ("ray_chunk", 0, "Queue 1 item 8"),
-    ("pallas_fuse_embed", False, "Queue 2, remaining mode 4"),
-    ("pallas_dens_vpu", False, "Queue 2, remaining mode 3"),
-    ("pallas_stash_every", 1, "Queue 2, remaining mode 1"),
-    ("pallas_stash_dtype", "bfloat16", "Queue 2, remaining mode 1"),
-    ("pallas_split_dw", False, "Queue 2, remaining mode 2"),
-    ("pallas_embed_bf16", False, "Queue 2, remaining mode 4"),
-    ("batch_renderer_passes", False, "Queue 1 item 8"),
-    ("batch_fg_passes", False, "Queue 1 item 8"),
+    ("hier_sampling", False, "Queue 1 item 5"),
+    ("include_vd", False, "Queue 1 item 5"),
+    ("ray_chunk", 0, "Queue 1 item 5"),
+    ("pallas_fuse_embed", False, "Queue 2b, mode 4"),
+    ("pallas_stash_every", 1, "Queue 2b, mode 1"),
+    ("pallas_stash_dtype", "bfloat16", "Queue 2b, mode 1"),
+    ("pallas_split_dw", False, "Queue 2b, mode 2"),
+    ("pallas_embed_bf16", False, "Queue 2b, mode 4"),
+    ("batch_renderer_passes", False, "Queue 1 item 5"),
+    ("batch_fg_passes", False, "Queue 1 item 5"),
     ("renderer_fold_feat", True, "Queue 1 item 4"),
     ("renderer_rgb_cf", True, "Queue 1 item 4"),
 )
@@ -82,14 +88,7 @@ class GazeNeRF(nn.Module):
                     f"{name}={getattr(cfg, name)!r} is not ported yet "
                     f"(the port runs {name}={value!r}; ROADMAP {item})"
                 )
-        # the activation stash is ported for the dual-branch kernels only
-        if cfg.pallas_stash_acts and not cfg.pallas_dual_branch:
-            raise NotImplementedError(
-                "pallas_stash_acts=True without pallas_dual_branch is not ported yet (the "
-                "single-branch stash: ROADMAP Queue 2, remaining mode 1)"
-            )
-        # JAX's "phase" and "naive" renderer modes are not ported;
-        # ``pallas_interpret`` has no meaning in the port and is ignored
+        # JAX's "phase" and "naive" renderer modes are not ported
         if cfg.shuffle_mode not in SHUFFLE_MODES:
             raise NotImplementedError(
                 f"shuffle_mode={cfg.shuffle_mode!r} is not ported yet "
@@ -187,7 +186,8 @@ class GazeNeRF(nn.Module):
         """Field evaluation + volume integration for one stream."""
         if self.fused:
             feat_int, bg_alpha, depth, w = field.fused_render(
-                embed, shape_ext_code, appea_code, samples.zvals, samples.z_dists
+                embed, shape_ext_code, appea_code, samples.zvals, samples.z_dists,
+                stash_acts=self.cfg.pallas_stash_acts, dens_vpu=self.cfg.pallas_dens_vpu,
             )
             return Integrated(features=feat_int, bg_alpha=bg_alpha, depth=depth, weights=w)
         feat, density = field(embed, shape_ext_code, appea_code)

@@ -112,13 +112,18 @@ class NeRFFieldMLP(nn.Module):
             p = split_params(self.flat(), self.embed_dims)
         return p, ops
 
-    def fused_render(self, embed_vp, shape_cond, appea_cond, zvals, zdists):
-        """Field + integration through the fused field kernels (bf16).
+    def fused_render(self, embed_vp, shape_cond, appea_cond, zvals, zdists,
+                     stash_acts: bool = False, dens_vpu: bool = False):
+        """Field + integration through the fused field kernels (bf16); with
+        ``stash_acts`` the backward reads the forward's activation stash,
+        with ``dens_vpu`` it takes the ``dens_vpu`` density head
+        (``fused_field_render``).
 
         Returns ``(feat_int [B,R,C], bg_alpha [B,R], depth [B,R], w [B,R,S])``.
         """
         p, ops = self.kernel_blocks()
-        return fused_field_render(p, ops, embed_vp, shape_cond, appea_cond, zvals, zdists)
+        return fused_field_render(p, ops, embed_vp, shape_cond, appea_cond, zvals, zdists,
+                                  stash_acts=stash_acts, dens_vpu=dens_vpu)
 
     def forward(
         self,

@@ -11,22 +11,27 @@ Port of the JAX package's ``train/trainer.py``.  One step:
   kernel), and the per-group Adam step with the per-epoch decay.
 
 Losses stay on the device; :meth:`Trainer.train_epoch` reads them once per
-epoch.  Not ported yet: the PatchGAN discriminator update and the angular
-loss (``NotImplementedError``), ``steps_per_dispatch > 1`` (the JAX
-package's ``lax.scan`` of several steps per dispatch), checkpoints and
-logging.
+epoch (and per ``log_every`` batches when it logs to wandb);
+:meth:`Trainer.eval_epoch` takes per-region metrics with one read;
+:meth:`Trainer.fit` trains epochs with checkpoints (``train/checkpoint.py``).
+Not ported yet: the PatchGAN discriminator update and the angular loss
+(``NotImplementedError``), ``steps_per_dispatch > 1`` (the JAX package's
+``lax.scan`` of several steps per dispatch) and wandb's image strips.
 """
 
 from __future__ import annotations
 
+import csv
 import logging
+import os
 import time
-from typing import Callable, Dict, Iterable, Optional
+from typing import Callable, Dict, Iterable, List, Optional
 
 import numpy as np
 import torch
 
 from gazenerf_tpu_torch.config import Config
+from gazenerf_tpu_torch.data.h5_dataset import device_prefetch
 from gazenerf_tpu_torch.losses.gazenerf_loss import (
     check_ported,
     compute_losses,
@@ -202,6 +207,9 @@ def make_eval_step(cfg: Config, model: GazeNeRF, expr_fix: np.ndarray, offsets):
     @torch.no_grad()
     def evaluate(batch):
         batch = decode_uint8_batch(batch)
+        # a sample id past the offset tables takes the last row, as JAX's
+        # gather clamps it (a validation set may hold more frames)
+        batch["sample_idx"] = batch["sample_idx"].clamp(0, offsets["iden"].shape[0] - 1)
         args, _, _ = _inputs(cfg, batch, offsets, expr, xy_grid)
         pred = model(*args)
         img = pred["coarse_dict"]["merge_img"].to(torch.float32)
@@ -282,16 +290,77 @@ class Trainer:
             self.step += 1
         return losses
 
-    def train_epoch(self, batches: Iterable, epoch: int) -> Dict[str, float]:
-        """One epoch; the per-step losses stay on the device and are summed
-        in one host sync at the end."""
+    def train_epoch(self, batches: Iterable, epoch: int, wandb=None) -> Dict[str, float]:
+        """One epoch over ``batches`` (numpy or pinned batch dicts, copied to
+        the card one batch ahead by ``data.h5_dataset.device_prefetch``).
+        The per-step losses stay on the device and are summed in one host
+        sync at the end; with ``wandb`` each batch's loss is logged, and
+        every ``log_every`` batches the per-loss scalars.  The summary also
+        gives the seconds the loop waited for its batches."""
+        from gazenerf_tpu_torch.utils.logging import log_losses
+
         t0 = time.time()
         parts = []
-        for b in batches:
-            parts.append(self.train_step(b)["total_loss"])
-        total = float(torch.stack(parts).sum()) if parts else 0.0
+        wait = 0.0
+        log_every = max(1, self.cfg.train.log_every)
+        batches = iter(device_prefetch(batches, self.device))
+        while True:
+            tw = time.perf_counter()
+            b = next(batches, None)
+            wait += time.perf_counter() - tw
+            if b is None:
+                break
+            losses = self.train_step(b)
+            parts.append(losses["total_loss"])
+            if wandb is not None:
+                wandb.log({"batch_loss": float(losses["total_loss"])})
+                if (len(parts) - 1) % log_every == 0:
+                    log_losses(wandb, losses, self.cfg.loss, epoch=epoch)
+        total = float(torch.stack(parts).sum()) if parts else 0.0  # the epoch's one sync
         n = len(parts)
+        if wandb is not None:
+            wandb.log({"Total Loss Epoch": total / max(n, 1)})
         summary = {"epoch": epoch, "loss": total / max(n, 1), "batches": n,
-                   "seconds": time.time() - t0}
+                   "seconds": time.time() - t0, "loader_wait_s": wait}
         self.history.append(summary)
         return summary
+
+    def eval_epoch(self, loader, wandb=None, prefix: str = "VAL ") -> Dict[str, float]:
+        """A validation epoch: per-region reconstruction metrics over
+        ``loader``, no update (upstream's eval epoch).  The metrics stay on
+        the device and are averaged in one host sync."""
+        parts: Dict[str, List[torch.Tensor]] = {}
+        for b in device_prefetch(loader, self.device):
+            out, _ = self.eval_step(b)
+            for k, v in out.items():
+                parts.setdefault(k, []).append(v)
+        if not parts:
+            return {}
+        means = torch.stack([torch.stack(v).mean() for v in parts.values()]).tolist()  # one sync
+        out = dict(zip(parts, means))
+        if wandb is not None:
+            wandb.log({prefix + k: v for k, v in out.items()})
+        return out
+
+    def fit(self, loader, num_epochs: int, checkpoint_dir: Optional[str] = None,
+            checkpoint_every: int = 1):
+        """``num_epochs`` epochs over ``loader``, a checkpoint every
+        ``checkpoint_every`` epochs into ``checkpoint_dir``; returns the
+        epoch summaries."""
+        from gazenerf_tpu_torch.train.checkpoint import save_checkpoint
+
+        for epoch in range(num_epochs):
+            self.train_epoch(loader, epoch)
+            if checkpoint_dir and (epoch + 1) % checkpoint_every == 0:
+                save_checkpoint(checkpoint_dir, self, self.cfg, epoch)
+        return self.history
+
+    def save_summary_csv(self, path: str):
+        """The epoch summaries as CSV (upstream ``trainer/base.py``)."""
+        if not self.history:
+            return
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        with open(path, "w", newline="") as f:
+            w = csv.DictWriter(f, fieldnames=list(self.history[0]))
+            w.writeheader()
+            w.writerows(self.history)

@@ -137,11 +137,16 @@ def test_dual_step_takes_the_dual_kernels(setup, monkeypatch):
 
 
 def test_stash_without_dual_branch_raises():
-    """The single-branch stash (K1's stash write, K2's stash-read mode) is
-    not ported: the ROADMAP item is named."""
+    """The single-branch bf16 stash (K1's stash write, K2's stash-read mode)
+    is ported and runs without the dual branch; its variants that are not
+    (a stash of every k-th layer, the int8 stash) raise, naming the ROADMAP
+    item."""
     cfg = ModelConfig(compute_dtype="bfloat16", use_pallas=True, pallas_stash_acts=True)
-    with pytest.raises(NotImplementedError, match="pallas_stash_acts.*ROADMAP"):
-        GazeNeRF(cfg, device="cpu")
+    model = GazeNeRF(cfg, device="cpu")
+    assert model.fused and not model.dual
+    for option in (dict(pallas_stash_every=2), dict(pallas_stash_dtype="int8")):
+        with pytest.raises(NotImplementedError, match=f"{next(iter(option))}.*ROADMAP"):
+            GazeNeRF(dataclasses.replace(cfg, **option), device="cpu")
     assert GazeNeRF(dataclasses.replace(cfg, pallas_dual_branch=True), device="cpu").dual
 
 
@@ -149,13 +154,14 @@ def test_stash_without_dual_branch_raises():
     dict(pallas_stash_every=2),
     dict(pallas_stash_dtype="int8"),
     dict(pallas_split_dw=True),
-    dict(pallas_dens_vpu=True),
+    dict(ray_chunk=64),
     dict(pallas_fuse_embed=True),
     dict(pallas_embed_bf16=True),
 ])
 def test_probe_flags_raise_with_the_dual_branch(option):
-    """The dual path accepts the stash, not the kernels' other probe flags:
-    each raises, naming itself and its ROADMAP item."""
+    """The dual path accepts the stash (and ``pallas_dens_vpu``, which it
+    clears), not the kernels' other probe flags or the ray chunks: each
+    raises, naming itself and its ROADMAP item."""
     cfg = ModelConfig(compute_dtype="bfloat16", use_pallas=True, pallas_dual_branch=True,
                       pallas_stash_acts=True, **option)
     with pytest.raises(NotImplementedError, match=f"{next(iter(option))}.*ROADMAP"):

@@ -30,9 +30,15 @@ missing = sorted(set(EXPECTED) - set(names))
 print(len(names), bad, missing)
 """
 
-# the modules of the four slices: the render, the training step, the
-# renderer's kernel modes and the dual-branch field path
+# the modules of the slices: the render, the training step, the renderer's
+# kernel modes, the dual-branch field path and the training CLI from files
 EXPECTED = [
+    "gazenerf_tpu_torch.cli.common",
+    "gazenerf_tpu_torch.cli.train",
+    "gazenerf_tpu_torch.data.cameras",
+    "gazenerf_tpu_torch.data.h5_dataset",
+    "gazenerf_tpu_torch.data.synthetic",
+    "gazenerf_tpu_torch.data.target_indices",
     "gazenerf_tpu_torch.kernels.checks",
     "gazenerf_tpu_torch.kernels.fused_field",
     "gazenerf_tpu_torch.kernels.fused_field2",
@@ -42,8 +48,10 @@ EXPECTED = [
     "gazenerf_tpu_torch.kernels.shuffle_blur",
     "gazenerf_tpu_torch.losses.gazenerf_loss",
     "gazenerf_tpu_torch.models.vgg",
+    "gazenerf_tpu_torch.train.checkpoint",
     "gazenerf_tpu_torch.train.state",
     "gazenerf_tpu_torch.train.trainer",
+    "gazenerf_tpu_torch.utils.logging",
     "gazenerf_tpu_torch.viewer.server",
 ]
 

@@ -158,6 +158,38 @@ def test_fused_field_backward_as_close_to_unrounded_as_plain(card, case, seed):
     assert not fails, fails
 
 
+@pytest.mark.parametrize("dens_vpu", [False, True], ids=["rounded", "dens_vpu"])
+def test_stash_modes_match_plain_version(card, dens_vpu):
+    """The narrow case (hidden 64): K1 writing the stash gives K1's outputs
+    to the bit and every stash slot within one bf16 step (2^-8) of the
+    largest value and 1e-3 relative L2 of the plain version's (a flipped
+    rounding moves a value by a step); K2 reading it, with or without ``dens_vpu``, within
+    ``checks.K2_STASH_LIMITS`` of its plain version on the same stash,
+    equal to K2 recomputing to the bit (with ``dens_vpu`` all but dWd), and
+    the same bits over two launches."""
+    args, cot = checks.field_case(*checks.K2_CASES["narrow"], card)
+    with torch.no_grad():
+        out, acts = ff.fused_field_forward(*args, stash=True)
+        assert all(torch.equal(a, b) for a, b in zip(out, ff.fused_field_forward(*args)))
+        _, want_acts = ff.fused_field_reference(*args, stash=True)
+        _, fails = checks.limit_failures(checks.Stash(*acts), checks.Stash(*want_acts),
+                                         {n: (2.0**-8, 1e-3) for n in checks.STASH_SLOTS})
+        assert not fails, fails
+        before = ffb.launch_count
+        got = ffb.fused_field_backward(*args, *cot, stash=acts, dens_vpu=dens_vpu)
+        torch.cuda.synchronize()
+        assert ffb.launch_count == before + 1
+        again = ffb.fused_field_backward(*args, *cot, stash=acts, dens_vpu=dens_vpu)
+        recompute = ffb.fused_field_backward(*args, *cot)
+        want = ffb.fused_field_backward_reference(*args, *cot, stash=acts, dens_vpu=dens_vpu)
+    readings, fails = checks.k2_stash_failures("narrow", got, want)
+    print(json.dumps({"k2_stash": dens_vpu, "readings": readings}))
+    assert not fails, fails
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    differ = [n for n, a, b in zip(got._fields, got, recompute) if not torch.equal(a, b)]
+    assert differ == (["dWd"] if dens_vpu else []), differ
+
+
 def test_cuda_tensors_never_take_the_plain_version(card):
     """A CUDA input the kernel cannot take raises; it is not computed by
     the plain version instead."""
