@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port on one CUDA card and check it.
 
-    python3 chip_smoke.py [--seed 0] [--requests 4] [--steps 5]
+    python3 chip_smoke.py [--seed 0] [--requests 4] [--steps 5] [--fit_steps 10]
 
 Phases (each raises on failure, so any failed phase exits non-zero):
 
@@ -64,11 +64,20 @@ Phases (each raises on failure, so any failed phase exits non-zero):
    finite losses, a checkpoint per epoch, the restored state equal to the
    saved one, K1 and K2 twice a step in the overrides' mode, ``summary.csv``
    with every epoch.  It needs h5py; without it the phase says so on a
-   line of its own and does not run.
+   line of its own and does not run;
+8. eval: in the configuration the evaluation CLIs build (the ``stash``
+   variant's kernels at B=1), a single-image fit of ``--fit_steps`` steps
+   with launch counts, its gradients against the plain versions, K2 at
+   B=1 against its plain version and the unrounded gradient, predict with
+   a gaze override against the forward (to the bit), a 30-step gaze
+   optimization (its start gradient against the plain versions'), the
+   input-target, consistency and gaze-transfer protocols with a seeded
+   estimator and LPIPS, and the demo render loops written and parsed as
+   GIFs (``phase_eval``).
 
 Prints ``k2_profile``, ``dw``, ``k8_profile``, ``k4_profile``,
-``k2_stash_profile``, ``serving``, ``training``, ``cli`` and ``kernels``
-JSON lines, the
+``k2_stash_profile``, ``serving``, ``training``, ``cli``, ``k2_fit_case``,
+``eval`` and ``kernels`` JSON lines, the
 ``nvidia-smi`` line and, last, the device JSON line.  Exits non-zero without
 a result when no CUDA card is present.  Imports nothing of JAX.
 """
@@ -146,6 +155,11 @@ STASH_IMAGE_ATOL = 0.0
 # dens_vpu takes from the unrounded density cotangent.  Held as the dual
 # path's
 STASH_GRAD_REL_L2 = DUAL_GRAD_REL_L2
+# the gaze optimization's gradient at its start point, kernels vs plain
+# versions (relative L2 of the 2-vector): K2's conditioning gradient (dcb0,
+# dcb5) and the eye planes' rotation; reading 6.6e-4 on an NVIDIA H100 80GB
+# HBM3 (700 W), the limit twice that
+EVAL_DGAZE_REL_L2 = 1.4e-3
 
 
 def check(cond, msg):
@@ -1481,12 +1495,409 @@ def phase_cli(seed):
     return line
 
 
+def phase_k2_fit(seed, iters):
+    """K1 and K2 at B=1, the single-image fit's and the gaze optimization's
+    shape (``checks.K2_FIT_CASE``: hidden 384, 64 samples, 4096 rays).  K1
+    writing the stash: its outputs and ten stash tensors against its plain
+    version's (``checks.K1_LIMITS`` and ``K1_STASH_LIMITS``, the training
+    case's).  K2 recomputing, and reading K1's stash with ``dens_vpu``:
+    against its plain version (on the same stash; ``checks.K2_FIT_LIMITS``),
+    the unrounded float64 gradient and itself over two launches, each mode
+    timed beside its bound; reading the stash, the density masks of kernel
+    and plain version equal at every point.  (K1's stash is K2's recompute
+    to the bit, so K2 on it against the plain version on the plain stash
+    reads as the recompute mode does, dWd aside.)  Also counted: the points whose
+    density sign a matmul's summation order would flip against the
+    kernel's.  Returns the ``k2_fit`` part of the ``eval`` line."""
+    import torch
+
+    from gazenerf_tpu_torch.kernels import checks
+    from gazenerf_tpu_torch.kernels import fused_field as ff
+    from gazenerf_tpu_torch.kernels import fused_field_bwd as ffb
+
+    dev = torch.device("cuda")
+    args, cot = checks.field_case(*checks.K2_FIT_CASE, dev, seed=seed, batch=checks.K2_FIT_BATCH)
+    w = args[6]
+    with torch.no_grad():
+        k1_out, acts = ff.fused_field_forward(*args, stash=True)
+        plain_out, plain_acts = ff.fused_field_reference(*args, stash=True)
+        x7 = acts[7].reshape(-1, acts[7].shape[-1]).float()
+        matmul_flips = int(((x7 @ w.wd.float() + w.bd > 0)
+                            != (ffb.density_pre(x7, w.wd, w.bd) > 0)).sum())
+        del x7
+    out = {"seed": seed, "k1_readings": {}, "density_sign_flips_matmul_order": matmul_flips}
+    out["k1_readings"]["outputs"], fails = checks.k1_failures("training", k1_out, plain_out)
+    out["k1_readings"]["stash"], f = checks.k1_stash_failures(acts, plain_acts)
+    fails = [f"K1 fit: {x}" for x in fails + f]
+    del k1_out, plain_out, plain_acts
+    for mode in checks.K2_FIT_MODES:
+        kw = {"stash": acts, "dens_vpu": True} if mode == "stash_dens_vpu" else {}
+        with torch.no_grad():
+            got = ffb.fused_field_backward(*args, *cot, **kw)
+            again = ffb.fused_field_backward(*args, *cot, **kw)
+            torch.cuda.synchronize()
+            want = ffb.fused_field_backward_reference(*args, *cot, **kw)
+            want64 = ffb.fused_field_backward_reference(*args, *cot, dtype=torch.float64, **kw)
+        exact = ffb.fused_field_backward_unrounded(*args, *cot)
+        readings, f = checks.k2_fit_failures(mode, got, want)
+        ratio, exempt = checks.K2_FIT_TRUTH[mode]
+        dist, ft = checks.truth_failures(got, want, want64, exact, ratio, exempt)
+        f += ft
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            f.append("two launches on the same inputs differ")
+        del want64, exact
+        out[mode] = {"readings": readings, "unrounded_distance": dist,
+                     "max_abs_err": float(max((a - b).abs().max() for a, b in zip(got, want)))}
+        if kw:
+            flips = checks.density_mask_flips(got, want)
+            out[mode]["density_mask_flips"] = flips
+            if flips:
+                f.append(f"the density masks of kernel and plain version differ at {flips} points")
+        with torch.no_grad():
+            ms = cuda_ms(lambda: ffb.fused_field_backward(*args, *cot, **kw), iters)
+            plain_ms = cuda_ms(lambda: ffb.fused_field_backward_reference(*args, *cot, **kw),
+                               max(2, iters // 4), warmup=1)
+        bound_ms, bound_by = (k2_stash_bound(args, cot, acts, got) if kw
+                              else k2_bound(args, cot, got))
+        out[mode].update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+        print(f"K2 fit case (B=1) {mode}: {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+              f"{bound_ms:.4f} ms ({bound_by})")
+        fails += [f"K2 fit {mode}: {x}" for x in f]
+        del got, again, want
+    print(json.dumps({"k2_fit_case": out}))
+    check(not fails, "\n".join(fails))
+    return out
+
+
+def eval_batches(seed, n, size, featmap_size):
+    """``n`` single-image batches of :func:`synthetic_batch` (seeds ``seed``
+    on), each with 68 landmarks whose six face-normalization rows are the
+    face model's projection through the batch's camera from a plausible
+    head pose (the face 1 m away), and a camera index."""
+    import numpy as np
+
+    from gazenerf_tpu_torch.data.face_model import FACE_MODEL_3D
+    from gazenerf_tpu_torch.preprocess.normalize import project_points
+
+    out = []
+    for i in range(n):
+        b = synthetic_batch(seed + i, 1, size, featmap_size)
+        rng = np.random.default_rng(seed + 100 + i)
+        lm = rng.uniform(0.2 * size, 0.8 * size, (1, 68, 2))
+        pose = rng.normal(0, 0.15, 3), np.array([rng.normal(0, 20), rng.normal(0, 20), 1000.0])
+        lm[0, [36, 39, 42, 45, 31, 35]] = project_points(
+            FACE_MODEL_3D[[20, 23, 26, 29, 15, 19]], *pose, b["inmat"][0].astype(np.float64))
+        b["landmarks"] = lm.astype(np.float32)
+        b["cam_index"] = np.array([[i % 18]], np.int64)
+        out.append(b)
+    return out
+
+
+def gif_images(path):
+    """The image blocks of a GIF file, counted by walking its blocks; raises
+    where the file is not GIF89a or a block is malformed."""
+    with open(path, "rb") as f:
+        data = f.read()
+    check(data[:6] == b"GIF89a", f"{path}: not GIF89a")
+    pos = 13 + (3 << ((data[10] & 7) + 1) if data[10] & 0x80 else 0)
+
+    def skip_sub_blocks(p):
+        while data[p]:
+            p += data[p] + 1
+        return p + 1
+
+    images = 0
+    while data[pos] != 0x3B:
+        if data[pos] == 0x21:  # extension: label, sub-blocks
+            pos = skip_sub_blocks(pos + 2)
+        elif data[pos] == 0x2C:  # image: descriptor, local table, LZW size, sub-blocks
+            flags = data[pos + 9]
+            pos += 10 + (3 << ((flags & 7) + 1) if flags & 0x80 else 0)
+            pos = skip_sub_blocks(pos + 1)
+            images += 1
+        else:
+            raise RuntimeError(f"{path}: unknown block 0x{data[pos]:02x} at byte {pos}")
+    return images
+
+
+def phase_eval(seed, fit_steps, card):
+    """Single-image fitting, gaze optimization, the protocols and the demo
+    GIFs at full width, in the configuration the evaluation CLIs build
+    (``cli/evaluate_metrics.py``'s defaults: bf16 fields and renderer,
+    ``phase_gm``, ``--pallas_tuning auto``'s stash and ``dens_vpu``; 4096
+    rays x 64 samples, hidden 384, 512x512, B=1), seeded weights and
+    synthetic batches (:func:`eval_batches`).  Checks, each raising:
+
+    1. fit: ``fit_steps`` steps with launch counts (K1 and K2 twice a
+       step), finite losses, the last below the first; ms per step and both
+       memory peaks;
+    2. one fit step's gradients with the kernels against the plain
+       versions, per parameter group, within ``GRAD_REL_L2``;
+    3. K2 at B=1 (:func:`phase_k2_fit`);
+    4. predict with a gaze override equals the model forward's
+       ``merge_img`` on the same codes, camera and gaze, to the bit;
+    5. gaze optimization from g* + (0.1, -0.1) towards a target rendered
+       at g*, 30 steps: the best loss below the first, and the gradient at
+       the start with the kernels within ``EVAL_DGAZE_REL_L2`` of the plain
+       versions'; ms per step;
+    6. the protocols (input-target on 2 pairs with 5 fit steps, consistency,
+       gaze transfer; personal calibration where h5py is installed) with a
+       seeded GazeResNet and LPIPS on a seeded VGG16: every metric finite,
+       under the JAX package's keys; ms per pair, the estimator's and
+       LPIPS's ms per image;
+    7. the render loops (5 orbit views, the 44-frame gaze sweep) to GIFs:
+       each parses as GIF89a with one image per frame; render and encode
+       ms per frame.
+
+    Then where a fit step's time goes (``phase_step_breakdown`` at B=1).
+    Prints the ``eval`` line and returns K1's and K2's launches per fit
+    step."""
+    import os
+    import statistics
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from gazenerf_tpu_torch.cli.common import config_from_args
+    from gazenerf_tpu_torch.cli.evaluate_metrics import _parser
+    from gazenerf_tpu_torch.eval import metrics as M
+    from gazenerf_tpu_torch.eval import protocols as P
+    from gazenerf_tpu_torch.eval.render_loops import RenderLoops, save_gif
+    from gazenerf_tpu_torch.kernels import checks
+    from gazenerf_tpu_torch.models.resnet import GazeResNet
+    from gazenerf_tpu_torch.models.vgg import VGG16Features
+    from gazenerf_tpu_torch.ops.rays import pixel_grid
+    from gazenerf_tpu_torch.train import fitting
+    from gazenerf_tpu_torch.train.state import make_optimizer
+    from gazenerf_tpu_torch.train.trainer import Trainer, compose_codes_and_cams, make_train_step
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    cfg = config_from_args(_parser().parse_args(["--seed", str(seed)]))
+    m = cfg.model
+    check(m.compute_dtype == m.renderer_dtype == "bfloat16" and m.shuffle_mode == "phase_gm"
+          and m.pallas_stash_acts and m.pallas_dens_vpu, f"eval: the CLI config is {m}")
+    trainer = Trainer(cfg, train_len=1, steps_per_epoch=1, seed=seed)
+    random_biases_(trainer.model, torch.Generator().manual_seed(seed + 3))
+    base = fitting.FitState.of(trainer)
+    expr = trainer.expr_fix
+    frozen = trainer.frozen
+    batches = eval_batches(seed, 4, m.pred_img_size, m.featmap_size)
+    out = {"card": card, "config": "cli/evaluate_metrics.py defaults: " + ", ".join(
+        f"{k}={getattr(m, k)}" for k in ("compute_dtype", "renderer_dtype", "shuffle_mode",
+                                         "pallas_stash_acts", "pallas_dens_vpu", "featmap_size",
+                                         "num_sample_coarse", "mlp_hidden", "pred_img_size")
+    ) + "; B=1"}
+
+    def sync_ms(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        return r, (time.perf_counter() - t0) * 1e3
+
+    # 1. fit
+    fit = fitting.make_fit_single_image(cfg, frozen, expr, fit_steps)
+    fitting.make_fit_single_image(cfg, frozen, expr, 2)(base, batches[0])  # warm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()  # counts from here on are the main path's
+    (fitted, losses), fit_ms = sync_ms(lambda: fit(base, batches[0]))
+    launches = launch_counts()
+    losses = losses.tolist()
+    want = expected_launches(m, fit_steps, train=True)
+    check(launches == want, f"eval fit: {fit_steps} steps launched {launches} (expected {want})")
+    check(all(np.isfinite(losses)), f"eval fit: losses {losses}")
+    check(losses[-1] < losses[0], f"eval fit: the loss did not fall: {losses}")
+    out["fit"] = {"steps": fit_steps, "ms_per_step": fit_ms / fit_steps, "losses": losses,
+                  "launches_per_step": {k: v / fit_steps for k, v in launches.items() if v},
+                  "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+                  "peak_requested_bytes": torch.cuda.memory_stats()["requested_bytes.all.peak"]}
+    print(f"eval fit: {fit_steps} steps, {fit_ms / fit_steps:.1f} ms a step, loss "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f}")
+
+    # 2. one fit step's gradients, kernels vs plain versions: the fit's
+    # training step on the base model and copies of its offsets, stopped
+    # after the backward
+    b0 = fitting.single_batch(batches[0], dev)
+    expr_t = torch.as_tensor(expr, device=dev)
+    t_rand = torch.rand((1, m.num_rays, m.num_sample_coarse + 1),
+                        generator=torch.Generator(device=dev).manual_seed(seed + 7), device=dev)
+    offsets = torch.nn.ParameterDict({k: torch.nn.Parameter(v.detach().clone())
+                                      for k, v in base.offsets.items()})
+    params = list(base.model.parameters())
+    opt, sched = make_optimizer(cfg.train, 10**9, {"net": params, **{k: [p] for k, p in
+                                                                       offsets.items()}})
+    grad_step = make_train_step(cfg, base.model, opt, sched, frozen, expr, offsets)
+
+    def fit_grads():
+        grad_step(b0, t_rand=t_rand, update=False)
+        out_ = {"net": torch.cat([p.grad.reshape(-1).float() for p in params])}
+        out_.update({k: p.grad.reshape(-1).float() for k, p in offsets.items()})
+        return out_
+
+    reset_launch_counts()
+    with_kernels = fit_grads()
+    used = launch_counts()
+    check(used == expected_launches(m, 1, train=True), f"eval: the fit step launched {used}")
+    with checks.plain_versions():
+        reset_launch_counts()
+        plain = fit_grads()
+        check(not any(launch_counts().values()), "eval: the plain fit step launched a kernel")
+    opt.zero_grad(set_to_none=True)
+    grad_rel = {g: float((with_kernels[g] - plain[g]).norm() / plain[g].norm()) for g in plain}
+    bad = {g: r for g, r in grad_rel.items() if not r <= GRAD_REL_L2[g]}
+    check(not bad, f"eval: fit step gradients, kernels vs plain, over the limits: {bad}")
+    out["fit"]["grad_rel_l2_kernel_vs_plain"] = grad_rel
+    print(f"eval fit step gradients, kernels vs plain: {grad_rel}")
+
+    # 3. K2 at B=1
+    out["k2_fit"] = phase_k2_fit(seed, 8)
+
+    # 4. predict with a gaze override against the model forward
+    predict = fitting.make_predict_single_image(cfg, expr)
+    g_star = torch.tensor([0.15, -0.2], device=dev)
+    reset_launch_counts()
+    img, predict_ms = sync_ms(lambda: predict(base, batches[1], g_star))
+    check(launch_counts()["fused_field_fwd"] == 2, "eval: predict did not launch K1 twice")
+    b1 = fitting.single_batch(batches[1], dev)
+    with torch.no_grad():
+        sc, ac, _, R, T, K, _, _ = compose_codes_and_cams(cfg, b1, base.offsets, expr_t)
+        xy = pixel_grid(m.featmap_size, device=dev)[None]
+        ref = base.model(xy, sc, ac, g_star[None], R, T, K)["coarse_dict"]["merge_img"]
+    check(torch.equal(img, ref), "eval: predict with an override differs from the forward")
+    out["predict"] = {"ms": predict_ms, "equal_to_forward": True}
+
+    # 5. gaze optimization towards a target rendered at g*
+    target = dict(batches[1], image=img.float().cpu().numpy())
+    start = g_star + torch.tensor([0.1, -0.1], device=dev)
+    bt = fitting.single_batch(target, dev)
+
+    def gaze_grad():
+        gaze = start.clone().requires_grad_(True)
+        loss = fitting.single_image_loss(cfg, frozen, expr_t, base.model, base.offsets, bt, gaze)
+        return loss.item(), torch.autograd.grad(loss, [gaze])[0]
+
+    first_loss, dgaze = gaze_grad()
+    with checks.plain_versions():
+        _, dgaze_plain = gaze_grad()
+    dgaze = {"kernels": dgaze, "plain": dgaze_plain}
+    dgaze_rel = float((dgaze["kernels"] - dgaze["plain"]).norm() / dgaze["plain"].norm())
+    check(dgaze_rel <= EVAL_DGAZE_REL_L2,
+          f"eval: dgaze kernels vs plain {dgaze_rel:.3e} (limit {EVAL_DGAZE_REL_L2})")
+    optimize = fitting.make_optimize_gaze(cfg, frozen, expr, max_steps=30)
+    reset_launch_counts()
+    (best_gaze, best_loss, steps), opt_ms = sync_ms(lambda: optimize(base, target, start))
+    opt_launches = launch_counts()
+    check(opt_launches["fused_field_fwd"] == opt_launches["fused_field_bwd"] == 2 * steps,
+          f"eval: {steps} gaze steps launched {opt_launches}")
+    check(best_loss.item() < first_loss, f"eval: gaze loss {first_loss} -> {best_loss.item()}")
+    out["gaze_opt"] = {"steps": steps, "ms_per_step": opt_ms / steps, "first_loss": first_loss,
+                       "best_loss": best_loss.item(), "start": start.tolist(),
+                       "best_gaze": best_gaze.tolist(), "target_gaze": g_star.tolist(),
+                       "dgaze_rel_l2_kernel_vs_plain": dgaze_rel, "dgaze": dgaze["kernels"].tolist()}
+    print(f"eval gaze optimization: {steps} steps, {opt_ms / steps:.1f} ms a step, loss "
+          f"{first_loss:.5f} -> {best_loss.item():.5f}, dgaze kernels vs plain {dgaze_rel:.3e}")
+
+    # 6. the protocols
+    gen = torch.Generator().manual_seed(seed + 11)
+    estimator = GazeResNet()
+    with torch.no_grad():  # seeded: N(0, 1/fan in) weights, batch-norm scales near 1
+        for name, p in estimator.named_parameters():
+            if p.dim() > 1:
+                p.copy_(torch.randn(p.shape, generator=gen) * p[0].numel() ** -0.5)
+            else:
+                p.copy_(float(name.endswith("weight")) + 0.1 * torch.randn(p.shape, generator=gen))
+    estimator.to(dev).requires_grad_(False).eval()
+    lpips_vgg = VGG16Features()
+    lpips_vgg.reset_parameters(torch.Generator().manual_seed(seed + 12))
+    lpips_fn = M.make_lpips_fn(lpips_vgg.state_dict(), device=dev)
+    ctx = P.EvalContext(
+        cfg=cfg, base_state=base, fit=fitting.make_fit_single_image(cfg, frozen, expr, 5),
+        predict=predict, optimize_gaze=optimize, estimator_fn=torch.no_grad()(estimator),
+        feats_fn=frozen.vgg_capture_fn(), lpips_fn=lpips_fn, normalizer=P.make_eval_normalizer())
+    x224 = torch.rand((1, 224, 224, 3), device=dev, generator=torch.Generator(
+        device=dev).manual_seed(seed))
+    est_ms = statistics.median(sync_ms(lambda: ctx.estimator_fn(x224))[1] for _ in range(5))
+    img01 = img.float()
+    lpips_ms = statistics.median(sync_ms(lambda: lpips_fn(img01, img01))[1] for _ in range(5))
+    pairs = [{"input": batches[0], "target": batches[1]},
+             {"input": batches[2], "target": batches[3]}]
+    res_it, it_ms = sync_ms(lambda: P.evaluate_input_target_images(ctx, pairs))
+    keys = {"ssim", "psnr", "l1", "lpips", "fid", "gaze_angular_deg", "head_angular_deg",
+            "num_pairs", "lpips_backend", "fid_backend"}
+    check(keys <= set(res_it), f"eval input_target: keys {sorted(res_it)}")
+    res_cons, cons_ms = sync_ms(lambda: P.evaluate_consistency(ctx, batches[:3]))
+    res_gt, gt_ms = sync_ms(lambda: P.evaluate_gaze_transfer(ctx, batches[0], batches[2]))
+    numbers = [v for r in (res_it, res_cons) for v in r.values() if not isinstance(v, str)]
+    numbers += [res_gt["opt_loss"], *res_gt["gaze"].tolist()]
+    check(all(np.isfinite(numbers)), f"eval: protocol metrics {res_it} {res_cons} {res_gt}")
+    check(bool(np.isfinite(res_gt["transferred_image"]).all()), "eval: gaze transfer image")
+    out["protocols"] = {
+        "input_target": {**res_it, "ms_per_pair": it_ms / len(pairs)},
+        "consistency": {**res_cons, "ms": cons_ms, "frames": 2},
+        "gaze_transfer": {"opt_loss": res_gt["opt_loss"], "opt_steps": res_gt["opt_steps"],
+                          "ms": gt_ms},
+        "estimator_ms_per_image": est_ms, "lpips_ms_per_image": lpips_ms / 2,
+    }
+    try:
+        import h5py  # noqa: F401
+    except ImportError:
+        print("eval personal_calibration: not run: h5py is not installed here")
+    else:
+        with tempfile.TemporaryDirectory() as tmp:
+            r, pc_ms = sync_ms(lambda: P.evaluate_personal_calibration(
+                ctx, batches, [0], os.path.join(tmp, "calib.h5")))
+        check(r["face_patch"].shape == (4, 224, 224, 3), "eval personal_calibration: frames")
+        out["protocols"]["personal_calibration"] = {"frames": r["num_frames"], "ms": pc_ms}
+    print(f"eval protocols: input_target {it_ms / len(pairs):.1f} ms a pair, consistency "
+          f"{cons_ms:.1f} ms, gaze transfer {gt_ms:.1f} ms; estimator {est_ms:.2f} ms, LPIPS "
+          f"{lpips_ms / 2:.2f} ms an image")
+
+    # 7. render loops and GIFs
+    loops = RenderLoops(m, view_num=5)
+    sc, ac, *_ = compose_codes_and_cams(cfg, b1, fitted.offsets, expr_t)
+    reset_launch_counts()
+    frames = {}
+    render_ms = 0.0
+    for name, fn in (("both", lambda: loops.render_novel_views(fitted.model, sc, ac)),
+                     ("gaze", lambda: loops.render_gaze_sweep(fitted.model, sc, ac))):
+        frames[name], ms = sync_ms(fn)
+        render_ms += ms
+    n_frames = sum(len(f) for f in frames.values())
+    check(launch_counts()["fused_field_fwd"] == 2 * n_frames, "eval: render loops' K1 launches")
+    encode_ms = 0.0
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, fr in frames.items():
+            path = os.path.join(tmp, f"subject_fitted_{name}.gif")
+            t0 = time.perf_counter()
+            save_gif(path, fr)
+            encode_ms += (time.perf_counter() - t0) * 1e3
+            n = gif_images(path)
+            check(n == len(fr), f"eval: {path} holds {n} images for {len(fr)} frames")
+    check(len(frames["gaze"]) == 44 and len(frames["both"]) == 5, "eval: frame counts")
+    out["render_loops"] = {"frames": n_frames, "render_ms_per_frame": render_ms / n_frames,
+                           "gif_encode_ms_per_frame": encode_ms / n_frames}
+    print(f"eval render loops: {n_frames} frames, render {render_ms / n_frames:.1f} ms and GIF "
+          f"encode {encode_ms / n_frames:.1f} ms a frame")
+
+    # where a fit step's time goes: the training step at B=1 on the base
+    # state is a fit step (its Adam runs over the base's own parameters)
+    out["fit"]["breakdown"] = phase_step_breakdown(trainer, batches[0])
+    out["seconds"] = time.perf_counter() - t_phase
+    print(json.dumps({"eval": out}))
+    del trainer, base, fitted, ctx
+    torch.cuda.empty_cache()
+    return out["fit"]["launches_per_step"]
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--requests", type=int, default=4)
     ap.add_argument("--iters", type=int, default=20, help="timed kernel launches")
     ap.add_argument("--steps", type=int, default=5, help="timed training steps")
+    ap.add_argument("--fit_steps", type=int, default=10, help="timed single-image fit steps")
     args = ap.parse_args()
 
     import torch
@@ -1496,6 +1907,7 @@ def main() -> int:
         return 1
     check(args.requests >= 1, "--requests must be at least 1")
     check(args.steps >= 5, "--steps must be at least 5")
+    check(args.fit_steps >= 2, "--fit_steps must be at least 2")
     import dataclasses
 
     from gazenerf_tpu_torch.config import ModelConfig
@@ -1579,6 +1991,10 @@ def main() -> int:
         "modes": training,
     }}))
     phase_cli(args.seed)
+    # 8. eval: fitting, gaze optimization, protocols, render loops
+    per_fit_step = phase_eval(args.seed, args.fit_steps, smi)
+    k1["launches_per_fit_step"] = per_fit_step["fused_field_fwd"]
+    k2["launches_per_fit_step"] = per_fit_step["fused_field_bwd"]
     k2["launches"] = training["phase_gm"]["launches"]["fused_field_bwd"]
     k6["launches"] = training["pallas"]["launches"]["shuffle_blur_bwd"]
     k8["launches"] = training["fused"]["launches"]["fused_upsampler_bwd"]

@@ -87,6 +87,23 @@ def prepare_backward_operands(w: FieldOperands) -> BackwardOperands:
     )
 
 
+def density_pre(x7: torch.Tensor, wd: torch.Tensor, bd: torch.Tensor) -> torch.Tensor:
+    """The density pre-activation ``x7 @ wd + bd`` (``x7`` ``[..., H]`` of
+    bf16 values, ``wd`` ``[H]``), summed in the backward kernels' order
+    (``density_pre`` in ``csrc/field_bwd.cuh``): four interleaved chains
+    over the hidden units (unit ``k`` in chain ``k % 4``), each a running
+    sum of fused multiply-adds, combined pairwise, then the bias.  A product
+    of two bf16 values is exact in f32, so each step here rounds once, as
+    the FMA does, and the density's ReLU mask is the kernels' to the bit;
+    a matmul's order flips it now and then at a point whose pre-activation
+    lies within rounding of 0, and that point's whole cotangent with it."""
+    prod = (x7 * wd.to(x7.dtype)).unflatten(-1, (-1, 4))
+    v = torch.zeros_like(prod[..., 0, :])
+    for k in range(prod.shape[-2]):
+        v = v + prod[..., k, :]
+    return (v[..., 0] + v[..., 1]) + (v[..., 2] + v[..., 3]) + bd
+
+
 def fused_field_backward_reference(
     embed, zvals, zdists, cb0, cb5, cbr1, w: FieldOperands, gfeat, gbga, gdepth, gw,
     dtype=torch.float32, stash=None, chunks=None, dens_vpu=False,
@@ -95,7 +112,8 @@ def fused_field_backward_reference(
     formulas and rounding points: the forward recomputed with K1's bf16
     rounding; f32 data gradients; weight gradients as products of the bf16
     activation and the bf16-rounded cotangent, summed in f32; f32 bias and
-    conditioning-row sums.  ``embed`` is bf16 (its values are what the
+    conditioning-row sums; the density pre-activation in the CUDA kernel's
+    order (:func:`density_pre`).  ``embed`` is bf16 (its values are what the
     kernel reads); every output is f32.  ``dtype=torch.float64`` computes
     between the same rounding points in float64 instead.  ``stash``, the
     forward's bf16 activations x0..x7, y0b and y1
@@ -153,7 +171,7 @@ def fused_field_backward_parts(embed, zvals, zdists, cb0, cb5, cbr1, w: FieldOpe
     else:  # ---- the stash ----
         *acts, y0b, y1 = (a.reshape(B, R * S, -1).to(f32) for a in stash)
     x7 = acts[7]
-    dens_pre = x7 @ w.wd.to(f32) + w.bd  # [B, N]
+    dens_pre = density_pre(x7, w.wd, w.bd)  # [B, N]
     sigma = torch.relu(dens_pre).reshape(B, R, S)
     feat = (y1 @ w.wr2.to(f32) + w.br2).reshape(B, R, S, -1)
 

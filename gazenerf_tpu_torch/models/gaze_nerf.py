@@ -131,6 +131,13 @@ class GazeNeRF(nn.Module):
         self.neural_render.reset_parameters(gen)
         self.to(device)
 
+    def __getstate__(self):
+        """A copy or a pickle carries the parameters, not the operand
+        stack (rebuilt from the fields' operands at first use)."""
+        state = self.__dict__.copy()
+        state["_stacked"] = None
+        return state
+
     @property
     def fused(self) -> bool:
         """Whether the fields run through the fused field kernel."""

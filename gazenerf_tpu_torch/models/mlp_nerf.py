@@ -77,6 +77,13 @@ class NeRFFieldMLP(nn.Module):
         # (parameter key, split blocks, kernel operands); see kernel_operands
         self._operands: Optional[Tuple[tuple, Dict, FieldOperands]] = None
 
+    def __getstate__(self):
+        """A copy (``copy.deepcopy``) or a pickle carries the parameters,
+        not the operand cache: its blocks are views of the parameters."""
+        state = self.__dict__.copy()
+        state["_operands"] = None
+        return state
+
     def reset_parameters(self, generator: torch.Generator) -> None:
         for name, _ in _LAYERS:
             getattr(self, name).init_xavier_uniform_(generator)

@@ -3,7 +3,8 @@
 The torchvision ``vgg16().features`` stack (13 3x3 convolutions, ReLU, four
 2x2 max pools), NHWC at the public functions as in the JAX package; upstream
 reads the ReLU outputs after convolutions 1, 3, 6 and 9 (torchvision
-feature indices 3, 8, 15, 22).  The parameters keep torchvision's layout
+feature indices 3, 8, 15, 22) for the perceptual loss, and LPIPS after 1,
+3, 6, 9 and 12 (``eval/metrics.LPIPS_CAPTURE``).  The parameters keep torchvision's layout
 (``convs.{i}.weight`` ``[out, in, 3, 3]``), so a torchvision state dict
 loads through :func:`vgg_features_from_torch`.  The gaze estimator
 (``GazeVGG``) of the angular loss is not ported yet.
@@ -12,7 +13,7 @@ loads through :func:`vgg_features_from_torch`.  The gaze estimator
 from __future__ import annotations
 
 import math
-from typing import Dict, List, Mapping
+from typing import Dict, List, Mapping, Sequence
 
 import numpy as np
 import torch
@@ -32,13 +33,17 @@ IMAGENET_STD = np.array([0.229, 0.224, 0.225], np.float32)
 
 
 class VGG16Features(nn.Module):
-    """The VGG16 feature stack up to the last perceptual capture (conv 9),
-    computing in ``dtype``; its later convolutions never reach the loss.
-    All 13 convolutions are kept, so a torchvision state dict loads whole."""
+    """The VGG16 feature stack up to its last capture point, computing in
+    ``dtype``.  ``capture``: positions in the conv list whose ReLU outputs
+    the forward returns (the perceptual loss's by default); later
+    convolutions are not run.  All 13 convolutions are kept, so a
+    torchvision state dict loads whole."""
 
-    def __init__(self, dtype: torch.dtype = torch.float32):
+    def __init__(self, dtype: torch.dtype = torch.float32,
+                 capture: Sequence[int] = PERCEPTUAL_CAPTURE):
         super().__init__()
         self.dtype = dtype
+        self.capture = tuple(capture)
         widths = [3] + VGG16_WIDTHS
         self.convs = nn.ModuleList(
             [nn.Conv2d(widths[i], widths[i + 1], 3, padding=1) for i in range(13)]
@@ -57,16 +62,16 @@ class VGG16Features(nn.Module):
                 conv.bias.zero_()
 
     def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
-        """``[B, H, W, 3]`` -> the ReLU outputs of convs 1, 3, 6 and 9, NHWC."""
+        """``[B, H, W, 3]`` -> the ReLU outputs of the capture convs, NHWC."""
         caps = []
         h = x.permute(0, 3, 1, 2).to(self.dtype)
-        for i in range(max(PERCEPTUAL_CAPTURE) + 1):
+        for i in range(max(self.capture, default=-1) + 1):
             if i in VGG16_POOL_BEFORE:
                 h = F.max_pool2d(h, 2, 2)
             conv = self.convs[i]
             h = F.relu(F.conv2d(h, conv.weight.to(self.dtype), conv.bias.to(self.dtype),
                                 padding=1))
-            if i in PERCEPTUAL_CAPTURE:
+            if i in self.capture:
                 caps.append(h.permute(0, 2, 3, 1))
         return caps
 

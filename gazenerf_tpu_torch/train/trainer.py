@@ -110,7 +110,9 @@ def compose_codes_and_cams(cfg: Config, batch, offsets, expr_fix: torch.Tensor):
     return shape_code, appea_code, gaze_code, Rmats, Tvecs, inv_inmats, opt_code_dict, delta_cam
 
 
-def _torch_state_dict(path: str) -> Dict[str, torch.Tensor]:
+def torch_state_dict(path: str) -> Dict[str, torch.Tensor]:
+    """A torch checkpoint's state dict (under ``model_state`` or
+    ``state_dict`` where it nests one), its ``module.`` prefixes dropped."""
     sd = torch.load(path, map_location="cpu")
     if isinstance(sd, dict):
         sd = sd.get("model_state", sd.get("state_dict", sd))
@@ -129,7 +131,7 @@ class FrozenNets:
             return
         self.vgg = VGG16Features(dtype=_DTYPES[cfg.loss.vgg_dtype])
         if cfg.loss.vgg_ckpt:
-            sd = vgg_features_from_torch(_torch_state_dict(cfg.loss.vgg_ckpt))
+            sd = vgg_features_from_torch(torch_state_dict(cfg.loss.vgg_ckpt))
             self.vgg.load_state_dict(sd, strict=True)
         else:
             logging.getLogger(__name__).warning(

@@ -1,7 +1,8 @@
 """Logging: stdlib logging to a file and stdout, and optional wandb.
 
 The port's own copy of what the JAX package's ``utils/logging.py`` gives
-the training CLI and the trainer (upstream ``utils/logging.py``).  wandb is
+the training and evaluation CLIs and the trainer (upstream
+``utils/logging.py``).  wandb is
 optional: absent or not asked for, its calls are no-ops.
 """
 
@@ -10,7 +11,7 @@ from __future__ import annotations
 import logging
 import os
 import sys
-from typing import Optional
+from typing import Dict, Optional
 
 
 def configure_logging(log_file: Optional[str] = None, level=logging.INFO) -> None:
@@ -80,3 +81,27 @@ def log_losses(wandb, loss_dict, loss_cfg, epoch: int = 0, prefix: str = "TRAIN 
             continue  # upstream logs the head loss from epoch 0 on
         out[prefix + name] = float(loss_dict[key])
     wandb.log(out)
+
+
+# a protocol result's key -> the upstream wandb scalar name
+_EVAL_NAMES = {
+    "gaze_angular_deg": "Angular Error",
+    "head_angular_deg": "Angular Head Error",
+    "ssim": "SSIM",
+    "psnr": "PSNR",
+    "lpips": "LPIPS",
+    "l1": "L1 Distance",
+    "fid": "FID",
+    "identity_similarity": "Similarity",
+}
+
+
+def log_subject_eval_results(wandb, subject_metrics: Dict[str, float],
+                             prefix: str = "Subject ") -> None:
+    """One subject's (or a dataset's) protocol metrics under the upstream
+    wandb names, in one ``wandb.log``; metrics the result lacks are left
+    out."""
+    if wandb is None:
+        return
+    wandb.log({prefix + label: float(subject_metrics[key])
+               for key, label in _EVAL_NAMES.items() if key in subject_metrics})

@@ -1,5 +1,6 @@
-"""The PyTorch port stands alone: no JAX, nothing of ``gazenerf_tpu``, and
-no silent fall-back to the CPU."""
+"""The PyTorch port stands alone: no JAX, nothing of ``gazenerf_tpu``, no
+OpenCV, imageio or PIL (the card's machine has none of them), and no silent
+fall-back to the CPU."""
 
 import subprocess
 import sys
@@ -20,6 +21,8 @@ REPO = Path(__file__).resolve().parents[1]
 
 _IMPORT_ALL = """
 import pkgutil, sys
+for absent in ("cv2", "imageio", "PIL"):  # as on the card's machine
+    sys.modules[absent] = None
 import gazenerf_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(gazenerf_tpu_torch.__path__, "gazenerf_tpu_torch.")]
 for name in names:
@@ -31,14 +34,22 @@ print(len(names), bad, missing)
 """
 
 # the modules of the slices: the render, the training step, the renderer's
-# kernel modes, the dual-branch field path and the training CLI from files
+# kernel modes, the dual-branch field path, the training CLI from files, and
+# fitting and evaluation with their CLIs
 EXPECTED = [
     "gazenerf_tpu_torch.cli.common",
+    "gazenerf_tpu_torch.cli.evaluate",
+    "gazenerf_tpu_torch.cli.evaluate_metrics",
     "gazenerf_tpu_torch.cli.train",
+    "gazenerf_tpu_torch.cli.visualize",
     "gazenerf_tpu_torch.data.cameras",
+    "gazenerf_tpu_torch.data.face_model",
     "gazenerf_tpu_torch.data.h5_dataset",
     "gazenerf_tpu_torch.data.synthetic",
     "gazenerf_tpu_torch.data.target_indices",
+    "gazenerf_tpu_torch.eval.metrics",
+    "gazenerf_tpu_torch.eval.protocols",
+    "gazenerf_tpu_torch.eval.render_loops",
     "gazenerf_tpu_torch.kernels.checks",
     "gazenerf_tpu_torch.kernels.fused_field",
     "gazenerf_tpu_torch.kernels.fused_field2",
@@ -47,10 +58,14 @@ EXPECTED = [
     "gazenerf_tpu_torch.kernels.fused_upsampler",
     "gazenerf_tpu_torch.kernels.shuffle_blur",
     "gazenerf_tpu_torch.losses.gazenerf_loss",
+    "gazenerf_tpu_torch.models.resnet",
     "gazenerf_tpu_torch.models.vgg",
+    "gazenerf_tpu_torch.preprocess.normalize",
     "gazenerf_tpu_torch.train.checkpoint",
+    "gazenerf_tpu_torch.train.fitting",
     "gazenerf_tpu_torch.train.state",
     "gazenerf_tpu_torch.train.trainer",
+    "gazenerf_tpu_torch.utils.gif",
     "gazenerf_tpu_torch.utils.logging",
     "gazenerf_tpu_torch.viewer.server",
 ]
@@ -61,7 +76,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         [sys.executable, "-c", f"EXPECTED = {EXPECTED!r}\n" + _IMPORT_ALL], cwd=REPO,
         capture_output=True, text=True, timeout=120, check=True,
     ).stdout.split(maxsplit=1)
-    assert int(out[0]) >= 34  # every submodule was imported
+    assert int(out[0]) >= 48  # every submodule was imported
     assert out[1].strip() == "[] []"
 
 

@@ -190,6 +190,41 @@ def test_stash_modes_match_plain_version(card, dens_vpu):
     assert differ == (["dWd"] if dens_vpu else []), differ
 
 
+@pytest.mark.parametrize("mode", checks.K2_FIT_MODES)
+def test_backward_fit_case_matches_plain_version(card, mode):
+    """K2 at B=1 (the single-image fit and the gaze optimization: hidden
+    384, 64 samples, 4096 rays), recomputing and reading K1's stash with
+    ``dens_vpu``: within ``checks.K2_FIT_LIMITS`` of its plain version,
+    within its mode's ratio of the plain versions' distance from the
+    unrounded float64 gradient, and the same bits over two launches.
+    Reading the stash: K1's outputs and stash at B=1 within the training
+    case's limits of its plain version's, and the density masks of K2 and
+    its plain version equal at every point."""
+    args, cot = checks.field_case(*checks.K2_FIT_CASE, card, batch=checks.K2_FIT_BATCH)
+    fails = []
+    with torch.no_grad():
+        kw = {}
+        if mode == "stash_dens_vpu":
+            out, acts = ff.fused_field_forward(*args, stash=True)
+            plain_out, plain_acts = ff.fused_field_reference(*args, stash=True)
+            fails += checks.k1_failures("training", out, plain_out)[1]
+            fails += checks.k1_stash_failures(acts, plain_acts)[1]
+            kw = {"stash": acts, "dens_vpu": True}
+        got = ffb.fused_field_backward(*args, *cot, **kw)
+        again = ffb.fused_field_backward(*args, *cot, **kw)
+        want = ffb.fused_field_backward_reference(*args, *cot, **kw)
+        want64 = ffb.fused_field_backward_reference(*args, *cot, dtype=torch.float64, **kw)
+        if kw:
+            assert checks.density_mask_flips(got, want) == 0
+    exact = ffb.fused_field_backward_unrounded(*args, *cot)
+    readings, f = checks.k2_fit_failures(mode, got, want)
+    ratio, exempt = checks.K2_FIT_TRUTH[mode]
+    dist, truth_fails = checks.truth_failures(got, want, want64, exact, ratio, exempt)
+    print(json.dumps({"k2_fit": mode, "readings": readings, "unrounded_distance": dist}))
+    assert not fails + f + truth_fails, fails + f + truth_fails
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
 def test_cuda_tensors_never_take_the_plain_version(card):
     """A CUDA input the kernel cannot take raises; it is not computed by
     the plain version instead."""
