@@ -32,7 +32,13 @@ Phases (each raises on failure, so any failed phase exits non-zero):
    it, with and without ``dens_vpu``, in the narrow case and at the
    training step's shape against its plain version, the unrounded float64
    gradient, itself over two launches and K2 recomputing (to the bit;
-   ``k2_stash_profile``); each timed (CUDA events; K5 and K6 from a CUDA graph of their launches,
+   ``k2_stash_profile``); rays longer than one tile (``kernels/checks.py``
+   ``DEEP_CASES``: S = 128, 192, 256): K1 and K2 against their plain
+   versions, K2 against the unrounded float64 gradient, K1 writing the
+   stash and K2 reading it (density masks equal, K2 recomputing's bits), K3
+   and K4 against K1 and K2 per branch, and all four timed at the deep
+   march's shape (B=2, 4096 rays x 256 samples) beside their plain versions
+   run in 512-ray chunks (``k2_deep_profile``); each timed (CUDA events; K5 and K6 from a CUDA graph of their launches,
    which take less time on the card than their wrappers on the host)
    beside its bound.  The
    limits are in ``kernels/checks.py``;
@@ -58,6 +64,15 @@ Phases (each raises on failure, so any failed phase exits non-zero):
    once and K2 twice; the ``stash`` step also against ``phase_gm``'s);
    then where a step's time goes, with both memory peaks (the caching
    allocator's and the tensors' requested bytes);
+   then the deep march's variants, ``deep`` and ``deep_stash`` (S = 256 in
+   checkpointed 512-ray chunks, the CLI's ``--pallas_tuning auto``
+   overrides for that shape, no VGG loss; the second reading the stash), as
+   the variants above: 2 + ``--steps`` steps with launch counts (per step
+   32 K1 and 16 K2), one step's gradients against the plain versions, where
+   a step's time goes and both memory peaks (the ``deep_training`` line);
+   and the hierarchical sampler's fine pass in a B=1 model forward (three
+   K1 a forward, the fine field at S = 192; the renderer passes stacked for
+   the fused upsampler), its images against the plain versions' (``hier``);
 7. cli: ``python -m gazenerf_tpu_torch.cli.train`` in-process at the
    reference shape with ``--pallas_tuning auto`` on one synthetic 512x512
    subject for 2 epochs and, resumed from the last checkpoint, a third:
@@ -76,8 +91,9 @@ Phases (each raises on failure, so any failed phase exits non-zero):
    GIFs (``phase_eval``).
 
 Prints ``k2_profile``, ``dw``, ``k8_profile``, ``k4_profile``,
-``k2_stash_profile``, ``serving``, ``training``, ``cli``, ``k2_fit_case``,
-``eval`` and ``kernels`` JSON lines, the
+``k2_stash_profile``, ``deep_case``, ``deep_dual_case``, ``k2_deep_profile``,
+``serving``, ``training``, ``deep_training``, ``hier``, ``cli``,
+``k2_fit_case``, ``eval`` and ``kernels`` JSON lines, the
 ``nvidia-smi`` line and, last, the device JSON line.  Exits non-zero without
 a result when no CUDA card is present.  Imports nothing of JAX.
 """
@@ -108,6 +124,9 @@ DUAL_FLAGS = {"pallas_dual_branch": True, "pallas_stash_acts": True}
 # the training CLI's --pallas_tuning auto selects at S <= 64
 STASH = "stash"
 STASH_FLAGS = {"pallas_stash_acts": True, "pallas_dens_vpu": True}
+# the deep march's training variants: recomputing, and reading the stash
+DEEP = "deep"
+DEEP_STASH = "deep_stash"
 # the kernels' counters, in the order of the ``kernels`` line
 KERNELS = ("fused_field_fwd", "fused_field_bwd", "shuffle_blur_fwd", "shuffle_blur_bwd",
            "fused_upsampler_fwd", "fused_upsampler_bwd", "fused_dual_fwd", "fused_dual_bwd")
@@ -214,7 +233,7 @@ def random_biases_(module, gen):
 
 def demangled_kernel(mangled):
     """The last name of a mangled entry name's nested name (``_ZN...E``),
-    with ``<true>`` / ``<false>`` for a bool template argument."""
+    with its bool template arguments (``<true, false>``)."""
     import re
 
     pos = 3 if mangled.startswith("_ZN") else 2 if mangled.startswith("_Z") else -1
@@ -228,7 +247,11 @@ def demangled_kernel(mangled):
         name, pos = mangled[start:start + n], start + n
     if name is None:
         return mangled
-    return name + {"ILb1E": "<true>", "ILb0E": "<false>"}.get(mangled[pos:pos + 5], "")
+    args = re.match(r"I((?:Lb[01]E)+)E", mangled[pos:])
+    if not args:
+        return name
+    flags = re.findall(r"Lb([01])E", args.group(1))
+    return name + "<" + ", ".join("true" if f == "1" else "false" for f in flags) + ">"
 
 
 def ptxas_lines(log):
@@ -282,27 +305,48 @@ def reset_launch_counts():
         setattr(mods[i], n, 0)
 
 
-def expected_launches(cfg, n, train):
-    """The launch counts ``n`` requests (``train`` False: one renderer pass
-    each, no gradient) or ``n`` training steps (four renderer passes, all
-    with a gradient) of ``cfg`` should show: per request or step two K1 (K3
-    once on the dual path), per step two K2 (K4 once on the dual path with
-    the stash, two K2 without it), and the mode's renderer kernels (none in
-    ``phase_gm``) once per upsample block and pass."""
+def renderer_passes(cfg):
+    """The renderer passes of a model forward: four, or stacked along the
+    batch into one (``batch_renderer_passes``) or two (``batch_fg_passes``),
+    and one more for the fine pass (``hier_sampling``)."""
+    passes = 1 if cfg.batch_renderer_passes else 2 if cfg.batch_fg_passes else 4
+    return passes + (1 if cfg.hier_sampling else 0)
+
+
+def expected_launches(cfg, n, train, forward=False):
+    """The launch counts ``n`` requests (``train`` False: the viewer's one
+    renderer pass each, no gradient), ``n`` model forwards without a
+    gradient (``forward``: every renderer pass of the forward) or ``n``
+    training steps (every pass, all with a gradient but the fine pass's) of
+    ``cfg`` should show.  Per request, forward or step two K1 (K3 once on
+    the dual path) per chunk of rays (``ray_chunk``; in a step each chunk's
+    forward runs again in the backward, under the checkpoint), and one K1
+    for the fine pass; per step two K2 per chunk (K4 once on the dual path
+    with the stash, two K2 without it), none for the fine pass, which no
+    loss reads; and the mode's renderer kernels (none in ``phase_gm``) once
+    per upsample block and pass."""
+    from gazenerf_tpu_torch.models.gaze_nerf import chunked
+
     out = dict.fromkeys(KERNELS, 0)
+    chunks = cfg.num_rays // cfg.ray_chunk if chunked(cfg, cfg.num_rays) else 1
+    fwd = chunks * (2 if train and chunks > 1 else 1)
     if cfg.pallas_dual_branch:
-        out["fused_dual_fwd"] = n
+        out["fused_dual_fwd"] = n * fwd
         if train and cfg.pallas_stash_acts:
-            out["fused_dual_bwd"] = n
+            out["fused_dual_bwd"] = n * chunks
         elif train:
-            out["fused_field_bwd"] = 2 * n
+            out["fused_field_bwd"] = 2 * n * chunks
     else:
-        out["fused_field_fwd"] = 2 * n
-        out["fused_field_bwd"] = 2 * n if train else 0
+        out["fused_field_fwd"] = 2 * n * fwd
+        out["fused_field_bwd"] = 2 * n * chunks if train else 0
+    if cfg.hier_sampling and (train or forward):
+        out["fused_field_fwd"] += n
     prefix = {"pallas": "shuffle_blur", "fused": "fused_upsampler"}.get(cfg.shuffle_mode)
     if prefix:
-        blocks = (4 if train else 1) * cfg.n_upsample_blocks * n
-        out[f"{prefix}_fwd"], out[f"{prefix}_bwd"] = blocks, blocks if train else 0
+        passes = renderer_passes(cfg) if train or forward else 1
+        blocks = cfg.n_upsample_blocks * n
+        out[f"{prefix}_fwd"] = passes * blocks
+        out[f"{prefix}_bwd"] = (passes - cfg.hier_sampling) * blocks if train else 0
     return out
 
 
@@ -861,6 +905,276 @@ def phase_dual_kernels(seed, cfg, iters):
     )
 
 
+# the deep march: B=2, 4096 rays x 256 samples, hidden 384 (the JAX bench's
+# deep phase); its plain versions run in chunks of DEEP_CHUNK rays, the
+# deep training step's ray_chunk, to fit the card's memory
+DEEP_SHAPE = (384, 256, 4096)
+DEEP_CHUNK = 512
+
+
+def _ray_chunks(R, rays=DEEP_CHUNK):
+    return [slice(r0, r0 + rays) for r0 in range(0, R, rays)]
+
+
+def plain_forward_chunked(ref, args, dual=False):
+    """The plain forward ``ref`` over the rays of ``args`` in chunks of
+    ``DEEP_CHUNK`` (each ray's outputs are its own), joined along the rays."""
+    import torch
+
+    parts = [ref(*(t[:, sl] for t in args[:3]), *args[3:]) for sl in _ray_chunks(
+        args[0].shape[1])]
+    join = lambda outs: tuple(torch.cat(ts, 1) for ts in zip(*outs))  # noqa: E731
+    return tuple(join(br) for br in zip(*parts)) if dual else join(parts)
+
+
+def plain_backward_chunked(ref, args, cot, per_point, stash=None):
+    """The plain backward ``ref`` in chunks of ``DEEP_CHUNK`` rays (the
+    dual one given both branches' ``stash``): the per-point cotangents
+    (``per_point``) joined along the rays, every other gradient summed over
+    the chunks."""
+    import torch
+
+    parts = []
+    for sl in _ray_chunks(args[0].shape[1]):
+        a = (*(t[:, sl] for t in args[:3]), *args[3:])
+        if stash is not None:
+            g = [tuple(t[:, sl] for t in gb) for gb in cot]
+            st = tuple(tuple(t[:, sl] for t in br) for br in stash)
+            parts.append(ref(*a, *g, st))
+        else:
+            parts.append(ref(*a, *(t[:, sl] for t in cot)))
+    return type(parts[0])(*(torch.cat(ts, 1) if n in per_point else sum(ts)
+                            for n, ts in zip(parts[0]._fields, zip(*parts))))
+
+
+def phase_deep_kernels(seed, iters):
+    """Rays longer than one kernel tile.  In ``checks.DEEP_CASES`` (S = 128,
+    192, 256 at hidden 384 and 256 rays, S = 192 at hidden 64): K1 and K2
+    against their plain versions (K2's summing the weight gradients in the
+    kernel's chunks), K2 against the unrounded float64 gradient at hidden
+    384 (its density masks against the plain version's printed); at S = 128
+    and 256 K1 writing the stash (its outputs K1's bits) and K2 reading it
+    against its plain version (their density masks equal at every point)
+    and K2 recomputing (the same bits); at S = 256 K3 against K1 per branch
+    (the same bits) and its plain version, K4 against its plain version and
+    K2 per branch (the weight gradients to the bit).  Then at the deep
+    march's shape (``DEEP_SHAPE``, B=2) K1, K2 recomputing, K3 (without the
+    stash: both branches' stash there is 30.6 GB) and K4 (on it) timed
+    beside their bounds and their plain versions, which
+    run in chunks of ``DEEP_CHUNK`` rays; their largest differences printed.
+    Returns the four kernels' ``deep`` entries."""
+    import torch
+
+    from gazenerf_tpu_torch.kernels import checks
+    from gazenerf_tpu_torch.kernels import fused_field as ff
+    from gazenerf_tpu_torch.kernels import fused_field2 as ff2
+    from gazenerf_tpu_torch.kernels import fused_field2_bwd as ffb2
+    from gazenerf_tpu_torch.kernels import fused_field_bwd as ffb
+
+    dev = torch.device("cuda")
+    fails = []
+    for case, shape in checks.DEEP_CASES.items():
+        args, cot = checks.field_case(*shape, dev, seed=seed)
+        chunks = checks.deep_chunks(args)
+        with torch.no_grad():
+            out = ff.fused_field_forward(*args)
+            r1, f = checks.limit_failures(checks.Outputs(*out),
+                                          checks.Outputs(*ff.fused_field_reference(*args)),
+                                          checks.DEEP_K1_LIMITS[case])
+            fails += [f"K1 {case}: {x}" for x in f]
+            got = ffb.fused_field_backward(*args, *cot)
+            want = ffb.fused_field_backward_reference(*args, *cot, chunks=chunks)
+            r2, f = checks.limit_failures(got, want, checks.DEEP_K2_LIMITS[case])
+            fails += [f"K2 {case}: {x}" for x in f]
+        line = {"deep_case": case, "seed": seed, "k1_readings": r1, "k2_readings": r2,
+                "k2_density_mask_flips": checks.density_mask_flips(got, want)}
+        if case in checks.DEEP_K2_TRUTH_CASES:
+            with torch.no_grad():
+                want64 = ffb.fused_field_backward_reference(*args, *cot, dtype=torch.float64,
+                                                            chunks=chunks)
+            exact = ffb.fused_field_backward_unrounded(*args, *cot)
+            line["k2_unrounded_distance"], f = checks.truth_failures(
+                got, want, want64, exact, checks.K2_TRUTH_RATIO, checks.K2_TRUTH_EXEMPT)
+            fails += [f"K2 {case} truth: {x}" for x in f]
+            del want64, exact
+        if case in checks.DEEP_STASH_CASES:
+            with torch.no_grad():
+                out_s, acts = ff.fused_field_forward(*args, stash=True)
+                if not all(torch.equal(a, b) for a, b in zip(out_s, out)):
+                    fails.append(f"K1 {case}: the stash changed an output")
+                _, want_acts = ff.fused_field_reference(*args, stash=True)
+                line["k1_stash_readings"], f = checks.k1_stash_failures(acts, want_acts)
+                fails += [f"K1 stash {case}: {x}" for x in f]
+                for dens_vpu in (False, True):
+                    gs = ffb.fused_field_backward(*args, *cot, stash=acts, dens_vpu=dens_vpu)
+                    ws = ffb.fused_field_backward_reference(*args, *cot, stash=acts,
+                                                            chunks=chunks, dens_vpu=dens_vpu)
+                    tag = f"k2_stash_dens_vpu_{dens_vpu}"
+                    line[tag], f = checks.limit_failures(gs, ws,
+                                                         checks.DEEP_K2_STASH_LIMITS[case])
+                    flips = checks.density_mask_flips(gs, ws)
+                    line[f"{tag}_density_mask_flips"] = flips
+                    if flips:
+                        f.append(f"{flips} density masks differ from the plain version's")
+                    differ = [n for n, a, b in zip(gs._fields, gs, got)
+                              if not torch.equal(a, b) and not (dens_vpu and n == "dWd")]
+                    if differ:
+                        f.append(f"vs K2 recomputing: {differ} differ")
+                    fails += [f"K2 stash {case} dens_vpu={dens_vpu}: {x}" for x in f]
+                del acts, want_acts, gs, ws
+        print(json.dumps(line))
+        del args, cot, got, want
+    # K3 and K4 at S = 256
+    case = checks.DEEP_DUAL_CASE
+    dargs, dcot = checks.dual_case(*checks.DEEP_CASES[case], dev, seed=seed)
+    with torch.no_grad():
+        outs, acts = ff2.fused_dual_forward(*dargs, stash=True)
+        want_outs, want_acts = ff2.fused_dual_reference(*dargs, stash=True)
+        per = []
+        for i, g in enumerate(dcot):
+            branch = (*dargs[:3], *(t[i] for t in dargs[3:6]), ff2.branch_operands(dargs[6], i))
+            if not all(torch.equal(a, b) for a, b in zip(outs[i], ff.fused_field_forward(*branch))):
+                fails.append(f"K3 {case} branch {i}: not K1's bits")
+            per.append(ffb.fused_field_backward(*branch, *g, stash=acts[i]))
+        r3, f = checks.deep_k3_failures(outs, want_outs)
+        r3s, fs = checks.k3_stash_failures("training", acts, want_acts)
+        fails += [f"K3 {case}: {x}" for x in f + fs]
+        d = ffb2.fused_dual_backward(*dargs, *dcot, acts)
+        r4, f = checks.limit_failures(d, ffb2.fused_dual_backward_reference(*dargs, *dcot, acts),
+                                      checks.DEEP_K4_LIMITS)
+        k2 = ffb2.sum_branches(per)
+        r42, f42 = checks.k4_vs_k2_failures("training", d, k2)
+        f += f42 + [f"vs K2: {n} not equal to the bit" for n, x, y in zip(d._fields, d, k2)
+                    if n not in ("dembed", "dzvals", "dzdists") and not torch.equal(x, y)]
+        fails += [f"K4 {case}: {x}" for x in f]
+    print(json.dumps({"deep_dual_case": case, "seed": seed, "k3_readings": r3,
+                      "k3_stash_readings": r3s, "k4_readings": r4, "k4_vs_k2_readings": r42}))
+    del dargs, dcot, outs, acts, want_outs, want_acts, per, d, k2
+    check(not fails, "\n".join(fails))
+    torch.cuda.empty_cache()
+
+    # the deep march's shape: times, bounds, plain versions in ray chunks
+    per_point = ("dembed", "dzvals", "dzdists")
+    H, S, R = DEEP_SHAPE
+    args, cot = checks.field_case(H, S, R, dev, seed=seed)
+    one = max(2, iters // 10)
+    with torch.no_grad():
+        out = ff.fused_field_forward(*args)
+        plain = plain_forward_chunked(ff.fused_field_reference, args)
+        k1_err = max(float((a - b).abs().max()) for a, b in zip(out, plain))
+        k1_ms = cuda_ms(lambda: ff.fused_field_forward(*args), iters)
+        k1_plain_ms = cuda_ms(lambda: plain_forward_chunked(ff.fused_field_reference, args), 1,
+                              warmup=0)
+        got = ffb.fused_field_backward(*args, *cot)
+        plain = plain_backward_chunked(ffb.fused_field_backward_reference, args, cot, per_point)
+        k2_err = max(float((a - b).abs().max()) for a, b in zip(got, plain))
+        k2_ms = cuda_ms(lambda: ffb.fused_field_backward(*args, *cot), one)
+        k2_plain_ms = cuda_ms(lambda: plain_backward_chunked(
+            ffb.fused_field_backward_reference, args, cot, per_point), 1, warmup=0)
+        print(json.dumps({"k2_deep_profile": device_profile(
+            lambda: ffb.fused_field_backward(*args, *cot), top=6)}))
+    B, _, _, De = args[0].shape
+    k1_bnd = k1_bound(B, R, S, De, H, 258, args[6])
+    k2_bnd = k2_bound(args, cot, got)
+    del args, cot, out, got, plain
+    torch.cuda.empty_cache()
+    dargs, dcot = checks.dual_case(H, S, R, dev, seed=seed)
+    with torch.no_grad():
+        outs = ff2.fused_dual_forward(*dargs)
+        plain = plain_forward_chunked(ff2.fused_dual_reference, dargs, dual=True)
+        k3_err = max(float((a - b).abs().max()) for o, w in zip(outs, plain) for a, b in zip(o, w))
+        del plain
+        k3_ms = cuda_ms(lambda: ff2.fused_dual_forward(*dargs), one)
+        k3_plain_ms = cuda_ms(lambda: plain_forward_chunked(ff2.fused_dual_reference, dargs,
+                                                            dual=True), 1, warmup=0)
+        k3_bnd = k3_bound(dargs, outs, ())
+        _, acts = ff2.fused_dual_forward(*dargs, stash=True)
+        d = ffb2.fused_dual_backward(*dargs, *dcot, acts)
+        plain = plain_backward_chunked(ffb2.fused_dual_backward_reference, dargs, dcot,
+                                       per_point, stash=acts)
+        k4_err = max(float((a - b).abs().max()) for a, b in zip(d, plain))
+        del plain
+        k4_ms = cuda_ms(lambda: ffb2.fused_dual_backward(*dargs, *dcot, acts), one)
+        k4_plain_ms = cuda_ms(lambda: plain_backward_chunked(
+            ffb2.fused_dual_backward_reference, dargs, dcot, per_point, stash=acts),
+            1, warmup=0)
+    k4_bnd = k4_bound(dargs, dcot, acts, d)
+    del dargs, dcot, outs, acts, d
+    torch.cuda.empty_cache()
+    shape = f"deep march, B=2, {R} rays x {S} samples, hidden {H}"
+    entries = []
+    for name, err, ms, plain_ms, bnd in (("K1", k1_err, k1_ms, k1_plain_ms, k1_bnd),
+                                         ("K2 recompute", k2_err, k2_ms, k2_plain_ms, k2_bnd),
+                                         ("K3", k3_err, k3_ms, k3_plain_ms, k3_bnd),
+                                         ("K4", k4_err, k4_ms, k4_plain_ms, k4_bnd)):
+        print(f"{name}, {shape}: {ms:.4f} ms, plain (in {DEEP_CHUNK}-ray chunks) "
+              f"{plain_ms:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}), max abs err {err:.3e}")
+        entries.append({"mode": f"{name}, {shape}", "max_abs_err": err, "ms": ms,
+                        "plain_ms": plain_ms, "bound_ms": bnd[0], "bound_by": bnd[1]})
+    return entries
+
+
+def phase_hier(seed, n_forwards=3):
+    """The hierarchical sampler's fine pass: a full-width bf16 model
+    forward at B=1 with ``hier_sampling`` (64 coarse + 128 fine = 192
+    samples), the fused upsampler and the renderer passes stacked into one
+    (``batch_renderer_passes``: K7 on 3B + 1 images): per forward three K1
+    (two coarse, one fine at S = 192) and K7 once per block for the stacked
+    pass and the fine pass; ``fine_dict["merge_img"]`` and
+    ``coarse_dict["merge_img"]`` against the same forward with the plain
+    versions (``IMAGE_ATOL``).  Returns the ``hier`` line."""
+    import statistics
+
+    import torch
+
+    from gazenerf_tpu_torch import GazeNeRF
+    from gazenerf_tpu_torch.config import ModelConfig
+    from gazenerf_tpu_torch.kernels import checks
+    from gazenerf_tpu_torch.ops.rays import pixel_grid
+    from gazenerf_tpu_torch.viewer.server import lookat_camera
+
+    cfg = ModelConfig(compute_dtype="bfloat16", renderer_dtype="bfloat16", hier_sampling=True,
+                      shuffle_mode="fused", batch_renderer_passes=True)
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(seed + 11)
+    model = GazeNeRF(cfg, seed=seed).eval()
+    random_biases_(model, gen)
+    R, T, K = (torch.from_numpy(a).to(dev) for a in lookat_camera(8, -4, 12.0, cfg.featmap_size))
+    args = (pixel_grid(cfg.featmap_size, device=dev)[None],
+            (0.1 * torch.randn(1, cfg.shape_code_dims, generator=gen)).to(dev),
+            (0.1 * torch.randn(1, cfg.appea_code_dims, generator=gen)).to(dev),
+            torch.tensor([[0.15, -0.2]], device=dev), R, T, K)
+    with torch.no_grad():
+        model(*args)  # warm
+        torch.cuda.synchronize()
+        reset_launch_counts()  # counts from here on are the main path's
+        times = []
+        for _ in range(n_forwards):
+            t0 = time.perf_counter()
+            out = model(*args)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        launches = launch_counts()
+        want = expected_launches(cfg, n_forwards, train=False, forward=True)
+        check(launches == want, f"hier: {n_forwards} forwards launched {launches} (expected {want})")
+        with checks.plain_versions():
+            plain = model(*args)
+    errs = {}
+    for d in ("fine_dict", "coarse_dict"):
+        img, ref = out[d]["merge_img"].float(), plain[d]["merge_img"].float()
+        check(bool(torch.isfinite(img).all()), f"hier: {d} merge_img is not finite")
+        errs[d] = float((img - ref).abs().max())
+        print(f"hier: {d} merge_img, kernels vs plain, max abs err {errs[d]:.3e} "
+              f"(atol {IMAGE_ATOL})")
+        check(errs[d] <= IMAGE_ATOL, f"hier: {d} merge_img max abs err {errs[d]:.3e}")
+    return {"config": "ModelConfig(compute_dtype=bfloat16, renderer_dtype=bfloat16, "
+                      "hier_sampling=True, shuffle_mode=fused, batch_renderer_passes=True); "
+                      "B=1, 4096 rays x (64 + 128) samples, 512x512",
+            "forward_ms": {"median": statistics.median(times), "samples": times},
+            "launches_per_forward": {k: v / n_forwards for k, v in launches.items() if v},
+            "merge_img_max_abs_err_kernels_vs_plain": errs}
+
+
 REQUESTS = [  # (pitch, yaw, azimuth, elevation, distance)
     (0.0, 0.0, 0.0, 0.0, 12.0),
     (0.3, -0.4, 20.0, 5.0, 11.0),
@@ -1179,8 +1493,9 @@ def synthetic_batch(seed, B, size, featmap_size):
     }
 
 
-def phase_training(seed, cfg, n_steps, name):
-    """Full-width training steps in the variant ``name`` of ``cfg`` with
+def phase_training(seed, cfg, n_steps, name, loss=None):
+    """Full-width training steps in the variant ``name`` of ``cfg`` (and
+    ``loss``, the default loss stack if None) with
     launch counts (per step K1 and K2 twice, or K3 and K4 once on the dual
     path; in a kernel mode the renderer's forward and backward kernel once
     per upsample block and renderer pass: four passes, all four with a
@@ -1196,7 +1511,7 @@ def phase_training(seed, cfg, n_steps, name):
     from gazenerf_tpu_torch import Config, Trainer
 
     mode = name
-    tcfg = Config(model=cfg)
+    tcfg = Config(model=cfg) if loss is None else Config(model=cfg, loss=loss)
     trainer = Trainer(tcfg, train_len=8, steps_per_epoch=1000, seed=seed)  # the card
     check(trainer.model.fused, "the bf16 config must run the fused field kernels")
     check(trainer.model.dual == cfg.pallas_dual_branch,
@@ -1947,6 +2262,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     k1["stash"], k2["stash_read"] = phase_stash_kernels(args.seed, args.iters)
     torch.cuda.empty_cache()
+    k1["deep"], k2["deep"], k3_deep, k4_deep = phase_deep_kernels(args.seed, args.iters)
+    torch.cuda.empty_cache()
 
     # 4. serving, per variant, on the same weights
     apps, serving = {}, {}
@@ -1990,6 +2307,31 @@ def main() -> int:
                   "TrainConfig(); B=2, 4096 rays x 64 samples, 512x512",
         "modes": training,
     }}))
+    # the deep march (S = 256) in checkpointed 512-ray chunks: the CLI's
+    # --pallas_tuning auto overrides for that shape, recomputing and reading
+    # the stash, without the VGG loss (the JAX bench's deep phase)
+    from gazenerf_tpu_torch.cli.common import tuned_kernel_overrides
+    from gazenerf_tpu_torch.config import LossConfig
+
+    deep_cfg = dataclasses.replace(cfg, num_sample_coarse=DEEP_SHAPE[1], **tuned_kernel_overrides(
+        cfg.featmap_size, DEEP_SHAPE[1]))
+    deep_training = {}
+    for name, vcfg in ((DEEP, deep_cfg),
+                       (DEEP_STASH, dataclasses.replace(deep_cfg, pallas_stash_acts=True))):
+        deep_training[name] = phase_training(args.seed, vcfg, args.steps, name,
+                                             loss=LossConfig(use_vgg_loss=False))
+        torch.cuda.empty_cache()
+    print(json.dumps({"deep_training": {
+        "card": smi,
+        "config": f"ModelConfig(compute_dtype=bfloat16, renderer_dtype=bfloat16, "
+                  f"num_sample_coarse={DEEP_SHAPE[1]}, tuned_kernel_overrides: "
+                  f"{tuned_kernel_overrides(cfg.featmap_size, DEEP_SHAPE[1])}; deep_stash: "
+                  f"pallas_stash_acts=True), LossConfig(use_vgg_loss=False), TrainConfig(); "
+                  f"B=2, 4096 rays x {DEEP_SHAPE[1]} samples, 512x512",
+        "modes": deep_training,
+    }}))
+    hier = phase_hier(args.seed)
+    print(json.dumps({"hier": hier}))
     phase_cli(args.seed)
     # 8. eval: fitting, gaze optimization, protocols, render loops
     per_fit_step = phase_eval(args.seed, args.fit_steps, smi)
@@ -2004,6 +2346,14 @@ def main() -> int:
     # K1 writing and K2 reading the stash: their launches in the stash variant
     k1["stash"]["launches"] = training[STASH]["launches"]["fused_field_fwd"]
     k2["stash_read"]["launches"] = training[STASH]["launches"]["fused_field_bwd"]
+    # the deep march: K1 and K2 per deep step; K3 and K4 do not run in the
+    # deep variants (single-branch fields)
+    per_step = deep_training[DEEP]["launches_per_step"]
+    k1["deep"]["launches_per_deep_step"] = per_step["fused_field_fwd"]
+    k2["deep"]["launches_per_deep_step"] = per_step["fused_field_bwd"]
+    k3_deep["launches_per_deep_step"] = k4_deep["launches_per_deep_step"] = 0
+    k3["deep"], k4["deep"] = k3_deep, k4_deep
+    k1["launches_per_hier_forward"] = hier["launches_per_forward"]["fused_field_fwd"]
 
     print(json.dumps({"kernels": [k1, k2, k5, k6, k7, k8, k3, k4]}))
     print(smi)

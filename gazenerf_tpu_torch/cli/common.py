@@ -123,22 +123,25 @@ def tuned_kernel_overrides(featmap_size: int, num_sample_coarse: int) -> dict:
       activation stash, with the ``dens_vpu`` density head: JAX's choice,
       kept for the card on the reading of ``chip_smoke.py``'s ``stash``
       training variant against ``phase_gm`` (PERF.md, Findings, PR 9).
-    * S > 64: recompute, as in JAX (the stash's bytes grow with S).  JAX
-      also splits deep marches into checkpointed 512-ray chunks
-      (``ray_chunk``), which the port does not run yet (ROADMAP Queue 1
-      item 5), so no ``ray_chunk`` is returned.
+    * S > 64: recompute, as in JAX (the stash's bytes grow with S), with
+      the fields in checkpointed chunks of 512 rays (``ray_chunk``) when the
+      rays split into such chunks, as in JAX.
 
     ``pallas_bwd_tile_rays`` and ``pallas_vmem_mb`` are the TPU kernels'
     tiling and memory knobs, returned as JAX's; the port's kernels do not
     read them.
     """
     deep = num_sample_coarse > 64
-    return dict(
+    rays = featmap_size * featmap_size
+    over = dict(
         pallas_dens_vpu=True,
         pallas_bwd_tile_rays=16,
         pallas_stash_acts=not deep,
         pallas_vmem_mb=110 if deep else 100,
     )
+    if deep and rays > 512 and rays % 512 == 0:
+        over["ray_chunk"] = 512
+    return over
 
 
 def config_from_args(args) -> Config:

@@ -4,7 +4,11 @@
 // them from the forward's stash): given a 64-point tile's (whole rays')
 // activations and pre-ReLU densities, it runs the volume-integration
 // backward, then backpropagates through the heads and the 8-layer trunk,
-// giving the tile's embedding, z-value and segment-length cotangents.  The
+// giving the tile's embedding, z-value and segment-length cotangents.  A
+// ray longer than a tile (S a multiple of 64) spans S / 64 tiles, which one
+// CTA runs in two sweeps: each tile's forward part (densities and the
+// folded feature head's dot products), then the integration backward over
+// the whole ray, then each tile's backward (ray_tiles and integrate_ray).  The
 // weight gradients are not formed here: the body writes each layer's
 // bf16-rounded cotangent to a chunk buffer in device memory, and the dW GEMM
 // (csrc/field_dw.cuh) contracts it with the layer's input over a whole chunk
@@ -55,7 +59,11 @@
 //  * a layer's D_hi leaves shared memory as whole rows, 16 bytes per thread;
 //  * the integration backward runs a warp per ray, the transmittance product
 //    and the strict suffix sum as warp scans; Wr2 . gfeat a warp per output
-//    along C (coalesced), br2 . gfeat a warp per ray.
+//    along C (coalesced), br2 . gfeat a warp per ray.  For a ray that spans
+//    tiles the per-point floats (density, feat . gfeat, weight, density
+//    cotangent) are kept for all its S points, and one warp walks its
+//    64-sample blocks first to last for the transmittance, then last to
+//    first for the suffix sums; nothing of it leaves the CTA.
 
 #pragma once
 
@@ -84,6 +92,15 @@ constexpr float kEps = 1e-10f;
 
 static_assert(kRows == 2 * kWarpRows, "2 warp rows cover the tile");
 static_assert(kThreads >= 4 * kRows, "row reductions use 4 threads per row");
+
+// Rays per tile (whole rays) when S divides kRows; a ray of S > kRows (a
+// multiple of kRows) spans S / kRows tiles instead, and a tile holds part
+// of one ray
+__host__ __device__ inline int tile_rays(int S) { return S < kRows ? kRows / S : 1; }
+__host__ __device__ inline int ray_tiles(int S) { return S > kRows ? S / kRows : 1; }
+
+// the per-point floats a CTA keeps: a tile's, or a whole ray's
+__host__ __device__ inline int kept_points(int S) { return S > kRows ? S : kRows; }
 
 // D slot of the cotangent of trunk layer j's pre-activation (dpre_j)
 __host__ __device__ constexpr int dpre_slot(int j) { return kDSlots - 1 - j; }
@@ -130,6 +147,7 @@ __host__ __device__ inline size_t align256(size_t o) { return (o + 255) & ~(size
 // dW GEMM's operands, rows point-major.
 struct Chunk {
   size_t x[kXSlots];     // [P, H] bf16, x0..x7, y0b (K2 only: K4 reads its stash)
+  size_t y1;             // [P, H/2] bf16, y1 (K2 recomputing rays that span tiles)
   size_t e;              // [P, Kp] bf16, the zero-padded embedding
   size_t d[2][kDSlots];  // per branch: dy1 [P, H/2], dy0, dpre7 .. dpre0 [P, H] bf16
   size_t aw[2];          // per branch [P / S, H/2 + 1] f32: sum_s w_s y1_s, sum_s w_s
@@ -147,6 +165,8 @@ __host__ __device__ inline Chunk chunk_layout(size_t P, int S, int Kp, int H, bo
     c.x[i] = o;
     if (with_x) o = align256(o + P * h * 2);
   }
+  c.y1 = o;
+  if (with_x && S > kRows) o = align256(o + P * h2 * 2);
   c.e = o;
   o = align256(o + P * Kp * 2);
   for (int br = 0; br < 2; ++br) {
@@ -439,10 +459,11 @@ __device__ inline void add_colsum(float* sums, const float* cs, int N) {
 struct Shared {
   bf16 *A, *Dh, *Dl, *E;  // [kRows, H + kPad] x 3, [kRows, Kp + kPad]
   bf16* W;      // kStages x kStageElems weight slices
-  float* dens;  // [kRows] pre-ReLU density
-  float* wts;   // [kRows] sample weights
-  float* dpd;   // [kRows] dw, then the density cotangent
-  float* fg;    // [kRows] feat . gfeat
+  // per point, of the tile or (kept_points) of the ray that spans tiles
+  float* dens;  // pre-ReLU density
+  float* wts;   // sample weights
+  float* dpd;   // dw, then the density cotangent
+  float* fg;    // feat . gfeat
   float* cs;    // [2, kMaxCols] column sums
   float* u;     // [TR, H2] Wr2 . gfeat per ray
   float* gf;    // [TR, C] gfeat of the tile's rays
@@ -452,7 +473,7 @@ struct Shared {
 };
 
 __device__ inline Shared carve(unsigned char* smem, int S, int Kp, int H, int C) {
-  const int TR = kRows / S, H2 = H / 2, ld = H + kPad, lde = Kp + kPad;
+  const int TR = tile_rays(S), H2 = H / 2, ld = H + kPad, lde = Kp + kPad, np = kept_points(S);
   Shared s;
   s.A = reinterpret_cast<bf16*>(smem);
   s.Dh = s.A + kRows * ld;
@@ -460,10 +481,10 @@ __device__ inline Shared carve(unsigned char* smem, int S, int Kp, int H, int C)
   s.E = s.Dl + kRows * ld;
   s.W = s.E + kRows * lde;
   s.dens = reinterpret_cast<float*>(s.W + kStages * kStageElems);
-  s.wts = s.dens + kRows;
-  s.dpd = s.wts + kRows;
-  s.fg = s.dpd + kRows;
-  s.cs = s.fg + kRows;
+  s.wts = s.dens + np;
+  s.dpd = s.wts + np;
+  s.fg = s.dpd + np;
+  s.cs = s.fg + np;
   s.u = s.cs + 2 * kMaxCols;
   s.gf = s.u + TR * H2;
   s.cg = s.gf + TR * C;
@@ -473,11 +494,20 @@ __device__ inline Shared carve(unsigned char* smem, int S, int Kp, int H, int C)
 }
 
 inline size_t smem_bytes(int S, int Kp, int H, int C) {
-  const int TR = kRows / S, H2 = H / 2;
+  const int TR = tile_rays(S), H2 = H / 2;
   return (size_t)3 * kRows * (H + kPad) * sizeof(bf16) +
          (size_t)kRows * (Kp + kPad) * sizeof(bf16) +
          (size_t)kStages * kStageElems * sizeof(bf16) +
-         (size_t)(4 * kRows + 2 * kMaxCols + TR * H2 + TR * C + 2 * TR) * sizeof(float);
+         (size_t)(4 * kept_points(S) + 2 * kMaxCols + TR * H2 + TR * C + 2 * TR) * sizeof(float);
+}
+
+// The Shared of tile k of a ray that spans tiles: its per-point floats
+__device__ __forceinline__ Shared tile_of(Shared s, int k) {
+  s.dens += k * kRows;
+  s.wts += k * kRows;
+  s.dpd += k * kRows;
+  s.fg += k * kRows;
+  return s;
 }
 
 // The weights one branch's backward reads: the density and feature heads
@@ -525,10 +555,12 @@ struct TileIO {
   bf16* const* d;             // the D slots, rows [*, H/2] (dy1) or [*, H]; from row drow
   size_t drow;
   float* aw;                  // [TR, H/2 + 1] of the chunk's per-ray head buffer
-  float* dzvals;              // [kRows] of the tile
+  float* dzvals;              // [kRows] of the tile (of the ray: integrate_ray)
   float* dzdists;             // [kRows]
   float* dembed;              // [kRows, De]
   bool add;                   // add into dzvals / dzdists / dembed, else store
+  bool aw_add;                // add the tile's part of sum_s w_s y1_s into aw (a ray's
+                              // later tile), else store aw
 };
 
 // the tile's rows of x_i and of D slot j
@@ -573,7 +605,7 @@ __device__ __forceinline__ float warp_suffix_sum(float v) {
 // compiler cannot fuse it one way here and another way in the other kernel
 // that includes this body: K2 and K4 give the same bits.
 __device__ inline void integrate_backward(const Shared& sh, const TileIO& io, int S) {
-  const int TR = kRows / S, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int TR = tile_rays(S), warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int spl = (S + 31) / 32;
   for (int ray = warp; ray < TR; ray += kWarps) {
     const size_t gray = io.ray0 + ray;
@@ -629,26 +661,84 @@ __device__ inline void integrate_backward(const Shared& sh, const TileIO& io, in
   }
 }
 
-// The backward of one tile.  On entry (after a barrier): E holds the
-// embedding tile, gf the cotangent gfeat of its rays, A[:, :H/2] y1 and dens
-// the pre-ReLU densities.  `small` is the CTA's f32 buffer of the gradients
-// from L.small on (at offset - L.small).  Ends with a barrier: the caller may
-// overwrite every shared buffer.
-__device__ inline void backward_tile(const Shared& sh, const BwdWeights& W, const TileIO& io,
-                                     int S, int De, int Kp, int H, int C, const Grads& L,
-                                     float* small) {
-  const int H2 = H / 2, TR = kRows / S, ld = H + kPad;
-  bf16 *A = sh.A, *Dh = sh.Dh, *Dl = sh.Dl, *stages = sh.W;
-  float *wts = sh.wts, *dpd = sh.dpd, *fg = sh.fg, *cs = sh.cs, *u = sh.u;
-  float *gf = sh.gf, *cg = sh.cg, *ws = sh.ws;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, b = io.b;
-  const size_t HH = (size_t)H * H;
-  const Seg none = {nullptr, nullptr, 0, nullptr, 0};
-  float* sm = small - L.small;  // indexed by the gradients' offsets
-  float acc[2][kNi][4];
+// The integration backward of one ray of S = n x 64 samples that spans n
+// tiles (io: the ray's first point, its z cotangents; sh: its S per-point
+// floats), by one warp, lane l holding samples 2 l, 2 l + 1 of each 64-sample
+// block: first to last for the transmittance (T carried from block to
+// block; the weights, and T parked in dpd), then last to first for the
+// suffix sums of w dw (carried the other way), with integrate_backward's
+// formulas and rounding.  Writes wts, dpd, ws[0] and the z cotangents.
+__device__ inline void integrate_ray(const Shared& sh, const TileIO& io, int S) {
+  if (threadIdx.x >= 32) return;
+  const int lane = threadIdx.x, nb = S / kRows;
+  const float gb = io.gbga[io.ray0], gd = io.gdepth[io.ray0];
+  auto sample = [&](int s, float& sigma, float& e, float& alpha, float& zd) {
+    sigma = fmaxf(sh.dens[s], 0.f);
+    zd = io.zdists[io.p0 + s];
+    e = expf(-sigma * zd);
+    alpha = 1.f - e;
+  };
+  float tc = 1.f, wsum = 0.f;
+  for (int k = 0; k < nb; ++k) {
+    float alpha[2], T[2], sigma, e, zd;
+    float f = 1.f;
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      sample(k * kRows + 2 * lane + q, sigma, e, alpha[q], zd);
+      T[q] = f;
+      f *= 1.f - alpha[q] + kEps;
+    }
+    const float T0 = warp_prefix_product(f);
+    const float all = __shfl_sync(0xffffffffu, T0 * f, 31);
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      const int s = k * kRows + 2 * lane + q;
+      T[q] *= T0 * tc;
+      const float w = alpha[q] * T[q];
+      sh.wts[s] = w;
+      sh.dpd[s] = T[q];
+      wsum += w;
+    }
+    tc *= all;
+  }
+  wsum = warp_sum(wsum);
+  if (lane == 0) sh.ws[0] = wsum;
+  float later = 0.f;  // sum of w dw over the later blocks
+  for (int k = nb - 1; k >= 0; --k) {
+    float alpha[2], sigma[2], e[2], zd[2], dw[2], wd[2];
+    float wdw = 0.f;
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      const int s = k * kRows + 2 * lane + q;
+      const size_t gp = io.p0 + s;
+      sample(s, sigma[q], e[q], alpha[q], zd[q]);
+      dw[q] = __fadd_rn(__fsub_rn(__fmaf_rn(io.zvals[gp], gd, sh.fg[s]), gb), io.gw[gp]);
+      wd[q] = __fmul_rn(sh.wts[s], dw[q]);
+      wdw += wd[q];
+    }
+    float suffix = warp_suffix_sum(wdw) + later;  // over the later lanes' and blocks' samples
+    later += warp_sum(wdw);
+#pragma unroll
+    for (int q = 1; q >= 0; --q) {
+      const int s = k * kRows + 2 * lane + q;
+      const float dalpha =
+          __fmaf_rn(dw[q], sh.dpd[s], -__fdiv_rn(suffix, 1.f - alpha[q] + kEps));
+      suffix += wd[q];
+      const float dzv = __fmul_rn(sh.wts[s], gd);
+      io.dzvals[s] = io.add ? io.dzvals[s] + dzv : dzv;
+      const float dzd = dalpha * sigma[q] * e[q];
+      io.dzdists[s] = io.add ? io.dzdists[s] + dzd : dzd;
+      sh.dpd[s] = sh.dens[s] > 0.f ? dalpha * zd[q] * e[q] : 0.f;
+    }
+  }
+}
 
-  // ---- the folded head: u = Wr2 . gfeat and cg = br2 . gfeat per ray, a
-  // warp per output, lanes along C ----
+// The folded head of the tile's TR rays (gf their cotangents gfeat): u =
+// Wr2 . gfeat and cg = br2 . gfeat per ray, a warp per output, lanes along
+// C.  Ends with a barrier.
+__device__ inline void fold_head(const Shared& sh, const BwdWeights& W, int TR, int H2, int C) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float *u = sh.u, *gf = sh.gf, *cg = sh.cg;
   for (int i = warp; i < TR * H2 + TR; i += kWarps) {
     float s = 0.f;
     if (i < TR * H2) {
@@ -664,29 +754,56 @@ __device__ inline void backward_tile(const Shared& sh, const BwdWeights& W, cons
     if (lane == 0) (i < TR * H2 ? u[i] : cg[i - TR * H2]) = s;
   }
   __syncthreads();
-  if (tid < 4 * kRows) {  // fg = feat . gfeat = y1 . u + cg, 4 threads per row
+}
+
+// fg = feat . gfeat = y1 . u + cg for the tile's points (y1 in A[:, :H/2]),
+// 4 threads per row.  Ends with a barrier.
+__device__ inline void fold_features(const Shared& sh, int S, int H2, int ld) {
+  const int tid = threadIdx.x;
+  if (tid < 4 * kRows) {
     const int r = tid >> 2, part = tid & 3, ray = r / S;
     float s = 0.f;
-    for (int k = part; k < H2; k += 4) s = __fmaf_rn(bf2f(A[r * ld + k]), u[ray * H2 + k], s);
+    for (int k = part; k < H2; k += 4)
+      s = __fmaf_rn(bf2f(sh.A[r * ld + k]), sh.u[ray * H2 + k], s);
     s += __shfl_xor_sync(0xffffffffu, s, 1);
     s += __shfl_xor_sync(0xffffffffu, s, 2);
-    if (part == 0) fg[r] = s + cg[ray];
+    if (part == 0) sh.fg[r] = s + sh.cg[ray];
   }
   __syncthreads();
-  integrate_backward(sh, io, S);
-  __syncthreads();
+}
+
+// The backward of one tile from the integration backward's outputs on (wts,
+// dpd, ws; A[:, :H/2] y1, u the folded head): the heads, then the 8-layer
+// trunk.  `small` is the CTA's f32 buffer of the gradients from L.small on
+// (at offset - L.small).  Ends with a barrier: the caller may overwrite
+// every shared buffer.
+__device__ inline void backward_heads_trunk(const Shared& sh, const BwdWeights& W,
+                                            const TileIO& io, int S, int De, int Kp, int H,
+                                            const Grads& L, float* small) {
+  const int H2 = H / 2, TR = tile_rays(S), ld = H + kPad;
+  const int n = S < kRows ? S : kRows;  // points of a ray in the tile
+  bf16 *A = sh.A, *Dh = sh.Dh, *Dl = sh.Dl, *stages = sh.W;
+  float *wts = sh.wts, *dpd = sh.dpd, *cs = sh.cs, *u = sh.u, *ws = sh.ws;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, b = io.b;
+  const size_t HH = (size_t)H * H;
+  const Seg none = {nullptr, nullptr, 0, nullptr, 0};
+  float* sm = small - L.small;  // indexed by the gradients' offsets
+  float acc[2][kNi][4];
 
   // ---- head backward ----
   for (int i = tid; i < TR * (H2 + 1); i += kThreads) {  // aw = sum_s w_s y1_s, ws
     const int ray = i / (H2 + 1), k = i - ray * (H2 + 1);
     float s = 0.f;
     if (k < H2) {
-      for (int j = 0; j < S; ++j)
+      for (int j = 0; j < n; ++j)
         s = __fmaf_rn(wts[ray * S + j], bf2f(A[(ray * S + j) * ld + k]), s);
     } else {
       s = ws[ray];
     }
-    io.aw[i] = s;
+    if (!io.aw_add)
+      io.aw[i] = s;
+    else if (k < H2)  // sum_s w_s was stored whole with the ray's first tile
+      io.aw[i] += s;
   }
   for (int i = tid; i < kRows * H2; i += kThreads) {  // dy1 = [y1 > 0] w u
     const int r = i / H2, k = i - r * H2;
@@ -756,6 +873,20 @@ __device__ inline void backward_tile(const Shared& sh, const BwdWeights& W, cons
   gemm_rows<true>({Dh, Dl, ld, W.w0e_t, H}, none, 1, Kp, stages, acc);
   epi_dembed(acc, Kp, De, io.dembed, true);
   __syncthreads();  // the caller may overwrite E, A, Dh, Dl and the floats
+}
+
+// The backward of one tile of whole rays (S divides kRows).  On entry
+// (after a barrier): E holds the embedding tile, gf the cotangent gfeat of
+// its rays, A[:, :H/2] y1 and dens the pre-ReLU densities.  Ends with a
+// barrier: the caller may overwrite every shared buffer.
+__device__ inline void backward_tile(const Shared& sh, const BwdWeights& W, const TileIO& io,
+                                     int S, int De, int Kp, int H, int C, const Grads& L,
+                                     float* small) {
+  fold_head(sh, W, tile_rays(S), H / 2, C);
+  fold_features(sh, S, H / 2, H + kPad);
+  integrate_backward(sh, io, S);
+  __syncthreads();
+  backward_heads_trunk(sh, W, io, S, De, Kp, H, L, small);
 }
 
 // A chunk's eleven weight-gradient products (one branch): X from `x` (x0..x7,

@@ -2,10 +2,12 @@
 // (csrc/fused_field_fwd.cu, K1) and the dual-branch forward
 // (csrc/fused_field2_fwd.cu, K3), so the two compute the same bits for the
 // same branch.  One CTA of 16 consumer warps and a producer warp takes
-// TILE_POINTS points (whole rays) of one batch through the
-// positional-embedding tile -> 8-layer field MLP (skip at fea_5) -> density
-// and 258-channel feature heads -> alpha compositing, and writes the
-// per-ray feature / background alpha / depth and the per-sample weights.
+// the smallest run of whole rays of one batch whose points fill whole tiles
+// of TILE_POINTS points (cta_rays; one tile when S divides TILE_POINTS),
+// tile after tile through the positional-embedding tile -> 8-layer field
+// MLP (skip at fea_5) -> density and 258-channel feature heads -> alpha
+// compositing, and writes the per-ray feature / background alpha / depth
+// and the per-sample weights.
 // With the stash on, it also writes the bf16 activations x0..x7, y0b
 // (rgb_0's output) and y1 (rgb_1's) of every point.
 //
@@ -54,8 +56,15 @@
 //  * compositing runs a warp per ray, the transmittance product as a warp
 //    scan; the 258-wide head is applied after the sample reduction,
 //      sum_s w_s (y1_s Wr2 + br2) = (sum_s w_s y1_s) Wr2 + (sum_s w_s) br2,
-//    one thread per output column over all the tile's rays (Wr2 read along
-//    its rows, coalesced).
+//    one thread per output column over all the CTA's rays (Wr2 read along
+//    its rows, coalesced);
+//  * a ray longer than a tile (S a multiple of 64 that does not divide
+//    TILE_POINTS: 192, 256) spans tiles of one CTA, which runs them in turn
+//    on the same ring: a warp composites each ray's segment of a tile (64 or
+//    128 samples) and carries three things per ray to the next tile, the
+//    transmittance at the segment's end, u = sum_s w_s y1_s and sum_s w_s
+//    (and the depth's sum), so the head is applied once, after the ray's
+//    last tile.  A ray that fits a tile takes the one-tile code as before.
 
 #pragma once
 
@@ -71,7 +80,7 @@ namespace ffwd {
 
 typedef __nv_bfloat16 bf16;
 
-constexpr int kRows = TILE_POINTS;  // points per CTA (whole rays)
+constexpr int kRows = TILE_POINTS;  // points per tile
 constexpr int kConsumers = 512;     // 4 warpgroups: products, epilogues, the rest
 constexpr int kWarps = kConsumers / 32;
 constexpr int kThreads = kConsumers + 32;  // and a producer warp: the weight ring
@@ -94,6 +103,27 @@ constexpr float kEps = 1e-10f;
 
 static_assert(kConsumers == 4 * kRows, "density head uses 4 threads per row");
 static_assert(kRows == 2 * kGroupRows, "2 warpgroup rows cover the tile");
+
+// Rays per CTA for rays of S samples: the fewest whole rays whose points
+// fill whole tiles, kRows / gcd(S, kRows) (kRows / S when S divides kRows;
+// for S a multiple of 64, 1 or 2)
+__host__ __device__ inline int cta_rays(int S) {
+  int a = S, b = kRows;
+  while (b) {
+    const int t = a % b;
+    a = b;
+    b = t;
+  }
+  return kRows / a;
+}
+
+// and the tiles they fill
+__host__ __device__ inline int cta_tiles(int S) { return cta_rays(S) * S / kRows; }
+
+// cta_rays in the instantiation for rays that span tiles (kSpan) or the
+// one for whole rays in one tile (kRows / S, S dividing kRows)
+template <bool kSpan>
+__host__ __device__ inline int rays_per_cta(int S) { return kSpan ? cta_rays(S) : kRows / S; }
 
 // One branch's operands and outputs.
 struct Params {
@@ -440,26 +470,36 @@ __device__ __forceinline__ void layer(Tile& t, int l, const Act& a0, const Act& 
 // boundary): the three activation blocks, the embedding tile [kRows, Kp]
 // (swizzled) and the ring, which the per-ray u [TR, H/2] (f32) takes over
 // once both are dead, then the f32 per-point and per-ray buffers and the
-// pass table.
+// pass table.  When the CTA's rays span tiles (kSpan), the ring and the
+// embedding tile live on from tile to tile, so u has a place of its own
+// after the barriers.
 struct Layout {
-  size_t e, ring, sig, tab, bars, total;
+  size_t e, ring, sig, tab, bars, u, total;
 };
 
+template <bool kSpan>
 __host__ __device__ inline Layout layout(int S, int Kp, int H) {
   Layout o;
   o.e = (size_t)kBlocks * (H / trunk_passes(H) / kSub) * kSubBytes;
   o.ring = o.e + (size_t)(Kp / kSub) * kSubBytes;
   const size_t ring_end = o.ring + (size_t)kStages * kStageBytes;
-  const size_t u_end = o.e + (size_t)(kRows / S) * (H / 2) * sizeof(float);
+  const size_t u_end = kSpan ? 0 : o.e + (size_t)(kRows / S) * (H / 2) * sizeof(float);
   o.sig = ((ring_end > u_end ? ring_end : u_end) + 15) & ~(size_t)15;
-  o.tab = o.sig + 3 * kRows * sizeof(float);  // sig, wts, acc_ray
+  o.tab = o.sig + 3 * kRows * sizeof(float);  // sig, wts, the per-ray sums
   o.bars = (o.tab + kMaxPasses * sizeof(Pass) + 7) & ~(size_t)7;
   o.total = o.bars + 2 * kStages * sizeof(uint64_t);  // full, empty
+  o.u = o.e;
+  if (kSpan) {
+    o.u = (o.total + 15) & ~(size_t)15;
+    o.total = o.u + (size_t)cta_rays(S) * (H / 2) * sizeof(float);
+  }
   return o;
 }
 
 // dynamic shared memory to ask for: the layout and room to align it
-inline size_t smem_bytes(int S, int Kp, int H) { return layout(S, Kp, H).total + 1024; }
+inline size_t smem_bytes(int S, int Kp, int H) {
+  return (cta_tiles(S) > 1 ? layout<true>(S, Kp, H) : layout<false>(S, Kp, H)).total + 1024;
+}
 
 // The tensor map of one stash slot, [P, N] bf16 rows at `base`, written in
 // [128, 64] boxes from the tile's 128-byte-swizzled sub-blocks (columns
@@ -468,25 +508,101 @@ inline bool stash_map(CUtensorMap* map, void* base, size_t P, size_t N) {
   return tile::bf16_map(map, base, P, N, N, kRows, kSub, CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
-// The tile of batch b starting at ray r0.  kStash: write the tile's rows of
-// the ten stash slots through the tensor maps `stash` (x0..x7, y0b: [B R S,
-// H] bf16; y1: [B R S, H/2]), which lie in the kernel's parameters.
-template <bool kStash>
+// Compositing of tile `tile` (first point pt) of a CTA whose rays span
+// tiles (S a multiple of 64): a warp per ray segment of the tile (64 or 128
+// samples, lane l the samples lo + l * spl + [0, spl)), its transmittance
+// starting from trans[ray], the ray's T past its earlier tiles; each ray's
+// sum_s w_s (acc_ray), depth sum, trans and u[ray] = sum_s w_s y1_s carried
+// on to its next tile.  Ends after a barrier.
+__device__ inline void composite_span(const Params& p, int tile, size_t pt, const float* sig,
+                                      float* wts, float* acc_ray, float* depth_ray,
+                                      float* trans, float* u, const unsigned char* Y) {
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int S = p.S, H2 = p.H / 2;
+  // the tile's rays: the CTA's rays first .. first + nseg - 1, ray `ray`'s
+  // samples the tile's points [lo, hi)
+  const int first = tile * kRows / S, nseg = ((tile + 1) * kRows - 1) / S - first + 1;
+  auto seg = [&](int ray, int& lo, int& hi) {
+    lo = max(ray * S - tile * kRows, 0);
+    hi = min((ray + 1) * S - tile * kRows, kRows);
+  };
+  for (int sg = warp; sg < nseg; sg += kWarps) {
+    const int ray = first + sg;
+    int lo, hi;
+    seg(ray, lo, hi);
+    const int n = hi - lo, spl = (n + 31) / 32;
+    float alpha[4], T[4];
+    float f = 1.f;  // the lane's product of (1 - alpha + eps)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int s = lane * spl + q;
+      const bool ok = q < spl && s < n;
+      const int r = lo + s;
+      alpha[q] = ok ? 1.f - expf(-sig[r] * p.zdists[pt + r]) : 0.f;
+      T[q] = f;
+      if (ok) f *= 1.f - alpha[q] + kEps;
+    }
+    const float T0 = warp_prefix_product(f);
+    const float tc = trans[ray];
+    const float all = __shfl_sync(0xffffffffu, T0 * f, 31);  // the segment's product
+    float acc = 0.f, depth = 0.f;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int s = lane * spl + q;
+      if (q >= spl || s >= n) continue;
+      const int r = lo + s;
+      const float w = alpha[q] * (T[q] * (T0 * tc));
+      wts[r] = w;
+      p.w_out[pt + r] = w;
+      acc += w;
+      depth += w * p.zvals[pt + r];
+    }
+    acc = warp_sum(acc);
+    depth = warp_sum(depth);
+    if (lane == 0) {
+      acc_ray[ray] += acc;
+      depth_ray[ray] += depth;
+      trans[ray] = tc * all;
+    }
+  }
+  consumer_sync();
+
+  // u[ray, c] += sum_s w_s y1_s[c] over the ray's samples in the tile
+  for (int i = tid; i < nseg * H2; i += kConsumers) {
+    const int sg = i / H2, c = i - sg * H2;
+    int lo, hi;
+    seg(first + sg, lo, hi);
+    float s = 0.f;
+    for (int r = lo; r < hi; ++r) s += wts[r] * bf2f(*reinterpret_cast<const bf16*>(Y + swz(r, c)));
+    u[(first + sg) * H2 + c] += s;
+  }
+  consumer_sync();
+}
+
+// The CTA of batch b starting at ray r0: cta_rays(S) whole rays in
+// cta_tiles(S) tiles, more than one only when kSpan (a separate
+// instantiation, so that the one-tile code carries none of the other's
+// state).  kStash: write the tiles' rows of the ten stash slots through the
+// tensor maps `stash` (x0..x7, y0b: [B R S, H] bf16; y1: [B R S, H/2]),
+// which lie in the kernel's parameters.
+template <bool kStash, bool kSpan>
 __device__ inline void forward_tile(const Params& p, const CUtensorMap* stash, int b, int r0) {
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
   const int H = p.H, H2 = p.H / 2, S = p.S, C = p.C, Kp = p.Kp;
-  const int TR = kRows / S;
-  const Layout L = layout(S, Kp, H);
+  const int TR = rays_per_cta<kSpan>(S), ntiles = kSpan ? cta_tiles(S) : 1;
+  const Layout L = layout<kSpan>(S, Kp, H);
   Tile t;
   t.np = trunk_passes(H);
   t.bw = H / t.np;
   t.act = smem;
   unsigned char* E = smem + L.e;
-  float* u = reinterpret_cast<float*>(smem + L.e);  // [TR, H2], after fea_5 and rgb_1
+  float* u = reinterpret_cast<float*>(smem + L.u);  // [TR, H2]; one tile: after fea_5, rgb_1
   float* sig = reinterpret_cast<float*>(smem + L.sig);  // [kRows]
   float* wts = sig + kRows;                              // [kRows]
-  float* acc_ray = wts + kRows;                          // [TR]
+  float* acc_ray = wts + kRows;                          // [TR] sum_s w_s
+  float* depth_ray = acc_ray + TR;                       // [TR] sum_s w_s z_s (kSpan)
+  float* trans = depth_ray + TR;                         // [TR] T past the last tile (kSpan)
   Pass* tab = reinterpret_cast<Pass*>(smem + L.tab);
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -513,6 +629,14 @@ __device__ inline void forward_tile(const Params& p, const CUtensorMap* stash, i
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
+  if (kSpan) {  // the sums carried from tile to tile
+    for (int i = tid; i < TR * H2; i += kThreads) u[i] = 0.f;
+    if (tid < TR) {
+      acc_ray[tid] = 0.f;
+      depth_ray[tid] = 0.f;
+      trans[tid] = 1.f;
+    }
+  }
   __syncthreads();
   t.tab = tab;
   // the trunk and rgb_0 in np passes each, rgb_1 (H / 2 <= 192 columns) in one
@@ -523,104 +647,118 @@ __device__ inline void forward_tile(const Params& p, const CUtensorMap* stash, i
       int nsl = 0;
       for (int q = 0; q < npass; ++q) nsl += (tab[q].K0 + tab[q].K1) / kSliceK;
       const unsigned char* src = reinterpret_cast<const unsigned char*>(p.wstream);
-      for (int j = 0; j < nsl; ++j) {
+      for (int j = 0; j < nsl * ntiles; ++j) {  // the stream once per tile
         const int s = j % kStages;
         if (j >= kStages) mbar_wait(t.ring.empty(s), (j / kStages - 1) & 1);
         mbar_expect_tx(t.ring.full(s), kStageBytes);
-        bulk_load(t.ring.stage + s * kStageBytes, src + (size_t)j * kStageBytes, kStageBytes,
+        bulk_load(t.ring.stage + s * kStageBytes,
+                  src + (size_t)(kSpan ? j % nsl : j) * kStageBytes, kStageBytes,
                   t.ring.full(s));
       }
     }
     return;  // its copies land before the consumers, which wait for them, finish
   }
-  t.pass = 0;
   t.j = 0;
 
-  for (int i = tid; i < kRows * Kp; i += kConsumers) {
-    const int r = i / Kp, c = i - r * Kp;
-    *reinterpret_cast<bf16*>(E + swz(r, c)) =
-        c < p.De ? p.embed[(p0 + r) * p.De + c] : __float2bfloat16(0.f);
-  }
-  fence_proxy_async();  // E reaches fea_0's wgmma
-  consumer_sync();
-
-  // the trunk, rgb_0 and rgb_1; layer l's rows go to stash slot l
-  auto slot = [&](int l) { return kStash ? stash + l : nullptr; };
-  const Act emb = {{smem_addr(E), smem_addr(E)}, Kp};
-  const Act none = {{0, 0}, 0};
-  layer<kStash>(t, 0, emb, none, H, p.cb0 + (size_t)b * H, true, slot(0), p0);
-  for (int l = 1; l < 8; ++l) {
-    if (l == 5)
-      layer<kStash>(t, 5, emb, output_of(t, 4), H, p.cb5 + (size_t)b * H, true, slot(5), p0);
-    else
-      layer<kStash>(t, l, output_of(t, l - 1), none, H,
-                    p.bmid + (size_t)(l < 5 ? l - 1 : l - 2) * H, true, slot(l), p0);
-  }
-  // density head from x7: 4 threads per row, f32 dot product of bf16 values
-  {
-    const unsigned char* x7[2] = {out_block(t, 7, 0), out_block(t, 7, 1)};
-    const int r = tid >> 2, part = tid & 3;
-    float s = 0.f;
-    for (int k = part; k < H; k += 4) {
-      const unsigned char* xr = k < t.bw ? x7[0] + swz(r, k) : x7[1] + swz(r, k - t.bw);
-      s += bf2f(*reinterpret_cast<const bf16*>(xr)) * bf2f(p.wd[k]);
+  for (int tile = 0; tile < ntiles; ++tile) {
+    const size_t pt = p0 + (size_t)tile * kRows;  // the tile's first point
+    t.pass = 0;
+    if (kStash && tile > 0 && tid == 0)
+      bulk_wait_read<0>();  // the last tile's stores have read the blocks fea_0 writes
+    for (int i = tid; i < kRows * Kp; i += kConsumers) {
+      const int r = i / Kp, c = i - r * Kp;
+      *reinterpret_cast<bf16*>(E + swz(r, c)) =
+          c < p.De ? p.embed[(pt + r) * p.De + c] : __float2bfloat16(0.f);
     }
-    s += __shfl_xor_sync(0xffffffffu, s, 1);
-    s += __shfl_xor_sync(0xffffffffu, s, 2);
-    if (part == 0) sig[r] = fmaxf(s + p.bd[0], 0.f);
-  }
-  layer<kStash>(t, 8, output_of(t, 7), none, H, p.br0, false, slot(8), p0);  // rgb_0
-  layer<kStash>(t, 9, output_of(t, 8), none, H2, p.cbr1 + (size_t)b * H2, true, slot(9), p0);
-  const unsigned char* Y = out_block(t, 9, 0);  // y1, swizzled [kRows, H2]
+    fence_proxy_async();  // E reaches fea_0's wgmma
+    consumer_sync();
 
-  // compositing: a warp per ray, lane l the samples l * spl + [0, spl)
-  const int spl = (S + 31) / 32;
-  for (int ray = warp; ray < TR; ray += kWarps) {
-    float alpha[4], T[4];
-    float f = 1.f;  // the lane's product of (1 - alpha + eps)
+    // the trunk, rgb_0 and rgb_1; layer l's rows go to stash slot l
+    auto slot = [&](int l) { return kStash ? stash + l : nullptr; };
+    const Act emb = {{smem_addr(E), smem_addr(E)}, Kp};
+    const Act none = {{0, 0}, 0};
+    layer<kStash>(t, 0, emb, none, H, p.cb0 + (size_t)b * H, true, slot(0), pt);
+    for (int l = 1; l < 8; ++l) {
+      if (l == 5)
+        layer<kStash>(t, 5, emb, output_of(t, 4), H, p.cb5 + (size_t)b * H, true, slot(5), pt);
+      else
+        layer<kStash>(t, l, output_of(t, l - 1), none, H,
+                      p.bmid + (size_t)(l < 5 ? l - 1 : l - 2) * H, true, slot(l), pt);
+    }
+    // density head from x7: 4 threads per row, f32 dot product of bf16 values
+    {
+      const unsigned char* x7[2] = {out_block(t, 7, 0), out_block(t, 7, 1)};
+      const int r = tid >> 2, part = tid & 3;
+      float s = 0.f;
+      for (int k = part; k < H; k += 4) {
+        const unsigned char* xr = k < t.bw ? x7[0] + swz(r, k) : x7[1] + swz(r, k - t.bw);
+        s += bf2f(*reinterpret_cast<const bf16*>(xr)) * bf2f(p.wd[k]);
+      }
+      s += __shfl_xor_sync(0xffffffffu, s, 1);
+      s += __shfl_xor_sync(0xffffffffu, s, 2);
+      if (part == 0) sig[r] = fmaxf(s + p.bd[0], 0.f);
+    }
+    layer<kStash>(t, 8, output_of(t, 7), none, H, p.br0, false, slot(8), pt);  // rgb_0
+    layer<kStash>(t, 9, output_of(t, 8), none, H2, p.cbr1 + (size_t)b * H2, true, slot(9), pt);
+    const unsigned char* Y = out_block(t, 9, 0);  // y1, swizzled [kRows, H2]
+
+    if constexpr (kSpan) {
+      composite_span(p, tile, pt, sig, wts, acc_ray, depth_ray, trans, u, Y);
+      continue;
+    }
+    // compositing: a warp per ray, lane l the samples l * spl + [0, spl)
+    const int spl = (S + 31) / 32;
+    for (int ray = warp; ray < TR; ray += kWarps) {
+      float alpha[4], T[4];
+      float f = 1.f;  // the lane's product of (1 - alpha + eps)
 #pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int s = lane * spl + q;
-      const bool ok = q < spl && s < S;
-      const int r = ray * S + s;
-      alpha[q] = ok ? 1.f - expf(-sig[r] * p.zdists[p0 + r]) : 0.f;
-      T[q] = f;
-      if (ok) f *= 1.f - alpha[q] + kEps;
-    }
-    const float T0 = warp_prefix_product(f);
-    float acc = 0.f, depth = 0.f;
+      for (int q = 0; q < 4; ++q) {
+        const int s = lane * spl + q;
+        const bool ok = q < spl && s < S;
+        const int r = ray * S + s;
+        alpha[q] = ok ? 1.f - expf(-sig[r] * p.zdists[p0 + r]) : 0.f;
+        T[q] = f;
+        if (ok) f *= 1.f - alpha[q] + kEps;
+      }
+      const float T0 = warp_prefix_product(f);
+      float acc = 0.f, depth = 0.f;
 #pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int s = lane * spl + q;
-      if (q >= spl || s >= S) continue;
-      const int r = ray * S + s;
-      const float w = alpha[q] * (T[q] * T0);
-      wts[r] = w;
-      p.w_out[p0 + r] = w;
-      acc += w;
-      depth += w * p.zvals[p0 + r];
+      for (int q = 0; q < 4; ++q) {
+        const int s = lane * spl + q;
+        if (q >= spl || s >= S) continue;
+        const int r = ray * S + s;
+        const float w = alpha[q] * (T[q] * T0);
+        wts[r] = w;
+        p.w_out[p0 + r] = w;
+        acc += w;
+        depth += w * p.zvals[p0 + r];
+      }
+      acc = warp_sum(acc);
+      depth = warp_sum(depth);
+      if (lane == 0) {
+        acc_ray[ray] = acc;
+        p.bga_out[ray0 + ray] = 1.f - acc;
+        p.depth_out[ray0 + ray] = depth;
+      }
     }
-    acc = warp_sum(acc);
-    depth = warp_sum(depth);
-    if (lane == 0) {
-      acc_ray[ray] = acc;
-      p.bga_out[ray0 + ray] = 1.f - acc;
-      p.depth_out[ray0 + ray] = depth;
-    }
-  }
-  consumer_sync();
+    consumer_sync();
 
-  // u[ray, c] = sum_s w_s y1_s[c]
-  for (int i = tid; i < TR * H2; i += kConsumers) {
-    const int ray = i / H2, c = i - ray * H2;
-    float s = 0.f;
-    for (int j = 0; j < S; ++j) {
-      const int r = ray * S + j;
-      s += wts[r] * bf2f(*reinterpret_cast<const bf16*>(Y + swz(r, c)));
+    // u[ray, c] = sum_s w_s y1_s[c]
+    for (int i = tid; i < TR * H2; i += kConsumers) {
+      const int ray = i / H2, c = i - ray * H2;
+      float s = 0.f;
+      for (int j = 0; j < S; ++j) {
+        const int r = ray * S + j;
+        s += wts[r] * bf2f(*reinterpret_cast<const bf16*>(Y + swz(r, c)));
+      }
+      u[i] = s;
     }
-    u[i] = s;
+    consumer_sync();
   }
-  consumer_sync();
+  if (kSpan && tid < TR) {
+    p.bga_out[ray0 + tid] = 1.f - acc_ray[tid];
+    p.depth_out[ray0 + tid] = depth_ray[tid];
+  }
 
   // feat_int[ray, c] = u[ray] . Wr2[:, c] + (sum_s w_s) br2[c]: a thread per
   // column, four rays at a time, Wr2 read eight rows ahead of the sums (H/2

@@ -2,8 +2,9 @@
 // the gradient of the dual-branch forward (csrc/fused_field2_fwd.cu) for
 // both field branches in one launch, reading the activations x0..x7, y0b
 // and y1 that the forward stashed instead of recomputing the trunk.  Per
-// 64-point tile (whole rays) it recomputes only the density pre-activation
-// from x7, then runs the shared tile backward (csrc/field_bwd.cuh: the
+// 64-point tile (whole rays; a ray longer than that in K2's two sweeps over
+// its tiles) it recomputes only the density pre-activation from x7, then
+// runs the shared tile backward (csrc/field_bwd.cuh: the
 // integration backward, the heads, the 8-layer trunk) for the face branch,
 // then for the eye branch.  The two branches' embedding, z-value and
 // segment-length cotangents are summed in place; the weight gradients come
@@ -76,11 +77,13 @@ struct Params {
   Grads L;
 };
 
+// kSpan: rays longer than a tile (S > kRows), a separate instantiation as K2's
+template <bool kSpan>
 __global__ void __launch_bounds__(kThreads, 1)
     dual_bwd_kernel(const __grid_constant__ Params p) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int H = p.H, H2 = p.H / 2, S = p.S, C = p.C, Kp = p.Kp, De = p.De;
-  const int TR = kRows / S;
+  const int TR = tile_rays(S), nb = kSpan ? ray_tiles(S) : 1;
   const int ld = H + kPad, lde = Kp + kPad;
   const Shared sh = carve(smem, S, Kp, H, C);
   const size_t small_len = p.L.total - p.L.small;
@@ -88,49 +91,85 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int tid = threadIdx.x;
   const size_t points_per_batch = (size_t)p.R * S;
 
-  for (int lt = blockIdx.x; lt < p.nt; lt += gridDim.x) {
-    const size_t p0 = (size_t)(p.t0 + lt) * kRows;  // first point of the tile
-    const size_t lp0 = (size_t)lt * kRows;          // and in the chunk
+  // branch q's tile at point p0: A[:, :H2] = y1 and sk.dens its pre-ReLU
+  // densities, from the stash
+  auto forward = [&](const Branch& q, const Shared& sk, size_t p0) {
+    load_tile(sh.A, ld, q.stash[7] + p0 * H, H);  // x7
+    __syncthreads();
+    density_pre(sk, ld, q.w.wd, q.w.bd, H);
+    __syncthreads();
+    load_tile(sh.A, ld, q.stash[9] + p0 * H2, H2);  // A[:, :H2] = y1
+    __syncthreads();
+  };
+  auto tile_io = [&](const Branch& q, int br, size_t p0, size_t lp0, int b) {
+    TileIO io;
+    io.b = b;
+    io.p0 = p0;
+    io.ray0 = p0 / S;
+    io.zvals = p.zvals;
+    io.zdists = p.zdists;
+    io.gbga = q.gbga;
+    io.gdepth = q.gdepth;
+    io.gw = q.gw;
+    io.x = q.stash;
+    io.xrow = p0;
+    io.d = p.dbase[br];
+    io.drow = lp0;
+    io.aw = p.aw[br] + lp0 / S * (H2 + 1);
+    io.dzvals = p.dzvals + p0;
+    io.dzdists = p.dzdists + p0;
+    io.dembed = p.dembed + p0 * De;
+    io.add = br > 0;
+    io.aw_add = false;
+    return io;
+  };
+
+  // a unit is a tile of whole rays, or a ray that spans nb tiles
+  for (int g = blockIdx.x; g < p.nt / nb; g += gridDim.x) {
+    const size_t p0 = (size_t)(p.t0 + g * nb) * kRows;  // first point of the unit
+    const size_t lp0 = (size_t)g * nb * kRows;          // and in the chunk
     const int b = (int)(p0 / points_per_batch);
     const size_t ray0 = p0 / S;
 
-    for (int i = tid; i < kRows * Kp; i += kThreads) {
-      const int r = i / Kp, c = i - r * Kp;
-      sh.E[r * lde + c] = c < De ? p.embed[(p0 + r) * De + c] : __float2bfloat16(0.f);
+    for (int k = 0; k < nb; ++k) {  // the padded embedding into the chunk buffer
+      if (k > 0) __syncthreads();   // the last tile's copy has read E
+      for (int i = tid; i < kRows * Kp; i += kThreads) {
+        const int r = i / Kp, c = i - r * Kp;
+        sh.E[r * lde + c] =
+            c < De ? p.embed[(p0 + k * kRows + r) * De + c] : __float2bfloat16(0.f);
+      }
+      __syncthreads();
+      store_tile(p.e + (lp0 + k * kRows) * Kp, sh.E, lde, Kp);
     }
-    __syncthreads();
-    store_tile(p.e + lp0 * Kp, sh.E, lde, Kp);
 #pragma unroll 1  // one copy of the body for both branches: the same code as K2's
     for (int br = 0; br < 2; ++br) {
       const Branch& q = p.br[br];
+      float* small = p.small + ((size_t)br * p.G + blockIdx.x) * small_len;
       for (int i = tid; i < TR * C; i += kThreads) sh.gf[i] = q.gfeat[ray0 * C + i];
-      load_tile(sh.A, ld, q.stash[7] + p0 * H, H);  // x7
+      if (!kSpan) {
+        forward(q, sh, p0);
+        backward_tile(sh, q.w, tile_io(q, br, p0, lp0, b), S, De, Kp, H, C, p.L, small);
+        continue;
+      }
+      // K2's two sweeps over the ray's tiles (csrc/fused_field_bwd.cu)
       __syncthreads();
-      density_pre(sh, ld, q.w.wd, q.w.bd, H);
+      fold_head(sh, q.w, 1, H2, C);
+      for (int k = 0; k < nb; ++k) {
+        const Shared sk = tile_of(sh, k);
+        forward(q, sk, p0 + k * kRows);
+        fold_features(sk, S, H2, ld);
+      }
+      integrate_ray(sh, tile_io(q, br, p0, lp0, b), S);
       __syncthreads();
-      load_tile(sh.A, ld, q.stash[9] + p0 * H2, H2);  // A[:, :H2] = y1
-      __syncthreads();
-
-      TileIO io;
-      io.b = b;
-      io.p0 = p0;
-      io.ray0 = ray0;
-      io.zvals = p.zvals;
-      io.zdists = p.zdists;
-      io.gbga = q.gbga;
-      io.gdepth = q.gdepth;
-      io.gw = q.gw;
-      io.x = q.stash;
-      io.xrow = p0;
-      io.d = p.dbase[br];
-      io.drow = lp0;
-      io.aw = p.aw[br] + lp0 / S * (H2 + 1);
-      io.dzvals = p.dzvals + p0;
-      io.dzdists = p.dzdists + p0;
-      io.dembed = p.dembed + p0 * De;
-      io.add = br > 0;
-      backward_tile(sh, q.w, io, S, De, Kp, H, C, p.L,
-                    p.small + ((size_t)br * p.G + blockIdx.x) * small_len);
+      for (int k = 0; k < nb; ++k) {
+        const size_t pk = p0 + k * kRows, lk = lp0 + k * kRows;
+        load_tile(sh.A, ld, q.stash[9] + pk * H2, H2);  // y1
+        __syncthreads();
+        TileIO io = tile_io(q, br, pk, lk, b);
+        io.aw = p.aw[br] + lp0 / S * (H2 + 1);  // the ray's
+        io.aw_add = k > 0;
+        backward_heads_trunk(tile_of(sh, k), q.w, io, S, De, Kp, H, p.L, small);
+      }
     }
   }
 }
@@ -246,10 +285,11 @@ int fused_field2_bwd(const void* embed, const float* zvals, const float* zdists,
     if (err != cudaSuccess) return (int)err;
   }
   const size_t smem = smem_bytes(S, Kp, H, C);
-  err = cudaFuncSetAttribute(dual_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
+  auto tile_kernel = S > kRows ? dual_bwd_kernel<true> : dual_bwd_kernel<false>;
+  err = cudaFuncSetAttribute(tile_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  dual_bwd_kernel<<<nt < G ? nt : G, kThreads, smem, st>>>(p);
+  const int units = nt / ray_tiles(S);  // tiles, or rays that span tiles
+  tile_kernel<<<units < G ? units : G, kThreads, smem, st>>>(p);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   err = cudaFuncSetAttribute(dual_dw_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,

@@ -41,7 +41,7 @@ struct DualParams {
   CUtensorMap stash[2][ffwd::kSlots];      // per branch x0..x7, y0b, y1 (with the stash)
 };
 
-template <bool kStash>
+template <bool kStash, bool kSpan>
 __global__ void __launch_bounds__(ffwd::kThreads, 1)
     dual_fwd_kernel(const __grid_constant__ DualParams dp) {
   // the branch's operands from shared memory: indexed by blockIdx.z in the
@@ -49,19 +49,25 @@ __global__ void __launch_bounds__(ffwd::kThreads, 1)
   __shared__ ffwd::Params p;
   if (threadIdx.x == 0) p = dp.br[blockIdx.z];
   __syncthreads();
-  ffwd::forward_tile<kStash>(p, kStash ? dp.stash[blockIdx.z] : nullptr, blockIdx.y,
-                             blockIdx.x * (ffwd::kRows / p.S));
+  ffwd::forward_tile<kStash, kSpan>(p, kStash ? dp.stash[blockIdx.z] : nullptr, blockIdx.y,
+                                    blockIdx.x * ffwd::rays_per_cta<kSpan>(p.S));
+}
+
+template <bool kStash, bool kSpan>
+int launch_kernel(const DualParams& dp, int B, int R, int S, int Kp, int H, cudaStream_t stream) {
+  const size_t smem = ffwd::smem_bytes(S, Kp, H);
+  cudaError_t err = cudaFuncSetAttribute(
+      dual_fwd_kernel<kStash, kSpan>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(R / ffwd::cta_rays(S), B, 2);
+  dual_fwd_kernel<kStash, kSpan><<<grid, ffwd::kThreads, smem, stream>>>(dp);
+  return (int)cudaGetLastError();
 }
 
 template <bool kStash>
 int launch(const DualParams& dp, int B, int R, int S, int Kp, int H, cudaStream_t stream) {
-  const size_t smem = ffwd::smem_bytes(S, Kp, H);
-  cudaError_t err = cudaFuncSetAttribute(
-      dual_fwd_kernel<kStash>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid(R / (ffwd::kRows / S), B, 2);
-  dual_fwd_kernel<kStash><<<grid, ffwd::kThreads, smem, stream>>>(dp);
-  return (int)cudaGetLastError();
+  return ffwd::cta_tiles(S) > 1 ? launch_kernel<kStash, true>(dp, B, R, S, Kp, H, stream)
+                                : launch_kernel<kStash, false>(dp, B, R, S, Kp, H, stream);
 }
 
 }  // namespace

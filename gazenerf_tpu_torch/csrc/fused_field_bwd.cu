@@ -1,11 +1,11 @@
 // Fused field backward for NVIDIA Hopper (sm_90a): for every 64-point tile
-// (whole rays) it recomputes the field MLP's forward (recompute mode) or
-// reads the bf16 activations x0..x7, y0b and y1 that the forward stashed
-// (stash mode; only the density pre-activation is recomputed, from x7),
-// runs the volume-integration backward, then backpropagates through the
-// heads and the 8-layer trunk, giving the embedding, z-value and
-// segment-length cotangents per point and the weight, bias and
-// conditioning-row gradients summed over all points.
+// (whole rays, or a part of a ray of S = 128-256 samples) it recomputes the
+// field MLP's forward (recompute mode) or reads the bf16 activations x0..x7,
+// y0b and y1 that the forward stashed (stash mode; only the density
+// pre-activation is recomputed, from x7), runs the volume-integration
+// backward, then backpropagates through the heads and the 8-layer trunk,
+// giving the embedding, z-value and segment-length cotangents per point and
+// the weight, bias and conditioning-row gradients summed over all points.
 //
 // Replaces the TPU kernel gazenerf_tpu/kernels/fused_field_bwd.py:_bwd_kernel
 // (launched by pallas_backward) with stash_acts False or True (stash_every=1,
@@ -31,7 +31,10 @@
 //
 // Design.  The points go in chunks of whole tiles (the caller's plan,
 // kernels/field_dw.py); per chunk, three launches on the stream:
-//  * field_bwd_kernel: one CTA per SM walks the chunk's tiles, recomputes
+//  * field_bwd_kernel: one CTA per SM walks the chunk's tiles (a ray longer
+//    than a tile is one unit of S / 64 tiles, run in two sweeps: the tiles'
+//    forward parts, the ray's integration backward, the tiles' backward;
+//    recomputing, the first sweep keeps y1 in the chunk buffer), recomputes
 //    each tile's activations (their rows go to the chunk buffer: x0..x7,
 //    y0b and the padded embedding) or, in stash mode, reads x7 and y1 from
 //    the stash (the padded embedding still goes to the chunk buffer; x0..x7
@@ -89,6 +92,7 @@ struct Params {
   // scratch
   float* small;             // [G, total - small] per-CTA sums
   bf16* xbase[kXSlots];     // the chunk buffer's x0..x7, y0b [P, H] (recompute mode)
+  bf16* y1;                 // and y1 [P, H/2] (recompute mode, rays that span tiles)
   bf16* e;                  // its padded embedding [P, Kp]
   bf16* dbase[kDSlots];     // its cotangents dy1 [P, H/2], dy0, dpre7 .. dpre0 [P, H]
   float* aw;                // its folded-head sums [P / S, H/2 + 1]
@@ -97,12 +101,14 @@ struct Params {
   Grads L;
 };
 
-template <bool kStash>
+// kSpan: rays longer than a tile (S > kRows), a separate instantiation so
+// that the tile code of whole rays carries none of the two sweeps' state
+template <bool kStash, bool kSpan>
 __global__ void __launch_bounds__(kThreads, 1)
     field_bwd_kernel(const __grid_constant__ Params p) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int H = p.H, H2 = p.H / 2, S = p.S, C = p.C, Kp = p.Kp, De = p.De;
-  const int TR = kRows / S;
+  const int TR = tile_rays(S), nb = kSpan ? ray_tiles(S) : 1;
   const int ld = H + kPad, lde = Kp + kPad;
   const Shared sh = carve(smem, S, Kp, H, C);
   bf16 *A = sh.A, *E = sh.E;
@@ -113,24 +119,20 @@ __global__ void __launch_bounds__(kThreads, 1)
   const Seg none = {nullptr, nullptr, 0, nullptr, 0};
   const size_t points_per_batch = (size_t)p.R * S;
 
-  for (int lt = blockIdx.x; lt < p.nt; lt += gridDim.x) {
-    const size_t p0 = (size_t)(p.t0 + lt) * kRows;  // first point of the tile
-    const size_t lp0 = (size_t)lt * kRows;          // and in the chunk
-    const int b = (int)(p0 / points_per_batch);
-    const size_t ray0 = p0 / S;
-
+  // The tile at point p0 (lp0 in the chunk): its embedding into E and the
+  // chunk buffer, then A[:, :H2] = y1 and sk.dens its pre-ReLU densities
+  auto forward = [&](const Shared& sk, size_t p0, size_t lp0, int b) {
     for (int i = tid; i < kRows * Kp; i += kThreads) {
       const int r = i / Kp, c = i - r * Kp;
       E[r * lde + c] = c < De ? p.embed[(p0 + r) * De + c] : __float2bfloat16(0.f);
     }
-    for (int i = tid; i < TR * C; i += kThreads) sh.gf[i] = p.gfeat[ray0 * C + i];
     __syncthreads();
     store_tile(p.e + lp0 * Kp, E, lde, Kp);
 
     if (kStash) {  // ---- the stash: x7 (its density), then y1 into A ----
       load_tile(A, ld, p.stash[7] + p0 * H, H);
       __syncthreads();
-      density_pre(sh, ld, p.w.wd, p.w.bd, H);
+      density_pre(sk, ld, p.w.wd, p.w.bd, H);
       __syncthreads();
       load_tile(A, ld, p.stash[9] + p0 * H2, H2);  // A[:, :H2] = y1
       __syncthreads();
@@ -146,17 +148,19 @@ __global__ void __launch_bounds__(kThreads, 1)
           fwd_layer({A, nullptr, ld, p.wmid + mid_slot(i) * HH, H}, none, 1, H,
                     p.bmid + mid_slot(i) * H, true, A, ld, sh.W, p.xbase[i] + lp0 * H);
       }
-      density_pre(sh, ld, p.w.wd, p.w.bd, H);
+      density_pre(sk, ld, p.w.wd, p.w.bd, H);
       fwd_layer({A, nullptr, ld, p.wr0, H}, none, 1, H, p.br0, false, A, ld, sh.W,
                 p.xbase[8] + lp0 * H);
+      // A[:, :H2] = y1, kept in the chunk buffer for a ray's second sweep
       fwd_layer({A, nullptr, ld, p.wr1x, H}, none, 1, H2, p.cbr1 + (size_t)b * H2, true, A,
-                ld, sh.W, nullptr);  // A[:, :H2] = y1
+                ld, sh.W, kSpan ? p.y1 + lp0 * H2 : nullptr);
     }
-
+  };
+  auto tile_io = [&](size_t p0, size_t lp0, int b) {
     TileIO io;
     io.b = b;
     io.p0 = p0;
-    io.ray0 = ray0;
+    io.ray0 = p0 / S;
     io.zvals = p.zvals;
     io.zdists = p.zdists;
     io.gbga = p.gbga;
@@ -176,7 +180,42 @@ __global__ void __launch_bounds__(kThreads, 1)
     io.dzdists = p.dzdists + p0;
     io.dembed = p.dembed + p0 * De;
     io.add = false;
-    backward_tile(sh, p.w, io, S, De, Kp, H, C, p.L, small);
+    io.aw_add = false;
+    return io;
+  };
+
+  // a unit is a tile of whole rays, or a ray that spans nb tiles
+  for (int g = blockIdx.x; g < p.nt / nb; g += gridDim.x) {
+    const size_t p0 = (size_t)(p.t0 + g * nb) * kRows;  // first point of the unit
+    const size_t lp0 = (size_t)g * nb * kRows;          // and in the chunk
+    const int b = (int)(p0 / points_per_batch);
+    const size_t ray0 = p0 / S;
+    for (int i = tid; i < TR * C; i += kThreads) sh.gf[i] = p.gfeat[ray0 * C + i];
+    if (!kSpan) {
+      forward(sh, p0, lp0, b);
+      backward_tile(sh, p.w, tile_io(p0, lp0, b), S, De, Kp, H, C, p.L, small);
+      continue;
+    }
+    // the ray's tiles' forward parts, the integration backward over all its
+    // samples, then its tiles' backward
+    __syncthreads();
+    fold_head(sh, p.w, 1, H2, C);
+    for (int k = 0; k < nb; ++k) {
+      const Shared sk = tile_of(sh, k);
+      forward(sk, p0 + k * kRows, lp0 + k * kRows, b);
+      fold_features(sk, S, H2, ld);
+    }
+    integrate_ray(sh, tile_io(p0, lp0, b), S);
+    __syncthreads();
+    for (int k = 0; k < nb; ++k) {
+      const size_t pk = p0 + k * kRows, lk = lp0 + k * kRows;
+      load_tile(A, ld, kStash ? p.stash[9] + pk * H2 : p.y1 + lk * H2, H2);  // y1
+      __syncthreads();
+      TileIO io = tile_io(pk, lk, b);
+      io.aw = p.aw + lp0 / S * (H2 + 1);  // the ray's
+      io.aw_add = k > 0;
+      backward_heads_trunk(tile_of(sh, k), p.w, io, S, De, Kp, H, p.L, small);
+    }
   }
 }
 
@@ -222,8 +261,9 @@ void fused_field_bwd_layout(int B, int S, int Kp, int H, int C, int G, int chunk
 // which zeroes the per-CTA sums and stores rather than adds; last: the last,
 // which sums them into `grads`).  Returns the first cudaError_t (0 =
 // success).  The caller (kernels/fused_field_bwd.py) has checked the shapes:
-// S divides 64, R*S is a multiple of 64, H is a multiple of 64 and at most
-// 384, Kp a multiple of 32; nt <= chunk_tiles; it allocates `scratch` (the
+// S divides 64 (R*S a multiple of 64) or is a multiple of 64 up to 256, H
+// is a multiple of 64 and at most 384, Kp a multiple of 32; nt <=
+// chunk_tiles, and a chunk holds whole rays; it allocates `scratch` (the
 // layout's bytes) and `grads`.  `stash` is null (recompute mode) or ten
 // pointers: x0..x7, y0b ([B, R, S, H] bf16 each) and y1 ([B, R, S, H/2]).
 // `dens_vpu`: dWd from the unrounded density cotangent.
@@ -290,6 +330,7 @@ int fused_field_bwd(const void* embed, const float* zvals, const float* zdists,
   const Chunk CL = chunk_layout((size_t)chunk_tiles * kRows, S, Kp, H, !stash, 1);
   for (int i = 0; i < kXSlots; ++i)
     p.xbase[i] = stash ? nullptr : reinterpret_cast<bf16*>(chunk + CL.x[i]);
+  p.y1 = stash ? nullptr : reinterpret_cast<bf16*>(chunk + CL.y1);
   p.e = reinterpret_cast<bf16*>(chunk + CL.e);
   for (int j = 0; j < kDSlots; ++j) p.dbase[j] = reinterpret_cast<bf16*>(chunk + CL.d[0][j]);
   p.aw = reinterpret_cast<float*>(chunk + CL.aw[0]);
@@ -301,11 +342,15 @@ int fused_field_bwd(const void* embed, const float* zvals, const float* zdists,
     if (err != cudaSuccess) return (int)err;
   }
   const size_t smem = smem_bytes(S, Kp, H, C);
-  auto tile_kernel = stash ? field_bwd_kernel<true> : field_bwd_kernel<false>;
+  const bool span = S > kRows;
+  auto tile_kernel = stash ? (span ? field_bwd_kernel<true, true> : field_bwd_kernel<true, false>)
+                           : (span ? field_bwd_kernel<false, true>
+                                   : field_bwd_kernel<false, false>);
   err = cudaFuncSetAttribute(tile_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem);
   if (err != cudaSuccess) return (int)err;
-  tile_kernel<<<nt < G ? nt : G, kThreads, smem, st>>>(p);
+  const int units = nt / ray_tiles(S);  // tiles, or rays that span tiles
+  tile_kernel<<<units < G ? units : G, kThreads, smem, st>>>(p);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 

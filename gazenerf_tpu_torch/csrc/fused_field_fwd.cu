@@ -26,13 +26,15 @@
 // shape (B=2) it writes 7,296 bytes per point, ~3.83 GB (~1.1 ms at 3.35
 // TB/s) against ~1.4 ms of products: still bound by operations.
 //
-// Design: one CTA takes 128 points = 128 / S whole rays, so the compositing
-// needs no cross-CTA step.  The tile body, its layout and its numerics are
-// in csrc/field_fwd.cuh, which the dual-branch forward
-// (csrc/fused_field2_fwd.cu) shares: the weights streamed once per CTA into
-// a shared-memory ring by a producer warp's bulk copies, the products on
-// wgmma, the layers in three rotating column blocks, compositing a warp per
-// ray.  The stash leaves shared memory by tensor stores (TMA) behind the
+// Design: one CTA takes whole rays, 128 points = 128 / S rays or, for rays
+// longer than that (S = 192, 256), the fewest whole rays that fill whole
+// 128-point tiles, which it runs one after another carrying each ray's
+// compositing sums; so the compositing needs no cross-CTA step.  The tile
+// body, its layout and its numerics are in csrc/field_fwd.cuh, which the
+// dual-branch forward (csrc/fused_field2_fwd.cu) shares: the weights streamed
+// once per tile into a shared-memory ring by a producer warp's bulk copies,
+// the products on wgmma, the layers in three rotating column blocks,
+// compositing a warp per ray.  The stash leaves shared memory by tensor stores (TMA) behind the
 // next layer's products, through ten tensor maps over [B R S, N] rows built
 // here and passed in the kernel's parameters, as in the dual-branch forward.
 
@@ -40,8 +42,11 @@
 
 namespace {
 
+// kSpan: rays longer than a tile (cta_tiles(S) > 1)
+template <bool kSpan>
 __global__ void __launch_bounds__(ffwd::kThreads, 1) field_fwd_kernel(ffwd::Params p) {
-  ffwd::forward_tile<false>(p, nullptr, blockIdx.y, blockIdx.x * (ffwd::kRows / p.S));
+  ffwd::forward_tile<false, kSpan>(p, nullptr, blockIdx.y,
+                                   blockIdx.x * ffwd::rays_per_cta<kSpan>(p.S));
 }
 
 struct StashParams {
@@ -49,9 +54,11 @@ struct StashParams {
   CUtensorMap stash[ffwd::kSlots];  // x0..x7, y0b, y1
 };
 
+template <bool kSpan>
 __global__ void __launch_bounds__(ffwd::kThreads, 1)
     field_fwd_stash_kernel(const __grid_constant__ StashParams sp) {
-  ffwd::forward_tile<true>(sp.p, sp.stash, blockIdx.y, blockIdx.x * (ffwd::kRows / sp.p.S));
+  ffwd::forward_tile<true, kSpan>(sp.p, sp.stash, blockIdx.y,
+                                  blockIdx.x * ffwd::rays_per_cta<kSpan>(sp.p.S));
 }
 
 template <typename Kernel, typename Arg>
@@ -60,7 +67,7 @@ int launch(Kernel kernel, const Arg& arg, int B, int R, int S, int Kp, int H, cu
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid(R / (ffwd::kRows / S), B);
+  const dim3 grid(R / ffwd::cta_rays(S), B);
   kernel<<<grid, ffwd::kThreads, smem, st>>>(arg);
   return (int)cudaGetLastError();
 }
@@ -71,9 +78,10 @@ extern "C" {
 
 // Launch on `stream`; returns the cudaError_t of the launch (0 = success).
 // The caller (kernels/fused_field.py) has checked the shapes: S divides
-// kRows, R is a multiple of kRows / S, H is a multiple of 64 up to 192 or
-// of 128 up to 384, and Kp a multiple of 64.  `wstream` is scratch for
-// stream_slices(H, Kp) slices, which pack_stream fills first.  `stash` is
+// 64 or is a multiple of 64 up to 256, R is a multiple of cta_rays(S), H is
+// a multiple of 64 up to 192 or of 128 up to 384, and Kp a multiple of 64.
+// `wstream` is scratch for stream_slices(H, Kp) slices, which pack_stream
+// fills first.  `stash` is
 // null (no stash) or ten pointers: x0..x7, y0b ([B, R, S, H] bf16 each) and
 // y1 ([B, R, S, H/2]).
 int fused_field_fwd(const void* embed, const float* zvals, const float* zdists,
@@ -117,14 +125,18 @@ int fused_field_fwd(const void* embed, const float* zvals, const float* zdists,
   p.Kp = Kp;
   p.H = H;
   p.C = C;
-  if (!stash) return launch(field_fwd_kernel, p, B, R, S, Kp, H, st);
+  const bool span = ffwd::cta_tiles(S) > 1;
+  if (!stash)
+    return span ? launch(field_fwd_kernel<true>, p, B, R, S, Kp, H, st)
+                : launch(field_fwd_kernel<false>, p, B, R, S, Kp, H, st);
   StashParams sp = {};
   sp.p = p;
   const size_t points = (size_t)B * R * S;
   for (int k = 0; k < ffwd::kSlots; ++k)
     if (!ffwd::stash_map(&sp.stash[k], stash[k], points, k + 1 < ffwd::kSlots ? H : H / 2))
       return (int)cudaErrorInvalidValue;
-  return launch(field_fwd_stash_kernel, sp, B, R, S, Kp, H, st);
+  return span ? launch(field_fwd_stash_kernel<true>, sp, B, R, S, Kp, H, st)
+              : launch(field_fwd_stash_kernel<false>, sp, B, R, S, Kp, H, st);
 }
 
 }  // extern "C"

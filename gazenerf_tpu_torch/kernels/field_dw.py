@@ -2,9 +2,9 @@
 
 The fused field backwards (``kernels/fused_field_bwd.py``, K2, and
 ``kernels/fused_field2_bwd.py``, K4) take the points in chunks of whole
-64-point tiles (:func:`plan_chunks`).  Per chunk their tile kernel writes
-every layer's input ``X`` and bf16-rounded output cotangent ``D``, point-major,
-and the GEMM of ``csrc/field_dw.cuh`` adds ``X^T D`` over the chunk's points
+64-point tiles and whole rays (:func:`plan_chunks`).  Per chunk their tile
+kernel writes every layer's input ``X`` and bf16-rounded output cotangent
+``D``, point-major, and the GEMM of ``csrc/field_dw.cuh`` adds ``X^T D`` over the chunk's points
 into each weight gradient, chunk after chunk, in order.  It replaces the TPU
 kernel's in-kernel accumulation (``gazenerf_tpu/kernels/fused_field_bwd.py``;
 its ``split_dw`` epilogue computes the same contractions as XLA matmuls).
@@ -27,7 +27,7 @@ from gazenerf_tpu_torch.kernels import build
 
 KERNEL = "field_dw"
 DEFINES: dict = {}
-TILE_POINTS = 64  # points per tile of the backward's tile kernel (whole rays)
+TILE_POINTS = 64  # points per tile of the backward's tile kernel
 # tiles per chunk: four per CTA on a 132-SM card; at hidden 384 a chunk's
 # operands and the GEMM's partial sums take ~0.53 GB (K2) against the 7.5 GB
 # that all of a B=2 step's points would take at once
@@ -55,17 +55,30 @@ class Chunk(NamedTuple):
     last_batch: int
 
 
+def check_samples(R: int, S: int) -> None:
+    """Raise unless the backwards' tiles take rays of ``S`` samples
+    (``fused_field.takes_samples``) and ``R * S`` points per batch fill
+    whole tiles."""
+    from gazenerf_tpu_torch.kernels import fused_field as ff
+
+    if not ff.takes_samples(S):
+        raise ValueError(ff.sample_rule(S))
+    if (R * S) % TILE_POINTS:
+        raise ValueError(f"the backward takes whole rays in whole tiles of {TILE_POINTS} "
+                         f"points: R*S={R * S} must be a multiple of {TILE_POINTS}")
+
+
 def plan_chunks(B: int, R: int, S: int, chunk_tiles: int = CHUNK_TILES) -> List[Chunk]:
     """The chunks of ``B * R * S`` points in 64-point tiles: ``chunk_tiles``
-    tiles each, in order, the last one partial.  S divides 64 and ``R * S``
-    is a multiple of 64, so no tile spans a batch; a chunk may."""
-    if S <= 0 or TILE_POINTS % S or (R * S) % TILE_POINTS:
-        raise ValueError(
-            f"the kernel takes whole rays in tiles of {TILE_POINTS} points: S={S} must "
-            f"divide {TILE_POINTS} and R*S={R * S} be a multiple of it"
-        )
+    tiles each (rounded down to whole rays when a ray spans tiles, S a
+    multiple of 64), in order, the last one partial.  Either S divides 64
+    and ``R * S`` is a multiple of 64, or S is a multiple of 64, so no tile
+    spans a batch (a chunk may) and every chunk holds whole rays."""
+    check_samples(R, S)
     if chunk_tiles < 1:
         raise ValueError(f"a chunk holds at least one tile, not {chunk_tiles}")
+    per_ray = max(1, S // TILE_POINTS)  # tiles of a ray
+    chunk_tiles = max(per_ray, chunk_tiles - chunk_tiles % per_ray)
     n_tiles = B * R * S // TILE_POINTS
     per_batch = R * S
     out = []

@@ -20,6 +20,7 @@ tensors, the plain version for CPU tensors), called through the autograd
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import Dict, Mapping, NamedTuple, Tuple
 
 import torch
@@ -28,10 +29,17 @@ from gazenerf_tpu_torch.kernels import build
 from gazenerf_tpu_torch.ops.integrate import exclusive_transmittance
 
 KERNEL = "fused_field_fwd"
-# rows of one CTA: whole rays of S samples (S must divide it); the source
-# is compiled with this value, so the wrapper's checks and the kernel agree
+# rows of one tile; a CTA takes whole rays that fill whole tiles (cta_rays).
+# The source is compiled with this value, so the wrapper's checks and the
+# kernel agree
 TILE_POINTS = 128
 DEFINES = {"TILE_POINTS": TILE_POINTS}
+# The rays the field kernels (K1-K4) take: S divides 64 (the backward's
+# tile), or S is a multiple of 64 up to MAX_SAMPLES, and then a ray spans
+# tiles of one CTA, which keeps the ray's per-point floats in its shared
+# memory in the backward
+RAY_STEP = 64
+MAX_SAMPLES = 256
 # output columns of one pass of the tile's products, and the K-width of one
 # slice of the weight stream the kernels pack per call (csrc/field_fwd.cuh)
 PASS_COLS = 192
@@ -192,17 +200,37 @@ def check_tensor(name, t, device, dtype, shape):
         raise ValueError(f"{name}: not contiguous")
 
 
+def takes_samples(S: int) -> bool:
+    """Whether the field kernels take rays of ``S`` samples: ``S`` divides
+    ``RAY_STEP`` (whole rays in every tile) or is a multiple of it up to
+    ``MAX_SAMPLES`` (a ray spans tiles of one CTA)."""
+    return S > 0 and (RAY_STEP % S == 0 or (S % RAY_STEP == 0 and S <= MAX_SAMPLES))
+
+
+def cta_rays(S: int) -> int:
+    """Rays per CTA of the forward kernels: the fewest whole rays whose
+    points fill whole tiles of ``TILE_POINTS`` (``cta_rays`` in
+    csrc/field_fwd.cuh)."""
+    return TILE_POINTS // math.gcd(S, TILE_POINTS)
+
+
+def sample_rule(S: int) -> str:
+    """What the kernels take, said of ``S``."""
+    return (f"the kernels take whole rays of S samples, S dividing {RAY_STEP} or a "
+            f"multiple of {RAY_STEP} up to {MAX_SAMPLES}: not S={S}")
+
+
 def check_shapes(R, S, H, H2, Kp, De):
-    """Raise unless the tile body takes these shapes: whole rays in tiles of
-    ``TILE_POINTS`` points; activations and the embedding tile stored in
+    """Raise unless the tile body takes these shapes: rays of
+    :func:`takes_samples`, whole rays in every CTA (``R`` a multiple of
+    :func:`cta_rays`); activations and the embedding tile stored in
     64-column blocks, and a layer of more than ``PASS_COLS`` columns
     computed in two passes of half its width."""
-    T = TILE_POINTS
-    if S <= 0 or T % S or R % (T // S):
-        raise ValueError(
-            f"the kernel takes whole rays in tiles of {T} points: S={S} must divide {T} "
-            f"and R={R} be a multiple of {T // max(S, 1)}"
-        )
+    if not takes_samples(S):
+        raise ValueError(sample_rule(S))
+    if R % cta_rays(S):
+        raise ValueError(f"the kernel takes whole rays in every CTA: R={R} must be a "
+                         f"multiple of {cta_rays(S)} at S={S}")
     if H2 * 2 != H or not takes_hidden(H):
         raise ValueError(f"hidden width {H}: the kernel takes multiples of 64 up to "
                          f"{PASS_COLS} and multiples of 128 up to {2 * PASS_COLS}")
@@ -322,10 +350,10 @@ class FusedField(torch.autograd.Function):
     values, segment lengths, conditioning rows and the :data:`WEIGHT_KEYS`
     blocks (f32 views of the parameters, which receive the weight
     gradients).  The forward launches the forward kernel and saves its
-    inputs; with the stash it keeps the ten stash tensors on the context,
-    which holds them until autograd frees the graph (a backward with
-    ``retain_graph`` can run again on them), and the backward reads them;
-    without the stash the backward recomputes them.  The embedding's
+    inputs and, with the stash, the ten stash tensors, which autograd holds
+    until it frees the graph (a backward with ``retain_graph`` can run again
+    on them) and the backward reads; without the stash the backward
+    recomputes them.  The embedding's
     cotangent comes back in the embedding's dtype."""
 
     @staticmethod
@@ -333,10 +361,12 @@ class FusedField(torch.autograd.Function):
                 cb0, cb5, cbr1, *weights):
         e = embed.to(torch.bfloat16).contiguous()
         out = fused_field_forward(e, zvals, zdists, cb0, cb5, cbr1, ops, stash=stash)
-        ctx.acts = None
+        acts = ()
         if stash:
-            out, ctx.acts = out
-        ctx.save_for_backward(e, zvals, zdists, cb0, cb5, cbr1, *ops)
+            out, acts = out
+        # the stash is saved as the inputs are: a checkpoint that recomputes
+        # this forward (ray_chunk) recomputes it, and the backward reads that
+        ctx.save_for_backward(e, zvals, zdists, cb0, cb5, cbr1, *ops, *acts)
         ctx.embed_dtype = embed.dtype
         ctx.dens_vpu = dens_vpu
         return out
@@ -345,7 +375,9 @@ class FusedField(torch.autograd.Function):
     def backward(ctx, gfeat, gbga, gdepth, gw):
         from gazenerf_tpu_torch.kernels import fused_field_bwd
 
-        e, zvals, zdists, cb0, cb5, cbr1, *ops = ctx.saved_tensors
+        e, zvals, zdists, cb0, cb5, cbr1, *rest = ctx.saved_tensors
+        n = len(FieldOperands._fields)
+        ops, acts = rest[:n], tuple(rest[n:])
         B, R, S, _ = e.shape
 
         def cot(g, shape):  # an output no loss reads has no cotangent
@@ -355,7 +387,7 @@ class FusedField(torch.autograd.Function):
 
         C = ops[-1].shape[0]
         # the modes in use only: a recompute-mode call takes the plain signature
-        mode = {k: v for k, v in (("stash", ctx.acts), ("dens_vpu", ctx.dens_vpu)) if v}
+        mode = {k: v for k, v in (("stash", acts), ("dens_vpu", ctx.dens_vpu)) if v}
         g = fused_field_bwd.fused_field_backward(
             e, zvals, zdists, cb0, cb5, cbr1, FieldOperands(*ops),
             cot(gfeat, (B, R, C)), cot(gbga, (B, R)), cot(gdepth, (B, R)), cot(gw, (B, R, S)),

@@ -127,11 +127,7 @@ def _launch(embed, zvals, zdists, w: FieldOperands, g_face, g_eye, stash) -> Dua
     NB, H, Kp = w.w0e.shape
     _, H2, C = w.wr2.shape
     dev = embed.device
-    if S <= 0 or TILE_POINTS % S or (R * S) % TILE_POINTS:
-        raise ValueError(
-            f"the kernel takes whole rays in tiles of {TILE_POINTS} points: S={S} must "
-            f"divide {TILE_POINTS} and R*S={R * S} be a multiple of it"
-        )
+    field_dw.check_samples(R, S)
     if H % 64 or H > MAX_HIDDEN or H2 * 2 != H:
         raise ValueError(f"hidden width {H} must be a multiple of 64, at most {MAX_HIDDEN}")
     if Kp % 32 or Kp < De:

@@ -8,7 +8,10 @@ computed by the kernel's own GEMM over chunks of points
 (``kernels/field_dw.py``).  The kernel is hand-written
 CUDA for Hopper (``csrc/fused_field_bwd.cu``; its header states its bound,
 design, scratch and determinism); :func:`fused_field_backward_reference` is
-its plain PyTorch version with the Pallas kernel's rounding points.
+its plain PyTorch version with the Pallas kernel's rounding points.  It
+takes rays of S samples, S dividing 64 or a multiple of 64 up to 256: such
+a ray spans S / 64 tiles of one CTA, which runs the integration backward over
+the whole ray between two sweeps over its tiles.
 
 :func:`fused_field_backward` is the wrapper: the kernel for CUDA tensors,
 the plain version for CPU tensors.  The autograd ``Function`` that calls it
@@ -31,7 +34,7 @@ from gazenerf_tpu_torch.ops.integrate import exclusive_transmittance, integrate_
 
 KERNEL = "fused_field_bwd"
 DEFINES: Dict[str, int] = {}
-TILE_POINTS = 64  # points per tile in the kernel (whole rays)
+TILE_POINTS = 64  # points per tile in the kernel
 MAX_HIDDEN = 384  # one pass of the kernel's 12 warps covers 384 columns
 _EPS = 1e-10
 
@@ -331,11 +334,7 @@ def _launch(embed, zvals, zdists, cb0, cb5, cbr1, w: FieldOperands, gfeat, gbga,
     H, Kp = w.w0e.shape
     H2, C = w.wr2.shape
     dev = embed.device
-    if S <= 0 or TILE_POINTS % S or (R * S) % TILE_POINTS:
-        raise ValueError(
-            f"the kernel takes whole rays in tiles of {TILE_POINTS} points: S={S} must "
-            f"divide {TILE_POINTS} and R*S={R * S} be a multiple of it"
-        )
+    field_dw.check_samples(R, S)
     if H % 64 or H > MAX_HIDDEN or H2 * 2 != H:
         raise ValueError(f"hidden width {H} must be a multiple of 64, at most {MAX_HIDDEN}")
     if Kp % 32 or Kp < De:

@@ -15,13 +15,18 @@ density head), or with ``pallas_dual_branch`` both fields in one
 dual-branch kernel (``kernels/fused_field2``; with ``pallas_stash_acts``
 its backward reads the stash; ``pallas_dens_vpu`` is cleared there, as the
 JAX package does); otherwise through :class:`NeRFFieldMLP` in the compute
-dtype, then :func:`integrate_rays`.
+dtype, then :func:`integrate_rays`.  With ``include_vd`` the fields take
+the view-direction embedding and run eagerly (as in the JAX package).
 
 The port runs the render and the training forward (``train=True``: jittered
 samples) in the default configuration, with the stash and ``dens_vpu``
-(what the training CLI's ``--pallas_tuning auto`` selects) and with the
-dual-branch kernels; the options below raise ``NotImplementedError``,
-naming the ROADMAP item that ports them.  ``pallas_interpret``,
+(what the training CLI's ``--pallas_tuning auto`` selects), with the
+dual-branch kernels, in checkpointed ray chunks (``ray_chunk``), with the
+hierarchical sampler's fine pass (``hier_sampling``: ``fine_dict``) and
+with the renderer passes stacked along the batch (``batch_renderer_passes``,
+``batch_fg_passes``); the options below raise ``NotImplementedError``,
+naming the ROADMAP item that ports them, and so does a ray shape the fused
+field kernels do not take (ROADMAP Queue 2b, mode 6).  ``pallas_interpret``,
 ``pallas_tile_rays``, ``pallas_bwd_tile_rays`` and ``pallas_vmem_mb`` are
 the TPU kernels' interpreter switch and tiling and memory knobs: accepted,
 and of no effect in the port.
@@ -33,33 +38,63 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from gazenerf_tpu_torch.config import ModelConfig
+from gazenerf_tpu_torch.kernels import fused_field as ff
+from gazenerf_tpu_torch.kernels.field_dw import TILE_POINTS as BWD_TILE_POINTS
 from gazenerf_tpu_torch.kernels.fused_field2 import fused_dual_render, stack_operands
 from gazenerf_tpu_torch.models.mlp_nerf import NeRFFieldMLP
 from gazenerf_tpu_torch.models.neural_renderer import SHUFFLE_MODES, NeuralRenderer
 from gazenerf_tpu_torch.ops.embedding import positional_encoding
 from gazenerf_tpu_torch.ops.integrate import Integrated, integrate_rays
-from gazenerf_tpu_torch.ops.rays import SampleSet, sample_coarse
+from gazenerf_tpu_torch.ops.rays import SampleSet, sample_coarse, sample_fine
 from gazenerf_tpu_torch.ops.rotation import rotate_feature_planes
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float64": torch.float64}
 
 # settings not ported yet: (field, value the port runs, the ROADMAP item)
 _PORTED = (
-    ("hier_sampling", False, "Queue 1 item 5"),
-    ("include_vd", False, "Queue 1 item 5"),
-    ("ray_chunk", 0, "Queue 1 item 5"),
     ("pallas_fuse_embed", False, "Queue 2b, mode 4"),
     ("pallas_stash_every", 1, "Queue 2b, mode 1"),
     ("pallas_stash_dtype", "bfloat16", "Queue 2b, mode 1"),
     ("pallas_split_dw", False, "Queue 2b, mode 2"),
     ("pallas_embed_bf16", False, "Queue 2b, mode 4"),
-    ("batch_renderer_passes", False, "Queue 1 item 5"),
-    ("batch_fg_passes", False, "Queue 1 item 5"),
     ("renderer_fold_feat", True, "Queue 1 item 4"),
     ("renderer_rgb_cf", True, "Queue 1 item 4"),
 )
+
+
+def chunked(cfg: ModelConfig, rays: int) -> bool:
+    """Whether the fields run in checkpointed chunks of ``cfg.ray_chunk``
+    rays (the JAX ``_render_both``'s conditions)."""
+    rc = cfg.ray_chunk
+    return bool(rc) and rays > rc and rays % rc == 0 and not cfg.include_vd
+
+
+def check_ray_shapes(cfg: ModelConfig) -> None:
+    """Raise, in ``_PORTED``'s form, on a ray shape the fused field kernels
+    do not take yet, in the coarse pass (per chunk when :func:`chunked`) or
+    the fine pass of ``hier_sampling``: rays of S samples that neither
+    divide the backward's 64-point tile nor are a multiple of it up to
+    ``MAX_SAMPLES``, or rays that do not fill the kernels' CTAs and tiles.
+    Off the fused path (f32 fields, or ``include_vd``, whose fields run
+    eagerly) every shape runs."""
+    if not (cfg.use_pallas and cfg.compute_dtype == "bfloat16") or cfg.include_vd:
+        return
+    R = cfg.num_rays
+    shapes = [("num_sample_coarse", cfg.ray_chunk if chunked(cfg, R) else R,
+               cfg.num_sample_coarse)]
+    if cfg.hier_sampling:
+        shapes.append(("num_sample_fine", R, cfg.num_sample_coarse + cfg.num_sample_fine))
+    for name, R, S in shapes:
+        if (not ff.takes_samples(S) or R % ff.cta_rays(S) or (R * S) % BWD_TILE_POINTS):
+            raise NotImplementedError(
+                f"{name}={getattr(cfg, name)!r} is not ported yet: the fused field kernels "
+                f"run {R} rays of {S} samples, and they take S dividing {ff.RAY_STEP} or a "
+                f"multiple of {ff.RAY_STEP} up to {ff.MAX_SAMPLES}, with whole rays in "
+                f"every tile (ROADMAP Queue 2b, mode 6)"
+            )
 
 
 def resolve_device(device=None) -> torch.device:
@@ -94,6 +129,7 @@ class GazeNeRF(nn.Module):
                 f"shuffle_mode={cfg.shuffle_mode!r} is not ported yet "
                 f"(the port runs shuffle_mode in {SHUFFLE_MODES})"
             )
+        check_ray_shapes(cfg)
         device = resolve_device(device)
         self.cfg = cfg
         dtype = _DTYPES[cfg.compute_dtype]
@@ -112,6 +148,8 @@ class GazeNeRF(nn.Module):
         # names mirror the upstream modules (weight transplant)
         self.fg_CD_predictor_face = field()
         self.fg_CD_predictor_eyes = field()
+        if cfg.hier_sampling:
+            self.fine_fg_CD_predictor = field()
         self.neural_render = NeuralRenderer(
             bg_type=cfg.bg_type,
             feat_nc=cfg.featmap_nc,
@@ -129,6 +167,8 @@ class GazeNeRF(nn.Module):
         self.fg_CD_predictor_face.reset_parameters(gen)
         self.fg_CD_predictor_eyes.reset_parameters(gen)
         self.neural_render.reset_parameters(gen)
+        if cfg.hier_sampling:
+            self.fine_fg_CD_predictor.reset_parameters(gen)
         self.to(device)
 
     def __getstate__(self):
@@ -166,19 +206,44 @@ class GazeNeRF(nn.Module):
         shape_ext_code: torch.Tensor,
         appea_code: torch.Tensor,
         samples: SampleSet,
+        embed_vd: Optional[torch.Tensor] = None,
     ) -> Tuple[Integrated, Integrated]:
+        """Both streams, in checkpointed chunks of ``ray_chunk`` rays when
+        :func:`chunked` (JAX ``_render_both``: each chunk's fields under
+        ``jax.checkpoint``): each chunk runs :meth:`_render_both_impl`
+        under ``torch.utils.checkpoint``, which keeps none of its tensors
+        for the backward but recomputes them there (the stash included, so
+        the backward reads the recomputed one); the chunks' outputs are
+        joined along the rays.  The numbers do not change."""
+        R = embed.shape[1]
+        if embed_vd is not None or not chunked(self.cfg, R):
+            return self._render_both_impl(embed, shape_ext_code, appea_code,
+                                          samples.zvals, samples.z_dists, embed_vd)
+
+        def chunk(e, zv, zd):
+            return tuple(t for o in self._render_both_impl(e, shape_ext_code, appea_code, zv, zd)
+                         for t in o)
+
+        rc = self.cfg.ray_chunk
+        parts = [checkpoint(chunk, embed[:, r0:r0 + rc], samples.zvals[:, r0:r0 + rc],
+                            samples.z_dists[:, r0:r0 + rc], use_reentrant=False)
+                 for r0 in range(0, R, rc)]
+        joined = [torch.cat(ts, dim=1) for ts in zip(*parts)]
+        return Integrated(*joined[:4]), Integrated(*joined[4:])
+
+    def _render_both_impl(self, embed, shape_ext_code, appea_code, zvals, z_dists,
+                          embed_vd=None) -> Tuple[Integrated, Integrated]:
         """Both streams: one dual-branch kernel when it applies, else one
         field at a time (JAX ``_render_both_impl``)."""
-        if self.dual:
+        if self.dual and embed_vd is None:
             ps, ops = self._dual_operands()
             outs = fused_dual_render(ps, ops, embed, shape_ext_code, appea_code,
-                                     samples.zvals, samples.z_dists,
-                                     stash_acts=self.cfg.pallas_stash_acts)
+                                     zvals, z_dists, stash_acts=self.cfg.pallas_stash_acts)
             face, eyes = (Integrated(features=o[0], bg_alpha=o[1], depth=o[2], weights=o[3])
                           for o in outs)
             return face, eyes
         return tuple(
-            self._render_branch(f, embed, shape_ext_code, appea_code, samples)
+            self._render_branch(f, embed, shape_ext_code, appea_code, zvals, z_dists, embed_vd)
             for f in (self.fg_CD_predictor_face, self.fg_CD_predictor_eyes)
         )
 
@@ -188,20 +253,24 @@ class GazeNeRF(nn.Module):
         embed: torch.Tensor,
         shape_ext_code: torch.Tensor,
         appea_code: torch.Tensor,
-        samples: SampleSet,
+        zvals: torch.Tensor,
+        z_dists: torch.Tensor,
+        embed_vd: Optional[torch.Tensor] = None,
+        stash_acts: Optional[bool] = None,
     ) -> Integrated:
-        """Field evaluation + volume integration for one stream."""
-        if self.fused:
+        """Field evaluation + volume integration for one stream: the fused
+        kernels unless view directions are given (``stash_acts`` defaults
+        to the config's)."""
+        if self.fused and embed_vd is None:
+            stash = self.cfg.pallas_stash_acts if stash_acts is None else stash_acts
             feat_int, bg_alpha, depth, w = field.fused_render(
-                embed, shape_ext_code, appea_code, samples.zvals, samples.z_dists,
-                stash_acts=self.cfg.pallas_stash_acts, dens_vpu=self.cfg.pallas_dens_vpu,
+                embed, shape_ext_code, appea_code, zvals, z_dists,
+                stash_acts=stash, dens_vpu=self.cfg.pallas_dens_vpu,
             )
             return Integrated(features=feat_int, bg_alpha=bg_alpha, depth=depth, weights=w)
-        feat, density = field(embed, shape_ext_code, appea_code)
+        feat, density = field(embed, shape_ext_code, appea_code, embed_vd)
         acc = torch.promote_types(feat.dtype, torch.float32)  # bf16 fields integrate in f32
-        return integrate_rays(
-            feat.to(acc), density[..., 0].to(acc), samples.z_dists, samples.zvals
-        )
+        return integrate_rays(feat.to(acc), density[..., 0].to(acc), z_dists, zvals)
 
     def render_featmaps(
         self,
@@ -220,14 +289,23 @@ class GazeNeRF(nn.Module):
         background merge, the gaze rotation of the eye planes and the max.
 
         Takes :meth:`forward`'s arguments; returns its dict without
-        ``coarse_dict``.  The viewer renders ``featmaps["merge"]`` alone.
+        ``coarse_dict`` (and without the fine pass).  The viewer renders
+        ``featmaps["merge"]`` alone.
         """
+        return self._featmaps(batch_xy, shape_code, appea_code, gaze_code, Rmats, Tvecs,
+                              inv_inmats, train, generator, t_rand)[0]
+
+    def _featmaps(self, batch_xy, shape_code, appea_code, gaze_code, Rmats, Tvecs,
+                  inv_inmats, train, generator, t_rand):
+        """:meth:`render_featmaps`, and the coarse samples and the shape
+        code the fine pass takes."""
         cfg = self.cfg
         B = batch_xy.shape[0]
         Fs = cfg.featmap_size
 
-        if train and generator is None and t_rand is None:
-            raise ValueError("train=True draws jitter: pass a generator or t_rand")
+        if train and generator is None and (t_rand is None or cfg.hier_sampling):
+            raise ValueError("train=True draws jitter: pass a generator (with hier_sampling "
+                             "the fine pass draws from it) or t_rand")
         samples = sample_coarse(
             batch_xy, Rmats, Tvecs.reshape(B, 3), inv_inmats,
             num_samples=cfg.num_sample_coarse,
@@ -237,9 +315,10 @@ class GazeNeRF(nn.Module):
         )
         # one positional embedding for both branches
         embed = positional_encoding(samples.pts, cfg.vp_n_freqs, cfg.include_input_vp)
+        embed_vd = self._view_embedding(samples)
         shape_ext_code = torch.cat([shape_code, gaze_code.reshape(B, 2)], dim=-1)
 
-        face, eyes = self._render_both(embed, shape_ext_code, appea_code, samples)
+        face, eyes = self._render_both(embed, shape_ext_code, appea_code, samples, embed_vd)
 
         bg_featmap = self.neural_render.get_bg_featmap()
         merge_featmap_face = (
@@ -252,7 +331,7 @@ class GazeNeRF(nn.Module):
         )
         eyes_planes = rotate_feature_planes(merge_featmap_eyes, gaze_code.reshape(B, 2))
         merge_featmap = torch.maximum(merge_featmap_face, eyes_planes)
-        return {
+        out = {
             "featmaps": {
                 "face": merge_featmap_face,
                 "eyes": eyes_planes,
@@ -261,6 +340,14 @@ class GazeNeRF(nn.Module):
             "weights": face.weights,
             "depth": {"face": face.depth, "eyes": eyes.depth},
         }
+        return out, samples, shape_ext_code
+
+    def _view_embedding(self, samples: SampleSet) -> Optional[torch.Tensor]:
+        """The view-direction embedding the fields take with ``include_vd``."""
+        cfg = self.cfg
+        if not cfg.include_vd:
+            return None
+        return positional_encoding(samples.dirs, cfg.vd_n_freqs, cfg.include_input_vd)
 
     def forward(
         self,
@@ -285,22 +372,66 @@ class GazeNeRF(nn.Module):
           Rmats/Tvecs/inv_inmats: camera-to-world extrinsics and inverse
             intrinsics at featmap resolution.
           train: jitter the samples (stratified), drawing ``[B, R, S+1]``
-            uniforms from ``generator``, or taking the draws ``t_rand``.
+            uniforms from ``generator``, or taking the draws ``t_rand``;
+            with ``hier_sampling`` the fine pass draws ``[B, R,
+            num_sample_fine + 1]`` uniforms from ``generator`` too
+            (without ``train`` they are evenly spaced).
 
         Returns the JAX model's dict: ``coarse_dict`` (``merge_img``,
         ``merge_img_face``, ``merge_img_eyes``, ``bg_img``, NHWC),
-        ``featmaps``, ``weights`` and ``depth``.
+        ``featmaps``, ``weights`` and ``depth``; with ``hier_sampling`` also
+        ``fine_dict`` (``merge_img``, ``bg_img``).
         """
-        out = self.render_featmaps(
+        cfg = self.cfg
+        B = batch_xy.shape[0]
+        out, samples, shape_ext_code = self._featmaps(
             batch_xy, shape_code, appea_code, gaze_code, Rmats, Tvecs, inv_inmats,
-            train=train, generator=generator, t_rand=t_rand,
+            train, generator, t_rand,
         )
         fm = out["featmaps"]
-        # four sequential renderer passes
+        bg_featmap = self.neural_render.get_bg_featmap()
+        render = self.neural_render
+        if cfg.batch_renderer_passes:
+            # one renderer pass over bg + face + eyes + merge, stacked along
+            # the batch (the same math per image)
+            imgs = render(torch.cat([bg_featmap, fm["face"], fm["eyes"], fm["merge"]], dim=0))
+            bg_img, face_img = imgs[:1], imgs[1 : 1 + B]
+            eyes_img, merge_img = imgs[1 + B : 1 + 2 * B], imgs[1 + 2 * B :]
+        elif cfg.batch_fg_passes:
+            # the three foreground maps in one pass, the 1-row background apart
+            imgs = render(torch.cat([fm["face"], fm["eyes"], fm["merge"]], dim=0))
+            face_img, eyes_img, merge_img = imgs[:B], imgs[B : 2 * B], imgs[2 * B :]
+            bg_img = render(bg_featmap)
+        else:  # four sequential renderer passes
+            merge_img, face_img = render(fm["merge"]), render(fm["face"])
+            eyes_img, bg_img = render(fm["eyes"]), render(bg_featmap)
         out["coarse_dict"] = {
-            "merge_img": self.neural_render(fm["merge"]),
-            "merge_img_face": self.neural_render(fm["face"]),
-            "merge_img_eyes": self.neural_render(fm["eyes"]),
-            "bg_img": self.neural_render(self.neural_render.get_bg_featmap()),
+            "merge_img": merge_img,
+            "merge_img_face": face_img,
+            "merge_img_eyes": eyes_img,
+            "bg_img": bg_img,
         }
+        if cfg.hier_sampling:
+            out["fine_dict"] = self._fine_pass(out["weights"], samples, shape_ext_code,
+                                               appea_code, bg_featmap, bg_img,
+                                               generator if train else None)
         return out
+
+    def _fine_pass(self, weights, samples, shape_ext_code, appea_code, bg_featmap, bg_img,
+                   generator) -> Dict[str, torch.Tensor]:
+        """The hierarchical sampler's fine pass (JAX ``GazeNeRF.__call__``):
+        inverse-CDF samples from the face branch's coarse weights, the fine
+        field over the ``S_c + num_sample_fine`` samples (the fused kernels
+        without the stash: no loss reads ``fine_dict``, so the stash would
+        hold what no backward reads), one more renderer pass."""
+        cfg = self.cfg
+        B = weights.shape[0]
+        Fs = cfg.featmap_size
+        fine = sample_fine(weights, samples, cfg.num_sample_fine, generator=generator)
+        embed = positional_encoding(fine.pts, cfg.vp_n_freqs, cfg.include_input_vp)
+        out = self._render_branch(self.fine_fg_CD_predictor, embed, shape_ext_code, appea_code,
+                                  fine.zvals, fine.z_dists, self._view_embedding(fine),
+                                  stash_acts=False)
+        fine_merge = (out.features.reshape(B, Fs, Fs, cfg.featmap_nc)
+                      + out.bg_alpha.reshape(B, Fs, Fs, 1) * bg_featmap)
+        return {"merge_img": self.neural_render(fine_merge), "bg_img": bg_img}

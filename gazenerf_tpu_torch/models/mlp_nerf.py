@@ -8,7 +8,8 @@ Upstream ``MLPforNeRF`` topology and parameter layout (module names
   x])`` (the skip after ``fea_4``);
 * ``density``: H -> 1, ReLU;
 * ``rgb_0``: H -> H, no activation;
-* ``rgb_1``: (rgb_0 ++ appearance code) -> H/2, ReLU;
+* ``rgb_1``: (rgb_0 ++ [view-direction embedding ++] appearance code) ->
+  H/2, ReLU;
 * ``rgb_2``: H/2 -> res_nfeat (no sigmoid for the 258-channel field).
 
 The code rows of ``fea_0``, ``fea_5`` and ``rgb_1`` are folded into
@@ -137,13 +138,17 @@ class NeRFFieldMLP(nn.Module):
         embed_vp: torch.Tensor,
         shape_cond: torch.Tensor,
         appea_cond: torch.Tensor,
+        embed_vd: Optional[torch.Tensor] = None,
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Evaluate the field in ``self.dtype``.
 
         Args:
           embed_vp: ``[B, ..., embed_dims]`` positional encodings.
           shape_cond: ``[B, cond_dims]`` per-image shape ++ gaze code.
-          appea_cond: ``[B, vd_cond_dims]`` per-image appearance code.
+          appea_cond: ``[B, vd_cond_dims - Dvd]`` per-image appearance code.
+          embed_vd: optional ``[B, ..., Dvd]`` per-sample view-direction
+            encodings (``include_vd``): ``rgb_1`` takes ``cat([y, vd,
+            appearance code])``, the view-direction rows first.
 
         Returns ``(features [B, ..., res_nfeat], density [B, ..., 1])``.
         """
@@ -184,7 +189,12 @@ class NeRFFieldMLP(nn.Module):
         k, b = param("RGB_layer_0")
         y = x @ k + b  # no activation
         k, b = param("RGB_layer_1")
-        y = y @ k[:H] + (ac @ k[H:]).reshape(bshape + (H // 2,)) + b
+        if embed_vd is not None:
+            dvd = embed_vd.shape[-1]
+            y = (y @ k[:H] + embed_vd.to(dt) @ k[H : H + dvd]
+                 + (ac @ k[H + dvd :]).reshape(bshape + (H // 2,)) + b)
+        else:
+            y = y @ k[:H] + (ac @ k[H:]).reshape(bshape + (H // 2,)) + b
         y = torch.relu(y)
 
         k, b = param("RGB_layer_2")

@@ -15,6 +15,7 @@ from gazenerf_tpu_torch.ops.rays import (
     generate_rays,
     pixel_grid,
     sample_coarse,
+    sample_fine,
     stratified_zvals,
 )
 from gazenerf_tpu_torch.ops.rotation import (
@@ -36,6 +37,7 @@ __all__ = [
     "generate_rays",
     "pixel_grid",
     "sample_coarse",
+    "sample_fine",
     "stratified_zvals",
     "euler_to_rotation",
     "gaze_rotation_matrices",

@@ -5,7 +5,8 @@ and sample points ``[B, R, S, 3]``, the upstream ``ray_l = -1/d_z``
 normalisation and the plane-relative z parameterisation.  The render
 samples evenly spaced edges; training jitters each edge within its
 mid-point bounds (draws from a ``torch.Generator``, or handed in).  The
-hierarchical sampler is not ported yet.
+hierarchical sampler (:func:`sample_fine`) draws fine samples from the
+coarse weights by inverse-CDF sampling.
 """
 
 from __future__ import annotations
@@ -126,3 +127,50 @@ def sample_coarse(
         )
     zvals = stratified_zvals(rays, num_samples, world_z1, world_z2, t_rand)
     return _samples_from_zvals(zvals, rays)
+
+
+def sample_fine(
+    weights: torch.Tensor,
+    coarse: SampleSet,
+    num_fine: int,
+    generator: Optional[torch.Generator] = None,
+    u: Optional[torch.Tensor] = None,
+) -> SampleSet:
+    """Hierarchical inverse-CDF importance sampling (the JAX package's
+    ``sample_fine``, the upstream ``FineSample``).
+
+    ``weights``: ``[B, R, S_c]`` coarse integration weights, read without
+    their gradient.  Draws ``num_fine + 1`` fine z-values (uniforms ``u``
+    ``[B, R, num_fine + 1]`` when given, else from ``generator``, else
+    evenly spaced in [0, 1]), sorts their union with the ``S_c`` coarse
+    z-values into ``S_c + num_fine + 1`` edges and returns the ``S_c +
+    num_fine`` samples between them (the last edge only bounds the last
+    segment)."""
+    B, R, Sc = weights.shape
+    n_draw = num_fine + 1
+    w = weights[..., 1:-1].detach()  # [B, R, Sc-2]
+    pdf = w / torch.sum(w + 1e-5, dim=-1, keepdim=True)
+    cdf = torch.cumsum(pdf, dim=-1)
+    cdf = torch.cat([torch.zeros_like(cdf[..., :1]), cdf], dim=-1)  # [B, R, Sc-1]
+    if u is None:
+        if generator is not None:
+            u = torch.rand((B, R, n_draw), generator=generator, dtype=weights.dtype,
+                           device=weights.device)
+        else:
+            u = torch.linspace(0.0, 1.0, n_draw, dtype=weights.dtype,
+                               device=weights.device).expand(B, R, n_draw)
+    u = u.contiguous()
+    inds = torch.searchsorted(cdf.contiguous(), u, right=True)  # JAX side="right"
+    below = torch.clamp(inds - 1, min=0)
+    above = torch.clamp(inds, max=Sc - 2)
+
+    zc = coarse.zvals  # [B, R, Sc]
+    bins = 0.5 * (zc[..., 1:] + zc[..., :-1])  # [B, R, Sc-1]
+    cdf_b, cdf_a = cdf.gather(-1, below), cdf.gather(-1, above)
+    bins_b, bins_a = bins.gather(-1, below), bins.gather(-1, above)
+    denom = cdf_a - cdf_b
+    denom = torch.where(denom < 1e-5, torch.ones_like(denom), denom)
+    t = (u - cdf_b) / denom
+    fine_z = bins_b + t * (bins_a - bins_b)  # [B, R, n_draw]
+    all_z = torch.sort(torch.cat([zc, fine_z], dim=-1), dim=-1)[0]
+    return _samples_from_zvals(all_z, coarse.rays)

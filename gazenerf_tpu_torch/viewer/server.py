@@ -192,8 +192,17 @@ def make_handler(app: ViewerApp):
     return Handler
 
 
-def serve(app: ViewerApp, host: str = "127.0.0.1", port: int = 8631) -> None:
-    """Serve the viewer page and ``/render`` until interrupted."""
-    with ThreadingHTTPServer((host, port), make_handler(app)) as server:
-        print(f"GazeNeRF viewer on http://{host}:{port}")
-        server.serve_forever()
+def serve(app: ViewerApp, host: str = "127.0.0.1", port: int = 8631,
+          block: bool = True) -> ThreadingHTTPServer:
+    """Serve the viewer page and ``/render``: until interrupted, or with
+    ``block=False`` from a daemon thread, returning the server at once (the
+    caller stops it with ``shutdown()``; port 0 takes a free port, which
+    ``server.server_address`` names)."""
+    server = ThreadingHTTPServer((host, port), make_handler(app))
+    if block:
+        print(f"GazeNeRF viewer on http://{host}:{server.server_address[1]}")
+        with server:
+            server.serve_forever()
+    else:
+        threading.Thread(target=server.serve_forever, daemon=True).start()
+    return server

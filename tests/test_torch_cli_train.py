@@ -35,28 +35,24 @@ def _config(add_args, config_from_args, argv):
 @pytest.mark.parametrize("argv", ARGV, ids=["scale", "data", "deep"])
 def test_config_from_args_matches_jax(argv, tmp_path, monkeypatch):
     """The same argv gives the same model, loss, train and data sections,
-    but for the one key the port does not return at S > 64 (``ray_chunk``:
-    the JAX package chunks deep marches, the port does not yet)."""
+    ``ray_chunk`` of the deep march included."""
     monkeypatch.setenv("GAZENERF_COMPILATION_CACHE", str(tmp_path))  # the JAX CLI's cache
     want = _config(jax_common.add_common_args, jax_common.config_from_args, argv)
     got = _config(common.add_common_args, common.config_from_args, argv)
     for section in ("loss", "train", "data"):
         assert dataclasses.asdict(getattr(got, section)) == \
             dataclasses.asdict(getattr(want, section)), section
-    model = dataclasses.asdict(want.model)
-    if want.model.ray_chunk:
-        model["ray_chunk"] = 0
-    assert dataclasses.asdict(got.model) == model
+    assert dataclasses.asdict(got.model) == dataclasses.asdict(want.model)
 
 
 @pytest.mark.parametrize("shape", [(64, 64), (16, 8), (32, 32), (64, 128)])
 def test_tuned_overrides_have_jaxs_keys(shape):
-    """The same keys as the JAX package's, and its stash choice, at and
-    beyond S = 64 (the JAX package's ``ray_chunk`` apart)."""
+    """The JAX package's overrides, keys and values, at and beyond S = 64:
+    its stash choice, and its 512-ray chunks of a deep march where the rays
+    split into them."""
     want = jax_common.tuned_kernel_overrides(*shape)
-    want.pop("ray_chunk", None)
     got = common.tuned_kernel_overrides(*shape)
-    assert got.keys() == want.keys()
+    assert got == want
     assert got["pallas_stash_acts"] == want["pallas_stash_acts"] == (shape[1] <= 64)
 
 

@@ -154,13 +154,12 @@ def test_stash_without_dual_branch_raises():
     dict(pallas_stash_every=2),
     dict(pallas_stash_dtype="int8"),
     dict(pallas_split_dw=True),
-    dict(ray_chunk=64),
     dict(pallas_fuse_embed=True),
     dict(pallas_embed_bf16=True),
 ])
 def test_probe_flags_raise_with_the_dual_branch(option):
     """The dual path accepts the stash (and ``pallas_dens_vpu``, which it
-    clears), not the kernels' other probe flags or the ray chunks: each
+    clears) and the ray chunks, not the kernels' other probe flags: each
     raises, naming itself and its ROADMAP item."""
     cfg = ModelConfig(compute_dtype="bfloat16", use_pallas=True, pallas_dual_branch=True,
                       pallas_stash_acts=True, **option)

@@ -1,11 +1,11 @@
 """The shapes the forward kernels' tile body takes, held on the CPU.
 
 K1 and K3 raise in their wrappers, before a launch, on what their tile body
-(``csrc/field_fwd.cuh``) cannot take: rays split across tiles of
-``TILE_POINTS`` points, and hidden widths that are not whole 64-column
-blocks in one pass of at most ``PASS_COLS`` columns, or in two passes of half
-the width.  ``stream_slices`` sizes the weight stream the kernels pack per
-call.
+(``csrc/field_fwd.cuh``) cannot take: rays of S samples where S neither
+divides 64 nor is a multiple of 64 up to ``MAX_SAMPLES``, rays split across
+CTAs, and hidden widths that are not whole 64-column blocks in one pass of
+at most ``PASS_COLS`` columns, or in two passes of half the width.
+``stream_slices`` sizes the weight stream the kernels pack per call.
 """
 
 import pytest
@@ -26,10 +26,11 @@ def test_hidden_widths_the_tile_takes(hidden, ok):
             ff.check_shapes(16, 8, hidden, hidden // 2, 64, 63)
 
 
-@pytest.mark.parametrize("R, S", [(16, 7), (6, 32), (3, 64)])
+@pytest.mark.parametrize("R, S", [(16, 7), (6, 32), (3, 64), (16, 96), (16, 320), (3, 192)])
 def test_rays_the_tile_cannot_take_raise(R, S):
-    """Whole rays in tiles of TILE_POINTS points: S divides it and R is a
-    multiple of TILE_POINTS / S."""
+    """Whole rays in every CTA: S divides 64 or is a multiple of 64 up to
+    MAX_SAMPLES, and R is a multiple of the CTA's rays (TILE_POINTS / S, or
+    2 at S = 192)."""
     with pytest.raises(ValueError, match="whole rays"):
         ff.check_shapes(R, S, 64, 32, 64, 63)
 

@@ -665,3 +665,192 @@ def test_field_dw_matches_plain_version(card, case):
         print(f"dW {case} product {j} {tuple(g.shape)}: ratio {err / scale:.3e}")
         assert torch.isfinite(g).all() and err <= checks.DW_MAX_REL_ERR * scale, (j, err, scale)
         assert torch.equal(g, a), f"product {j}: two runs differ"
+
+
+# ---------------------------------------------------------------------------
+# rays longer than one tile (S = 128, 192, 256): K1-K4
+
+
+@pytest.mark.parametrize("case", list(checks.DEEP_CASES))
+def test_deep_forward_matches_plain_version(card, case):
+    """K1 where a ray spans the CTA's tiles (S = 192, 256) or fills one (S =
+    128): every output within ``checks.DEEP_K1_LIMITS``; the same bits over
+    two launches."""
+    args, _ = checks.field_case(*checks.DEEP_CASES[case], card)
+    with torch.no_grad():
+        got = ff.fused_field_forward(*args)
+        again = ff.fused_field_forward(*args)
+        want = ff.fused_field_reference(*args)
+    readings, fails = checks.limit_failures(checks.Outputs(*got), checks.Outputs(*want),
+                                            checks.DEEP_K1_LIMITS[case])
+    print(json.dumps({"k1_deep": case, "readings": readings}))
+    assert not fails, fails
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.fixture(scope="module")
+def deep_backward():
+    """Per deep case, K2's gradient, its plain version's (summing the weight
+    gradients in the kernel's chunks) and the inputs: shared by the tests
+    below."""
+    cache = {}
+
+    def get(case):
+        if case not in cache:
+            args, cot = checks.field_case(*checks.DEEP_CASES[case], torch.device("cuda"))
+            with torch.no_grad():
+                got = ffb.fused_field_backward(*args, *cot)
+                want = ffb.fused_field_backward_reference(*args, *cot,
+                                                          chunks=checks.deep_chunks(args))
+            cache[case] = (args, cot, got, want)
+        return cache[case]
+    return get
+
+
+@pytest.mark.parametrize("case", list(checks.DEEP_CASES))
+def test_deep_backward_matches_plain_version(card, deep_backward, case):
+    """K2 where a ray spans 2 to 4 tiles (its two sweeps: the tiles'
+    forward parts, the ray's integration backward, the tiles' backward):
+    every output within ``checks.DEEP_K2_LIMITS``; the same bits over two
+    launches."""
+    args, cot, got, want = deep_backward(case)
+    readings, fails = checks.limit_failures(got, want, checks.DEEP_K2_LIMITS[case])
+    print(json.dumps({"k2_deep": case, "readings": readings,
+                      "density_mask_flips": checks.density_mask_flips(got, want)}))
+    assert not fails, fails
+    with torch.no_grad():
+        again = ffb.fused_field_backward(*args, *cot)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("case", checks.DEEP_K2_TRUTH_CASES)
+def test_deep_backward_as_close_to_unrounded_as_plain(card, deep_backward, case):
+    """K2's rule against the unrounded float64 gradient in the deep cases."""
+    args, cot, got, want = deep_backward(case)
+    with torch.no_grad():
+        want64 = ffb.fused_field_backward_reference(*args, *cot, dtype=torch.float64,
+                                                    chunks=checks.deep_chunks(args))
+    exact = ffb.fused_field_backward_unrounded(*args, *cot)
+    dist, fails = checks.truth_failures(got, want, want64, exact, checks.K2_TRUTH_RATIO,
+                                        checks.K2_TRUTH_EXEMPT)
+    print(json.dumps({"k2_deep_truth": case, "float64": dist}))
+    assert not fails, fails
+
+
+@pytest.mark.parametrize("case", checks.DEEP_STASH_CASES)
+def test_deep_stash_modes(card, case):
+    """K1 writing the stash at S = 128 and 256: its outputs K1's to the bit,
+    the stash within ``checks.K1_STASH_LIMITS`` of the plain version's.  K2
+    reading it, with and without ``dens_vpu``: within
+    ``checks.DEEP_K2_STASH_LIMITS`` of its plain version on the same stash,
+    their density masks equal at every point, and K2 recomputing's bits
+    (with ``dens_vpu`` all but dWd)."""
+    args, cot = checks.field_case(*checks.DEEP_CASES[case], card)
+    chunks = checks.deep_chunks(args)
+    fails, out = [], {}
+    with torch.no_grad():
+        outs, acts = ff.fused_field_forward(*args, stash=True)
+        assert all(torch.equal(a, b) for a, b in zip(outs, ff.fused_field_forward(*args)))
+        _, want_acts = ff.fused_field_reference(*args, stash=True)
+        out["k1_stash"], f = checks.k1_stash_failures(acts, want_acts)
+        fails += f
+        recompute = ffb.fused_field_backward(*args, *cot)
+        for dens_vpu in (False, True):
+            got = ffb.fused_field_backward(*args, *cot, stash=acts, dens_vpu=dens_vpu)
+            want = ffb.fused_field_backward_reference(*args, *cot, stash=acts, chunks=chunks,
+                                                      dens_vpu=dens_vpu)
+            out[f"k2_stash dens_vpu={dens_vpu}"], f = checks.limit_failures(
+                got, want, checks.DEEP_K2_STASH_LIMITS[case])
+            fails += f
+            assert checks.density_mask_flips(got, want) == 0
+            differ = [n for n, a, b in zip(got._fields, got, recompute) if not torch.equal(a, b)]
+            assert differ == (["dWd"] if dens_vpu else []), differ
+    print(json.dumps({"deep_stash": case, "readings": out}))
+    assert not fails, fails
+
+
+def test_deep_dual_kernels(card):
+    """K3 and K4 at S = 256: K3 with and without the stash K1 on each branch
+    to the bit, within ``checks.DEEP_K3_LIMITS`` of its plain version per
+    branch and its stash within ``checks.K3_STASH_LIMITS`` (training case);
+    K4 within ``checks.DEEP_K4_LIMITS`` of its plain version, and equal to
+    K2 reading each branch's stash (the weight gradients to the bit, the
+    per-point cotangents as ``checks.K4_VS_K2_LIMITS``)."""
+    case = checks.DEEP_DUAL_CASE
+    dargs, (g_face, g_eye) = checks.dual_case(*checks.DEEP_CASES[case], card)
+    fails, out = [], {}
+    with torch.no_grad():
+        plain_outs = ff2.fused_dual_forward(*dargs)
+        outs, acts = ff2.fused_dual_forward(*dargs, stash=True)
+        want_outs, want_acts = ff2.fused_dual_reference(*dargs, stash=True)
+        per = []
+        for i, g in enumerate((g_face, g_eye)):
+            branch = (*dargs[:3], *(t[i] for t in dargs[3:6]), ff2.branch_operands(dargs[6], i))
+            single = ff.fused_field_forward(*branch)
+            for n, a, b, c in zip(NAMES, plain_outs[i], single, outs[i]):
+                assert torch.equal(a, b), (i, n, "K3 vs K1")
+                assert torch.equal(a, c), (i, n, "the stash changed an output")
+            per.append(ffb.fused_field_backward(*branch, *g, stash=acts[i]))
+        out["k3"], f = checks.deep_k3_failures(outs, want_outs)
+        fails += f
+        out["k3_stash"], f = checks.k3_stash_failures("training", acts, want_acts)
+        fails += f
+        got = ffb2.fused_dual_backward(*dargs, g_face, g_eye, acts)
+        want = ffb2.fused_dual_backward_reference(*dargs, g_face, g_eye, acts)
+        out["k4"], f = checks.limit_failures(got, want, checks.DEEP_K4_LIMITS)
+        fails += f
+        out["k4_vs_k2"], f = checks.k4_vs_k2_failures("training", got, ffb2.sum_branches(per))
+        fails += f
+        shared = ("dembed", "dzvals", "dzdists")
+        differ = [n for n, a, b in zip(got._fields, got, ffb2.sum_branches(per))
+                  if n not in shared and not torch.equal(a, b)]
+        assert not differ, differ
+    print(json.dumps({"deep_dual": case, "readings": out}))
+    assert not fails, fails
+
+
+@pytest.mark.parametrize("stash", [False, True], ids=["recompute", "stash"])
+def test_deep_training_step_on_card(card, stash):
+    """One step of the small bf16 model at 128 samples a ray in 4 chunks of
+    64 rays, with the fine pass at 128 + 64 = 192 samples: per chunk two K1
+    in the forward, two more in the backward's recompute of the chunk, and
+    two K2 (reading the recomputed stash with the stash); the fine pass one
+    K1 and no K2 (no loss reads it).  Finite gradients; the losses within
+    1e-3 (relative) of the same step with the plain versions."""
+    model = dataclasses.replace(small_test_config(), compute_dtype="bfloat16",
+                                renderer_dtype="bfloat16", use_pallas=True,
+                                num_sample_coarse=128, num_sample_fine=64, hier_sampling=True,
+                                ray_chunk=64, pallas_stash_acts=stash, pallas_dens_vpu=stash)
+    trainer = Trainer(Config(model=model, loss=LossConfig(use_vgg_loss=False)),
+                      train_len=4, steps_per_epoch=1)  # the card: no device given
+    gen = torch.Generator().manual_seed(0)
+    size, fs = model.pred_img_size, model.featmap_size
+    inmat = torch.linalg.inv(torch.from_numpy(base_inv_inmat(fs)))
+    inmat[:2] *= size / fs
+    batch = {
+        "image": torch.rand(2, size, size, 3, generator=gen),
+        "head_mask": (torch.rand(2, size, size, generator=gen) > 0.3).float(),
+        "left_eye_mask": (torch.rand(2, size, size, generator=gen) > 0.9).float(),
+        "right_eye_mask": (torch.rand(2, size, size, generator=gen) > 0.9).float(),
+        "code": 0.1 * torch.randn(2, 306, generator=gen),
+        "sample_idx": torch.tensor([0, 3]),
+        "pitchyaw": 0.2 * torch.randn(2, 2, generator=gen),
+        "c2w_Rmat": torch.diag(torch.tensor([1.0, -1.0, -1.0])).expand(2, 3, 3),
+        "c2w_Tvec": torch.tensor([[0.0, 0.0, 12.0]]).expand(2, 3),
+        "inmat": inmat.expand(2, 3, 3),
+    }
+    t_rand = torch.rand(2, model.num_rays, model.num_sample_coarse + 1, device=card)
+    before = (ff.launch_count, ffb.launch_count)
+    losses = trainer.train_step(batch, t_rand=t_rand, update=False)
+    torch.cuda.synchronize()
+    chunks = model.num_rays // model.ray_chunk
+    used = (ff.launch_count - before[0], ffb.launch_count - before[1])
+    assert used == (2 * chunks + 2 * chunks + 1, 2 * chunks)
+    for g in trainer.optimizer.param_groups:
+        for p in g["params"]:
+            assert p.grad is None or torch.isfinite(p.grad).all(), g["name"]
+    with checks.plain_versions():
+        plain = trainer.train_step(batch, t_rand=t_rand, update=False)
+    for k, v in losses.items():
+        assert torch.isfinite(v), k
+        torch.testing.assert_close(v, plain[k], rtol=1e-3, atol=1e-6, msg=k)

@@ -269,14 +269,9 @@ def test_viewer_serves_render_over_http(jax_setup):
 @pytest.mark.parametrize(
     "option",
     [
-        dict(hier_sampling=True),
-        dict(include_vd=True),
-        dict(ray_chunk=64),
         dict(pallas_stash_every=2),
         dict(pallas_fuse_embed=True),
         dict(pallas_split_dw=True),
-        dict(batch_renderer_passes=True),
-        dict(batch_fg_passes=True),
         dict(shuffle_mode="phase"),
         dict(shuffle_mode="naive"),
         dict(renderer_fold_feat=False),

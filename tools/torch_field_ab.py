@@ -14,17 +14,22 @@ out.  Each (tree, turn) runs in a child process with that tree's package on
 ``sys.path`` (its kernels built into its own ``build/``), in the order of the
 specs and then reversed (A B, B A, ...), so that two trees are compared on
 one card under the same conditions.  Per child it prints one JSON line: the
-card, ``-Xptxas -v`` of the forward kernels, K1 at B=1 (one 512^2 render's
+card, ``-Xptxas -v`` of the field kernels, K1 at B=1 (one 512^2 render's
 shape, 4096 rays x 64 samples) and B=2 (the training step's), K3 at B=1
-without and at B=2 with and without the stash (ms per launch, CUDA events,
-hidden 384), and with ``--steps``, for the trees without a variant, the
-device time and peak memory of one full-width training step, ``phase_gm``
-and ``dual``.  Imports nothing of JAX.
+without and at B=2 with and without the stash, K2 at B=2 recomputing and
+reading K1's stash with ``dens_vpu`` (ms per launch, CUDA events, hidden
+384), ``digest``: a hash of each output of K1, K2 (recomputing and reading
+the stash), K3 and K4 in ``kernels/checks.py``'s cases at S <= 64, and with
+``--steps``, for the trees without a variant, the device time and peak
+memory of one full-width training step, ``phase_gm`` and ``dual``.  The
+last line, ``digests_equal``, says per output whether every tree gave the
+same bits.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import os
 import shutil
@@ -40,9 +45,9 @@ VARIANTS = {
     # the tile body with the weights streamed into a shared-memory ring by a
     # producer warp and the products on wgmma
     "no_products": [(FWD, "    if (on) {", "    if (false && on) {")],
-    "no_compositing": [(FWD, "  // compositing: a warp per ray,",
-                        "  if (kStash && tid == 0) asm volatile(\"cp.async.bulk.wait_group 0;\" ::: \"memory\");\n"
-                        "  return;\n  // compositing: a warp per ray,")],
+    "no_compositing": [(FWD, "    // compositing: a warp per ray,",
+                        "    if (kStash && tid == 0) asm volatile(\"cp.async.bulk.wait_group 0;\" ::: \"memory\");\n"
+                        "    return;\n    // compositing: a warp per ray,")],
     "no_stash_stores": [(FWD, "        tma_store(map,", "        if (false) tma_store(map,")],
     # the earlier tile body, whose warps read their B fragments from global
     # memory with ldg32
@@ -78,6 +83,51 @@ def prepare(label: str, spec: str, variants=None) -> Path:
     return out
 
 
+def digest(t) -> str:
+    """A hash of a tensor's bytes."""
+    import torch
+
+    raw = t.contiguous().view(-1).view(torch.uint8).cpu().numpy().tobytes()
+    return hashlib.sha256(raw).hexdigest()[:16]
+
+
+def digests(checks, ff, ffb, ff2, ffb2, dev) -> dict:
+    """Per output of K1, K2 (recomputing; reading K1's stash, with and
+    without ``dens_vpu``), K3 (with the stash: outputs and stash) and K4 in
+    ``checks``' cases at S <= 64: the hash of its bits."""
+    out = {}
+
+    def put(prefix, names, tensors):
+        for n, t in zip(names, tensors):
+            out[f"{prefix} {n}"] = digest(t)
+
+    import torch
+
+    grads = ffb.FieldGrads._fields
+    with torch.no_grad():
+        for case in ("narrow", "medium", "wide", "training"):
+            args, cot = checks.field_case(*checks.K2_CASES[case], dev)
+            put(f"K1 {case}", checks.Outputs._fields, ff.fused_field_forward(*args))
+            put(f"K2 {case}", grads, ffb.fused_field_backward(*args, *cot))
+            if case in ("narrow", "training"):
+                _, acts = ff.fused_field_forward(*args, stash=True)
+                put(f"K1 stash {case}", checks.STASH_SLOTS, acts)
+                for dv in (False, True):
+                    put(f"K2 stash dens_vpu={dv} {case}", grads,
+                        ffb.fused_field_backward(*args, *cot, stash=acts, dens_vpu=dv))
+            del args, cot
+        for case in checks.DUAL_CASES:
+            dargs, g = checks.dual_case(*checks.DUAL_CASES[case], dev)
+            outs, acts = ff2.fused_dual_forward(*dargs, stash=True)
+            for i, br in enumerate(("face", "eyes")):
+                put(f"K3 {case} {br}", checks.Outputs._fields, outs[i])
+                put(f"K3 stash {case} {br}", checks.STASH_SLOTS, acts[i])
+            d = ffb2.fused_dual_backward(*dargs, *g, acts)
+            put(f"K4 {case}", d._fields, d)
+            del dargs, g, outs, acts, d
+    return out
+
+
 def child(args) -> dict:
     """Measure the tree on sys.path[0] (the child's working directory)."""
     import torch
@@ -89,18 +139,21 @@ def child(args) -> dict:
     from gazenerf_tpu_torch.kernels import build, checks
     from gazenerf_tpu_torch.kernels import fused_field as ff
     from gazenerf_tpu_torch.kernels import fused_field2 as ff2
+    from gazenerf_tpu_torch.kernels import fused_field2_bwd as ffb2
+    from gazenerf_tpu_torch.kernels import fused_field_bwd as ffb
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
-    logs = build.build({ff.KERNEL: ff.DEFINES, ff2.KERNEL: ff2.DEFINES})
+    logs = build.build({m.KERNEL: m.DEFINES for m in (ff, ff2, ffb, ffb2)})
     ptxas = [line.strip() for log in logs.values() for line in log.splitlines()
              if "Compiling entry" in line or "registers" in line or "spill" in line]
     dev = torch.device("cuda")
     out = {"label": args.label, "turn": args.turn, "card": smi, "ptxas": ptxas, "ms": {}}
     with torch.no_grad():
-        args2, _ = checks.field_case(384, 64, 4096, dev)
+        args2, cot2 = checks.field_case(384, 64, 4096, dev)
+        _, acts2 = ff.fused_field_forward(*args2, stash=True)
         args1 = tuple(t[:1].contiguous() for t in args2[:6]) + (args2[6],)
         dargs, _ = checks.dual_case(384, 64, 4096, dev)
         dargs1 = (*(t[:1].contiguous() for t in dargs[:3]),
@@ -111,9 +164,15 @@ def child(args) -> dict:
             "K3 B=1 no stash": lambda: ff2.fused_dual_forward(*dargs1),
             "K3 B=2 stash": lambda: ff2.fused_dual_forward(*dargs, stash=True),
             "K3 B=2 no stash": lambda: ff2.fused_dual_forward(*dargs),
+            "K2 B=2": lambda: ffb.fused_field_backward(*args2, *cot2),
+            "K2 B=2 stash dens_vpu": lambda: ffb.fused_field_backward(
+                *args2, *cot2, stash=acts2, dens_vpu=True),
         }
         for name, fn in runs.items():
             out["ms"][name] = cs.cuda_ms(fn, args.iters)
+    del args2, cot2, acts2, args1, dargs, dargs1
+    torch.cuda.empty_cache()
+    out["digest"] = digests(checks, ff, ffb, ff2, ffb2, dev)
     if args.steps:
         out["step"] = step_profiles(cs, {"phase_gm": {}, "dual": cs.DUAL_FLAGS})
     return out
@@ -235,7 +294,14 @@ def main() -> int:
     if args.child:
         print(json.dumps(child(args)))
         return 0
-    summarise(run_turns(__file__, args))
+    results = run_turns(__file__, args)
+    summarise(results)
+    # per output: do all the labels give the same bits?
+    same = {}
+    for r in results:
+        for k, v in r.get("digest", {}).items():
+            same.setdefault(k, set()).add(v)
+    print(json.dumps({"digests_equal": {k: len(v) == 1 for k, v in same.items()}}))
     return 0
 
 
