@@ -32,7 +32,9 @@ Phases (each raises on failure, so any failed phase exits non-zero):
    it, with and without ``dens_vpu``, in the narrow case and at the
    training step's shape against its plain version, the unrounded float64
    gradient, itself over two launches and K2 recomputing (to the bit;
-   ``k2_stash_profile``); rays longer than one tile (``kernels/checks.py``
+   ``k2_stash_profile``; without ``dens_vpu`` it is the mode that
+   ``pallas_split_dw`` runs); rays longer
+   than one tile (``kernels/checks.py``
    ``DEEP_CASES``: S = 128, 192, 256): K1 and K2 against their plain
    versions, K2 against the unrounded float64 gradient, K1 writing the
    stash and K2 reading it (density masks equal, K2 recomputing's bits), K3
@@ -63,7 +65,16 @@ Phases (each raises on failure, so any failed phase exits non-zero):
    single-branch step and the step without the stash, which launches K3
    once and K2 twice; the ``stash`` step also against ``phase_gm``'s);
    then where a step's time goes, with both memory peaks (the caching
-   allocator's and the tensors' requested bytes);
+   allocator's and the tensors' requested bytes); the same for the
+   training step with the full loss stack (``full_loss``: the VGG16,
+   angular and PatchGAN losses with the discriminator's update and the
+   gradual eye importance, ``phase_gm``; ``split_dw``: the same with
+   ``pallas_split_dw``, K1 writing the stash and K2 reading it without
+   ``dens_vpu``, the mode of each K2 call read on the main path, its step
+   also against ``phase_gm``'s), each side of
+   a gradient comparison from the same discriminator state, with the
+   discriminator update's, the gaze-VGG's and the generator term's stage
+   times;
    then the deep march's variants, ``deep`` and ``deep_stash`` (S = 256 in
    checkpointed 512-ray chunks, the CLI's ``--pallas_tuning auto``
    overrides for that shape, no VGG loss; the second reading the stash), as
@@ -127,6 +138,21 @@ STASH_FLAGS = {"pallas_stash_acts": True, "pallas_dens_vpu": True}
 # the deep march's training variants: recomputing, and reading the stash
 DEEP = "deep"
 DEEP_STASH = "deep_stash"
+# BASELINE.json config 4: the training step with the full loss stack (VGG16
+# perceptual, the angular gaze loss, the PatchGAN and its update, the
+# gradual eye importance), phase_gm; the generator term's warm-up short
+# enough that it is on from the second step; and the same with split_dw
+FULL_LOSS = "full_loss"
+SPLIT_DW = "split_dw"
+FULL_LOSS_FLAGS = dict(use_vgg_loss=True, use_angular_loss=True, use_patch_gan_loss=True,
+                       is_gradual_loss=True, gan_warmup_steps=10)
+SPLIT_DW_FLAGS = {"pallas_split_dw": True, "pallas_dens_vpu": True}
+# the modes (stash read, dens_vpu) of the K2 calls a variant's step makes:
+# split_dw reads the stash without dens_vpu, whatever pallas_dens_vpu says
+K2_MODES = {STASH: [(True, True)], SPLIT_DW: [(True, False)]}
+# the epoch whose gradual eye importance the training variants take
+# (eye_loss_importance + 30 * epoch = 70)
+GRADUAL_EPOCH = 2
 # the kernels' counters, in the order of the ``kernels`` line
 KERNELS = ("fused_field_fwd", "fused_field_bwd", "shuffle_blur_fwd", "shuffle_blur_bwd",
            "fused_upsampler_fwd", "fused_upsampler_bwd", "fused_dual_fwd", "fused_dual_bwd")
@@ -694,9 +720,10 @@ def phase_stash_kernels(seed, iters):
     recomputing on the same inputs (every output to the bit; with
     ``dens_vpu`` all but dWd).  Limits in ``kernels/checks.py``.  K1 with
     the stash and K2 reading it with ``dens_vpu`` (what the training CLI
-    runs at S <= 64) timed at the training shape beside K3's and K4's
-    bounds for one branch.  Returns the readings that join K1's and K2's
-    entries of the ``kernels`` line."""
+    runs at S <= 64) and without it (what ``pallas_split_dw`` runs) timed
+    at the training shape beside K3's and K4's bounds for one branch.
+    Returns the readings that join K1's and K2's entries of the
+    ``kernels`` line."""
     import torch
 
     from gazenerf_tpu_torch.kernels import checks
@@ -705,6 +732,7 @@ def phase_stash_kernels(seed, iters):
 
     dev = torch.device("cuda")
     fails = []
+    k2_err, k2_grads = {}, {}
     for case in checks.K2_STASH_CASES:
         args, cot = checks.field_case(*checks.K2_CASES[case], dev, seed=seed)
         with torch.no_grad():
@@ -751,9 +779,9 @@ def phase_stash_kernels(seed, iters):
             line[tag] = {"readings": r, "unrounded_distance": dist,
                          "vs_recompute_max_abs_err": max(vs.values())}
             fails += [f"K2 stash {tag} {case}: {x}" for x in f]
-            if case == "training" and dens_vpu:
-                k2_err = float(max((a - b).abs().max() for a, b in zip(got, want)))
-                k2_grads = got
+            if case == "training":
+                k2_err[dens_vpu] = float(max((a - b).abs().max() for a, b in zip(got, want)))
+                k2_grads[dens_vpu] = got
             del got, again, want
         print(json.dumps(line))
     check(not fails, "\n".join(fails))
@@ -762,22 +790,34 @@ def phase_stash_kernels(seed, iters):
         k1_plain_ms = cuda_ms(lambda: ff.fused_field_reference(*args, stash=True),
                               max(2, iters // 4), warmup=1)
         k2_iters = max(4, iters // 4)
-        k2_ms = cuda_ms(lambda: ffb.fused_field_backward(*args, *cot, stash=acts, dens_vpu=True),
-                        k2_iters)
-        k2_plain_ms = cuda_ms(lambda: ffb.fused_field_backward_reference(
-            *args, *cot, stash=acts, dens_vpu=True), max(2, k2_iters // 4), warmup=1)
+        k2_ms, k2_plain_ms = {}, {}
+        for dens_vpu in (True, False):
+            k2_ms[dens_vpu] = cuda_ms(lambda: ffb.fused_field_backward(
+                *args, *cot, stash=acts, dens_vpu=dens_vpu), k2_iters)
+            k2_plain_ms[dens_vpu] = cuda_ms(lambda: ffb.fused_field_backward_reference(
+                *args, *cot, stash=acts, dens_vpu=dens_vpu), max(2, k2_iters // 4), warmup=1)
         print(json.dumps({"k2_stash_profile": device_profile(
             lambda: ffb.fused_field_backward(*args, *cot, stash=acts, dens_vpu=True), top=6)}))
     k1_bnd = k1_stash_bound(args, out, acts)
-    k2_bnd = k2_stash_bound(args, cot, acts, k2_grads)
+    k2_bnd = {d: k2_stash_bound(args, cot, acts, g) for d, g in k2_grads.items()}
     print(f"K1 with the stash, training shape: {k1_ms:.4f} ms, plain {k1_plain_ms:.4f} ms, "
-          f"bound {k1_bnd[0]:.4f} ms ({k1_bnd[1]}); K2 reading it (dens_vpu): {k2_ms:.4f} ms, "
-          f"plain {k2_plain_ms:.4f} ms, bound {k2_bnd[0]:.4f} ms ({k2_bnd[1]})")
+          f"bound {k1_bnd[0]:.4f} ms ({k1_bnd[1]})")
+    for dens_vpu, tag in ((True, "with dens_vpu"), (False, "without dens_vpu (split_dw)")):
+        print(f"K2 reading it {tag}: {k2_ms[dens_vpu]:.4f} ms, plain "
+              f"{k2_plain_ms[dens_vpu]:.4f} ms, bound {k2_bnd[dens_vpu][0]:.4f} ms "
+              f"({k2_bnd[dens_vpu][1]})")
+
+    def k2_entry(dens_vpu, mode):
+        return {"mode": mode, "max_abs_err": k2_err[dens_vpu], "ms": k2_ms[dens_vpu],
+                "plain_ms": k2_plain_ms[dens_vpu], "bound_ms": k2_bnd[dens_vpu][0],
+                "bound_by": k2_bnd[dens_vpu][1]}
+
     return (
         {"mode": "stash write, training shape", "max_abs_err": k1_err, "ms": k1_ms,
          "plain_ms": k1_plain_ms, "bound_ms": k1_bnd[0], "bound_by": k1_bnd[1]},
-        {"mode": "stash read with dens_vpu, training shape", "max_abs_err": k2_err, "ms": k2_ms,
-         "plain_ms": k2_plain_ms, "bound_ms": k2_bnd[0], "bound_by": k2_bnd[1]},
+        k2_entry(True, "stash read with dens_vpu, training shape"),
+        k2_entry(False, "stash read without dens_vpu (what pallas_split_dw runs), training "
+                        "shape"),
     )
 
 
@@ -1502,13 +1542,15 @@ def phase_training(seed, cfg, n_steps, name, loss=None):
     gradient, as the background pass carries ``bg_loss``), then one step's
     gradients with the kernels against the plain versions (on the dual path
     also against the single-branch step, and one step without the stash),
-    then where a step's time goes.  Returns the variant's part of the
+    then where a step's time goes.  The mode of each K2 call in the two
+    warm-up steps is read (``K2_MODES``).  Returns the variant's part of the
     ``training`` line."""
     import statistics
 
     import torch
 
     from gazenerf_tpu_torch import Config, Trainer
+    from gazenerf_tpu_torch.kernels import fused_field_bwd as ffb
 
     mode = name
     tcfg = Config(model=cfg) if loss is None else Config(model=cfg, loss=loss)
@@ -1521,15 +1563,30 @@ def phase_training(seed, cfg, n_steps, name, loss=None):
     def read(losses):
         return {k: float(v) for k, v in losses.items()}
 
-    first = read(trainer.train_step(batch))
-    trainer.train_step(batch)
+    eye_imp = trainer.eye_importance(GRADUAL_EPOCH)  # None without is_gradual_loss
+    k2_modes, bwd = [], ffb.fused_field_backward
+
+    def bwd_spy(*a, stash=None, dens_vpu=False, **k):
+        k2_modes.append((stash is not None, dens_vpu))
+        return bwd(*a, stash=stash, dens_vpu=dens_vpu, **k)
+
+    ffb.fused_field_backward = bwd_spy  # the mode of each K2 call in the warm-up steps
+    try:
+        first = read(trainer.train_step(batch, eye_imp=eye_imp))
+        trainer.train_step(batch, eye_imp=eye_imp)
+    finally:
+        ffb.fused_field_backward = bwd
+    k2_modes = sorted(set(k2_modes))
+    if name in K2_MODES:
+        check(k2_modes == K2_MODES[name], f"{mode}: K2 ran in the modes (stash read, dens_vpu) "
+              f"{k2_modes}, expected {K2_MODES[name]}")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()  # counts from here on are the main path's
     times = []
     for _ in range(n_steps):
         t0 = time.perf_counter()
-        losses = trainer.train_step(batch)
+        losses = trainer.train_step(batch, eye_imp=eye_imp)
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
     launches = launch_counts()
@@ -1538,8 +1595,20 @@ def phase_training(seed, cfg, n_steps, name, loss=None):
     last = read(losses)
     for loss, v in {**first, **last}.items():
         check(v == v and abs(v) != float("inf"), f"{mode}: training loss {loss} is not finite")
-    check(last["total_loss"] < first["total_loss"],
-          f"{mode}: total loss did not fall: {first['total_loss']} -> {last['total_loss']}")
+    lc = tcfg.loss
+    want_keys = ({"angular"} if lc.use_angular_loss else set()) | (
+        {"gen_patch_gan_loss", "disc_patch_gan_loss"} if lc.use_patch_gan_loss else set())
+    check(want_keys <= set(last), f"{mode}: the losses lack {want_keys - set(last)}")
+    if lc.use_patch_gan_loss:  # the warm-up is 0 at the first step, on after it
+        check(first["gen_patch_gan_loss"] == 0.0 < last["gen_patch_gan_loss"],
+              f"{mode}: generator term {first['gen_patch_gan_loss']} -> "
+              f"{last['gen_patch_gan_loss']}")
+
+    def falling(losses):  # the total without the generator term the warm-up turns on
+        return losses["total_loss"] - losses.get("gen_patch_gan_loss", 0.0)
+
+    check(falling(last) < falling(first),
+          f"{mode}: total loss did not fall: {falling(first)} -> {falling(last)}")
     want = expected_launches(cfg, n_steps, train=True)
     check(launches == want, f"{mode}: {n_steps} steps launched {launches} (expected {want})")
 
@@ -1549,8 +1618,10 @@ def phase_training(seed, cfg, n_steps, name, loss=None):
         "step_ms": {"median": statistics.median(times), "samples": times},
         "launches": {k: v for k, v in launches.items() if v},
         "launches_per_step": {k: v / n_steps for k, v in launches.items() if v},
+        "k2_modes_stash_read_dens_vpu": k2_modes,
         "losses_first_step": first,
         "losses_last_step": last,
+        "eye_loss_importance": eye_imp,
         "steps": 2 + n_steps,
         "peak_memory_bytes": peak,
         "peak_requested_bytes": peak_requested,
@@ -1573,12 +1644,15 @@ def phase_grad_check(trainer, batch, seed, name):
 
     model = trainer.model
     cfg = model.cfg
+    # a step updates the discriminator: each side starts from this state
+    disc0 = trainer.disc_state()
     gen = torch.Generator(device=trainer.device).manual_seed(seed + 7)
     t_rand = torch.rand((trainer.cfg.train.batch_size, cfg.num_rays, cfg.num_sample_coarse + 1),
                         generator=gen, device=trainer.device)
 
     def grads(step_cfg=cfg):
         model.cfg = step_cfg  # the field path is read from the model's config per call
+        trainer.load_disc_state(disc0)
         reset_launch_counts()
         try:
             trainer.train_step(batch, t_rand=t_rand, update=False)
@@ -1608,6 +1682,7 @@ def phase_grad_check(trainer, batch, seed, name):
 
     with_kernels = grads()
     with checks.plain_versions():
+        trainer.load_disc_state(disc0)
         reset_launch_counts()
         trainer.train_step(batch, t_rand=t_rand, update=False)
         used = launch_counts()
@@ -1623,29 +1698,45 @@ def phase_grad_check(trainer, batch, seed, name):
         recompute = grads(dataclasses.replace(cfg, pallas_stash_acts=False))
         out["stash_vs_recompute"] = compare("stash (K4) vs recompute (K2 per branch)",
                                             with_kernels, recompute, DUAL_GRAD_REL_L2)
-    elif cfg.pallas_stash_acts:
-        phase_gm = grads(dataclasses.replace(cfg, pallas_stash_acts=False, pallas_dens_vpu=False))
-        out["stash_vs_phase_gm"] = compare("stash and dens_vpu vs phase_gm (K2 recomputing)",
-                                           with_kernels, phase_gm, STASH_GRAD_REL_L2)
+    elif cfg.pallas_stash_acts or cfg.pallas_split_dw:
+        what = "split_dw" if cfg.pallas_split_dw else "stash and dens_vpu"
+        phase_gm = grads(dataclasses.replace(cfg, pallas_stash_acts=False, pallas_dens_vpu=False,
+                                             pallas_split_dw=False))
+        out[f"{what.split()[0]}_vs_phase_gm"] = compare(
+            f"{what} vs phase_gm (K2 recomputing)", with_kernels, phase_gm, STASH_GRAD_REL_L2)
     trainer.optimizer.zero_grad(set_to_none=True)
+    trainer.load_disc_state(disc0)
     return out
 
 
 def phase_step_breakdown(trainer, batch):
     """Where one training step's time goes, on the device: the step's
     stages each timed alone to a synchronize (fields forward with K1, or K3
-    on the dual path, the four renderer passes, the losses with VGG, then
-    the backward in three parts, the fields' with K2 or K4, and the
-    optimizer), and the whole step under ``torch.profiler`` (device time by
-    kernel, the port's kernels apart)."""
+    on the dual path, the four renderer passes; with the GAN loss the
+    discriminator's update; the gaze-VGG's angular term and the generator
+    term through the discriminator, each forward and backward to the merged
+    image; the whole loss stack, then the backward in three parts, the
+    fields' with K2 or K4, and the optimizer), and the whole step under
+    ``torch.profiler`` (device time by kernel, the port's kernels apart)."""
     import numpy as np
     import torch
 
-    from gazenerf_tpu_torch.losses.gazenerf_loss import compute_losses
+    from gazenerf_tpu_torch.losses.gazenerf_loss import (
+        compute_losses,
+        gaze_angular_distance,
+        generator_loss,
+    )
+    from gazenerf_tpu_torch.models.vgg import normalize_imagenet
+    from gazenerf_tpu_torch.ops.image import resize_bilinear
     from gazenerf_tpu_torch.ops.rays import pixel_grid
-    from gazenerf_tpu_torch.train.trainer import compose_codes_and_cams, decode_uint8_batch
+    from gazenerf_tpu_torch.train.trainer import (
+        compose_codes_and_cams,
+        decode_uint8_batch,
+        discriminator_step,
+    )
 
     model, cfg = trainer.model, trainer.cfg
+    eye_imp = trainer.eye_importance(GRADUAL_EPOCH)
     b = decode_uint8_batch(trainer.to_device(batch))
     B = b["image"].shape[0]
     expr = torch.as_tensor(np.asarray(trainer.expr_fix), device=trainer.device)
@@ -1669,10 +1760,30 @@ def phase_step_breakdown(trainer, batch):
         imgs = timed("renderer_forward_4_passes", lambda: {
             "merge_img": nr(fm["merge"]), "merge_img_face": nr(fm["face"]),
             "merge_img_eyes": nr(fm["eyes"]), "bg_img": nr(nr.get_bg_featmap())})
+        merge, hm = imgs["merge_img"], b["head_mask"][..., None]
+        disc, gaze = trainer.disc, trainer.frozen.gaze_fn()
+        disc_fn = None
+        if disc is not None:
+            timed("discriminator_update", lambda: discriminator_step(
+                disc, trainer.disc_optimizer, merge, b["image"], hm))
+            disc_fn = lambda img: disc(img, train=False)  # noqa: E731
+            gen = timed("generator_loss_forward", lambda: generator_loss(
+                disc_fn(resize_bilinear(merge, (224, 224)))))
+            timed("generator_loss_backward",
+                  lambda: torch.autograd.grad(gen, merge, retain_graph=True))
+        if gaze is not None:
+            def prep(img):
+                return resize_bilinear(normalize_imagenet(img), (224, 224))
+
+            gt_head = torch.where(hm < 0.5, 1.0, b["image"])
+            ang = timed("gaze_vgg_forward", lambda: gaze_angular_distance(
+                gaze, prep(merge), prep(gt_head)))
+            timed("gaze_vgg_backward", lambda: torch.autograd.grad(ang, merge, retain_graph=True))
         losses = timed("losses_forward_vgg", lambda: compute_losses(
-            cfg.loss, imgs, b["image"], b["head_mask"][..., None], b["left_eye_mask"][..., None],
-            b["right_eye_mask"][..., None], vgg_capture_fn=trainer.frozen.vgg_capture_fn(),
-            opt_code_dict=ocd, delta_cam=dcam))
+            cfg.loss, imgs, b["image"], hm, b["left_eye_mask"][..., None],
+            b["right_eye_mask"][..., None], eye_loss_importance=eye_imp,
+            vgg_capture_fn=trainer.frozen.vgg_capture_fn(), gaze_fn=gaze, disc_fn=disc_fn,
+            opt_code_dict=ocd, delta_cam=dcam, step=trainer.step))
         keys = ("merge_img", "merge_img_face", "merge_img_eyes")
         g_img = timed("losses_backward_vgg", lambda: torch.autograd.grad(
             losses["total_loss"], [imgs[k] for k in keys], retain_graph=True))
@@ -1690,7 +1801,7 @@ def phase_step_breakdown(trainer, batch):
 
     stages()  # warm
     stages()
-    profile = device_profile(lambda: trainer.train_step(batch), top=12,
+    profile = device_profile(lambda: trainer.train_step(batch, eye_imp=eye_imp), top=12,
                              mode=cfg.model.shuffle_mode)
     if profile["device_ms"] != "not measured":
         profile["busy_share"] = profile["device_ms"] / profile["wall_ms"]
@@ -2260,7 +2371,7 @@ def main() -> int:
     k5, k6, k7, k8 = phase_renderer_kernels(args.seed, args.iters)
     k3, k4 = phase_dual_kernels(args.seed, cfg, args.iters)
     torch.cuda.empty_cache()
-    k1["stash"], k2["stash_read"] = phase_stash_kernels(args.seed, args.iters)
+    k1["stash"], k2["stash_read"], k2["split_dw"] = phase_stash_kernels(args.seed, args.iters)
     torch.cuda.empty_cache()
     k1["deep"], k2["deep"], k3_deep, k4_deep = phase_deep_kernels(args.seed, args.iters)
     torch.cuda.empty_cache()
@@ -2294,16 +2405,25 @@ def main() -> int:
     print(json.dumps({"serving": line}))
     del apps, dual_app
 
-    # 6. training, per variant
+    # 6. training, per variant, and with the full loss stack (phase_gm, and
+    # with split_dw)
+    from gazenerf_tpu_torch.config import LossConfig
+
     training = {}
-    for name, vcfg in configs.items():
-        training[name] = phase_training(args.seed, vcfg, args.steps, name)
+    full_loss = LossConfig(**FULL_LOSS_FLAGS)
+    variants = [(name, vcfg, None) for name, vcfg in configs.items()] + [
+        (FULL_LOSS, cfg, full_loss),
+        (SPLIT_DW, dataclasses.replace(cfg, **SPLIT_DW_FLAGS), full_loss)]
+    for name, vcfg, loss in variants:
+        training[name] = phase_training(args.seed, vcfg, args.steps, name, loss=loss)
         torch.cuda.empty_cache()
     print(json.dumps({"training": {
         "card": smi,
         "config": "ModelConfig(compute_dtype=bfloat16, renderer_dtype=bfloat16, shuffle_mode=...; "
                   "dual: pallas_dual_branch=True, pallas_stash_acts=True; stash: "
-                  "pallas_stash_acts=True, pallas_dens_vpu=True), LossConfig(), "
+                  "pallas_stash_acts=True, pallas_dens_vpu=True; split_dw: pallas_split_dw=True, "
+                  "pallas_dens_vpu=True), LossConfig() (full_loss and split_dw: "
+                  f"LossConfig({FULL_LOSS_FLAGS}), eye importance of epoch {GRADUAL_EPOCH}), "
                   "TrainConfig(); B=2, 4096 rays x 64 samples, 512x512",
         "modes": training,
     }}))
@@ -2311,7 +2431,6 @@ def main() -> int:
     # --pallas_tuning auto overrides for that shape, recomputing and reading
     # the stash, without the VGG loss (the JAX bench's deep phase)
     from gazenerf_tpu_torch.cli.common import tuned_kernel_overrides
-    from gazenerf_tpu_torch.config import LossConfig
 
     deep_cfg = dataclasses.replace(cfg, num_sample_coarse=DEEP_SHAPE[1], **tuned_kernel_overrides(
         cfg.featmap_size, DEEP_SHAPE[1]))
@@ -2346,6 +2465,11 @@ def main() -> int:
     # K1 writing and K2 reading the stash: their launches in the stash variant
     k1["stash"]["launches"] = training[STASH]["launches"]["fused_field_fwd"]
     k2["stash_read"]["launches"] = training[STASH]["launches"]["fused_field_bwd"]
+    # K2 reading the stash without dens_vpu: its launches in the split_dw
+    # variant (with K1 writing the stash); K1 and K2 in the full_loss step
+    k2["split_dw"]["launches"] = training[SPLIT_DW]["launches"]["fused_field_bwd"]
+    k1["launches_per_full_loss_step"] = training[FULL_LOSS]["launches_per_step"]["fused_field_fwd"]
+    k2["launches_per_full_loss_step"] = training[FULL_LOSS]["launches_per_step"]["fused_field_bwd"]
     # the deep march: K1 and K2 per deep step; K3 and K4 do not run in the
     # deep variants (single-branch fields)
     per_step = deep_training[DEEP]["launches_per_step"]

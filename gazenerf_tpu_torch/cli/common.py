@@ -68,7 +68,9 @@ def add_common_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--renderer_dtype", type=str, default="bfloat16",
                    choices=["float32", "bfloat16"])
     p.add_argument("--steps_per_dispatch", type=int, default=1,
-                   help="train steps per dispatch (the port runs 1)")
+                   help="train steps per dispatch: K > 1 stacks K loader batches into one "
+                        "copy to the card and runs their K steps from it (the numbers of "
+                        "K = 1; wandb logs once per dispatch)")
     p.add_argument("--prefetch", type=int, default=4,
                    help="host-side batches buffered ahead of the card")
     p.add_argument("--log", type=str2bool, default=False, help="wandb logging")

@@ -9,9 +9,14 @@
 //
 // Replaces the TPU kernel gazenerf_tpu/kernels/fused_field_bwd.py:_bwd_kernel
 // (launched by pallas_backward) with stash_acts False or True (stash_every=1,
-// bf16), dens_vpu False or True, split_dw=False and embed_in_kernel=False.
-// dens_vpu is one rounding point here: with it, dWd = x7^T ddens takes the
-// f32 density cotangent, without it its bf16 rounding.
+// bf16), dens_vpu False or True, and embed_in_kernel=False.  dens_vpu is
+// one rounding point here: with it, dWd = x7^T ddens takes the f32 density
+// cotangent, without it its bf16 rounding.  split_dw=True is this kernel
+// reading the stash without dens_vpu: that mode's epilogue contracts each
+// weight gradient over the stash in one large-K matmul of the bf16
+// cotangents, which the chunked GEMM here (csrc/field_dw.cuh) does in every
+// mode, and takes dWd from the rounded density cotangent whatever dens_vpu
+// says (TPU kernel :533); models/gaze_nerf.py selects it for pallas_split_dw.
 //
 // Numerics follow that kernel: the recomputed activations round to bf16 at
 // K1's points (csrc/fused_field_fwd.cu); data gradients are f32 (as bf16

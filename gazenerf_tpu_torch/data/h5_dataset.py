@@ -368,17 +368,47 @@ class BatchLoader:
             pool.shutdown(wait=False, cancel_futures=True)
 
 
-def device_prefetch(loader, device) -> Iterator[Dict[str, torch.Tensor]]:
+def stack_batches(loader, k: int):
+    """Group ``k`` consecutive batches into one stacked dict (a new leading
+    axis ``k``) for one copy to the card and ``k`` steps from it; the
+    trailing ``len % k`` batches come unstacked, so no sample is dropped.
+    Yields ``(batch, n)``: ``n == k`` for a stacked dict, ``n == 1`` for a
+    plain one.  Tensor leaves stack into tensors, pinned where the
+    loader's were."""
+
+    def stack(vs):
+        if isinstance(vs[0], torch.Tensor):
+            t = torch.stack(vs)
+            return t.pin_memory() if vs[0].is_pinned() else t
+        return np.stack([np.asarray(v) for v in vs])
+
+    buf: List[Dict] = []
+    for b in loader:
+        buf.append(b)
+        if len(buf) == k:
+            yield {key: stack([bb[key] for bb in buf]) for key in buf[0]}, k
+            buf = []
+    for b in buf:
+        yield b, 1
+
+
+def device_prefetch(loader, device) -> Iterator:
     """The loader's batches as tensors on ``device``: each batch's copy is
     issued one batch before the consumer takes it, non-blocking from pinned
     batches, so that it runs on the card's copy engine behind the work
-    already queued."""
+    already queued.  Items may also be ``(batch, n)`` pairs, as
+    :func:`stack_batches` yields them: the batch is copied and ``n`` passed
+    along."""
     device = torch.device(device)
+
+    def to_device(b):
+        return {k: torch.as_tensor(v).to(device, non_blocking=True) for k, v in b.items()}
+
     ahead = None
-    for b in loader:
-        b = {k: torch.as_tensor(v).to(device, non_blocking=True) for k, v in b.items()}
+    for item in loader:
+        item = (to_device(item[0]), item[1]) if isinstance(item, tuple) else to_device(item)
         if ahead is not None:
             yield ahead
-        ahead = b
+        ahead = item
     if ahead is not None:
         yield ahead

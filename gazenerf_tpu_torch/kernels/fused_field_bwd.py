@@ -5,7 +5,9 @@ Counterpart of the JAX package's ``kernels/fused_field_bwd.py`` (its Pallas
 reading the forward's bf16 activation stash (``stash_acts``,
 ``stash_every=1``), with or without ``dens_vpu``, the weight gradients
 computed by the kernel's own GEMM over chunks of points
-(``kernels/field_dw.py``).  The kernel is hand-written
+(``kernels/field_dw.py``).  The Pallas kernel's ``split_dw`` mode is the
+stash mode without ``dens_vpu`` here (``models/gaze_nerf.py``).  The
+kernel is hand-written
 CUDA for Hopper (``csrc/fused_field_bwd.cu``; its header states its bound,
 design, scratch and determinism); :func:`fused_field_backward_reference` is
 its plain PyTorch version with the Pallas kernel's rounding points.  It

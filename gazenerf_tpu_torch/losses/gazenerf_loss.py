@@ -1,35 +1,28 @@
 """The GazeNeRF training loss, static-shape.
 
-Port of the JAX package's ``losses/gazenerf_loss.py`` for the loss stack
-the default recipe runs: per-region L1 (or L2) losses, background and
-non-head constancy, the VGG16 perceptual loss (batched), and the camera and
-code regularisers.  Every masked mean is ``sum(x * mask) / sum(mask)``, the
-value and gradient of upstream's boolean gather.  Images are NHWC in
-[0, 1]; masks ``[B, H, W, 1]`` floats.
+Port of the JAX package's ``losses/gazenerf_loss.py``: per-region L1 (or
+L2) losses, background and non-head constancy, the VGG16 perceptual loss
+(in two batched calls, or six with ``vgg_batched=False``), the angular gaze
+loss through the frozen gaze estimator, the PatchGAN generator loss with
+its warm-up, and the camera and code regularisers.  Every masked mean is
+``sum(x * mask) / sum(mask)``, the value and gradient of upstream's boolean
+gather.  Images are NHWC in [0, 1]; masks ``[B, H, W, 1]`` floats.
 
-Not ported yet, raising ``NotImplementedError``: the angular gaze loss
-(``use_angular_loss``), the PatchGAN loss (``use_patch_gan_loss``) and the
-unbatched VGG path (``vgg_batched=False``).
+The GAN labels are upstream's, inverted: the discriminator takes real to 0
+and fake to 1, and the generator drives fake toward 0.
 """
 
 from __future__ import annotations
 
 from typing import Callable, Dict, List, Optional
 
+import numpy as np
 import torch
 
 from gazenerf_tpu_torch.config import LossConfig
+from gazenerf_tpu_torch.eval.metrics import angular_error_deg, pitchyaw_to_vector
 from gazenerf_tpu_torch.models.vgg import normalize_imagenet
 from gazenerf_tpu_torch.ops.image import resize_bilinear
-
-
-def check_ported(cfg: LossConfig) -> None:
-    """Raise for loss settings the port does not run yet."""
-    for name in ("use_angular_loss", "use_patch_gan_loss"):
-        if getattr(cfg, name):
-            raise NotImplementedError(f"{name}=True is not ported yet")
-    if cfg.use_vgg_loss and not cfg.vgg_batched:
-        raise NotImplementedError("vgg_batched=False is not ported yet")
 
 
 def masked_mean(err: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
@@ -58,6 +51,52 @@ def region_masks(
     return {"head": f(head), "face": f(face), "eyes": f(eyes), "nonhead": f(nonhead)}
 
 
+def gan_bce_with_logits(logits: torch.Tensor, target: float) -> torch.Tensor:
+    """Mean binary cross-entropy with logits against a constant label, in
+    the stable form ``max(x, 0) - x t + log1p(exp(-|x|))``."""
+    return (torch.clamp(logits, min=0.0) - logits * target
+            + torch.log1p(torch.exp(-logits.abs()))).mean()
+
+
+def discriminator_loss(real_logits: torch.Tensor, fake_logits: torch.Tensor) -> torch.Tensor:
+    """The discriminator's loss: fake toward 1, real toward 0 (upstream's
+    inverted labels)."""
+    return 0.5 * (gan_bce_with_logits(fake_logits, 1.0) + gan_bce_with_logits(real_logits, 0.0))
+
+
+def generator_loss(fake_logits: torch.Tensor) -> torch.Tensor:
+    """The generator's loss: fake toward 0."""
+    return gan_bce_with_logits(fake_logits, 0.0)
+
+
+def gan_warmup(cfg: LossConfig, step: int) -> float:
+    """The generator term's weight at ``step``: ``clip(step /
+    gan_warmup_steps, 0, gan_warmup_cap)``, in f32 as the JAX package
+    computes it."""
+    warm = np.float32(step) / np.float32(cfg.gan_warmup_steps)
+    return float(np.clip(warm, np.float32(0.0), np.float32(cfg.gan_warmup_cap)))
+
+
+def vgg_perceptual_distance(vgg_capture_fn: Callable, a: torch.Tensor,
+                            b: torch.Tensor) -> torch.Tensor:
+    """Sum over the captured VGG16 blocks of the mean L1 distance between
+    the features of ``a`` and ``b`` (ImageNet-normalised, 224-resized by
+    the caller)."""
+    fa, fb = vgg_capture_fn(a), vgg_capture_fn(b)
+    return sum((x - y).abs().to(torch.float32).mean() for x, y in zip(fa, fb))
+
+
+def gaze_angular_distance(gaze_fn: Callable, pred_img: torch.Tensor,
+                          gt_img: torch.Tensor) -> torch.Tensor:
+    """Mean angular error in degrees between the gaze estimated on the
+    prediction and on the target; no gradient flows through the target's
+    estimate (inputs normalised and resized by the caller)."""
+    gaze_pred, _ = gaze_fn(pred_img)
+    with torch.no_grad():
+        gaze_gt, _ = gaze_fn(gt_img)
+    return angular_error_deg(pitchyaw_to_vector(gaze_gt), pitchyaw_to_vector(gaze_pred)).mean()
+
+
 def compute_losses(
     cfg: LossConfig,
     pred: Dict,
@@ -67,14 +106,22 @@ def compute_losses(
     right_eye_mask: torch.Tensor,
     *,
     bg_value: float = 1.0,
+    eye_loss_importance: Optional[float] = None,
     vgg_capture_fn: Optional[Callable[[torch.Tensor], List[torch.Tensor]]] = None,
+    gaze_fn: Optional[Callable] = None,
+    disc_fn: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
     opt_code_dict: Optional[Dict] = None,
     delta_cam: Optional[Dict] = None,
+    step: int = 0,
 ) -> Dict[str, torch.Tensor]:
     """The data and regulariser losses; ``total_loss`` is the training
     target.  ``vgg_capture_fn(x)`` returns the captured VGG16 features of a
-    ``[N, 224, 224, 3]`` ImageNet-normalised batch."""
-    check_ported(cfg)
+    ``[N, 224, 224, 3]`` ImageNet-normalised batch; ``gaze_fn(x)`` the gaze
+    estimator's ``(gaze, head)`` of one; ``disc_fn(x)`` the discriminator's
+    logits of a ``[N, 224, 224, 3]`` batch in [0, 1].  The angular term is
+    scaled by ``angular_scale`` and ``eye_loss_importance`` (the config's
+    unless given); the generator term by :func:`gan_warmup` of ``step``."""
+    eye_imp = cfg.eye_loss_importance if eye_loss_importance is None else eye_loss_importance
     cd = pred["coarse_dict"] if "coarse_dict" in pred else pred
     res_img = cd["merge_img"]
     res_face = cd["merge_img_face"]
@@ -94,34 +141,52 @@ def compute_losses(
     losses["eyes_loss"] = masked_mean(pix_err(res_eyes, gt_rgb), masks["eyes"])
     losses["nonhead_loss"] = masked_mean((res_img - bg_value) ** 2, masks["nonhead"])
 
-    if cfg.use_vgg_loss and vgg_capture_fn is not None:
+    def prep(img):
+        return resize_bilinear(normalize_imagenet(img), (224, 224))
 
-        def prep(img):
-            return resize_bilinear(normalize_imagenet(img), (224, 224))
+    # the target with the background colour off the head
+    gt_head = torch.where(torch.broadcast_to(masks["nonhead"], gt_rgb.shape) > 0,
+                          bg_value, gt_rgb)
+
+    if cfg.use_vgg_loss and vgg_capture_fn is not None:
 
         def keep(m, img):  # img where the mask is set, the background elsewhere
             return torch.where(torch.broadcast_to(m, gt_rgb.shape) > 0, img, bg_value)
 
         gt_face = keep(masks["face"], gt_rgb)
         gt_eyes = keep(masks["eyes"], gt_rgb)
-        gt_head = torch.where(torch.broadcast_to(masks["nonhead"], gt_rgb.shape) > 0,
-                              bg_value, gt_rgb)
-        # two 3B-row calls: the pred rows with gradient, the gt rows without
-        B = gt_rgb.shape[0]
-        fp = vgg_capture_fn(torch.cat([prep(x) for x in (res_face, res_eyes, res_img)], 0))
-        with torch.no_grad():
-            fg = vgg_capture_fn(torch.cat([prep(x) for x in (gt_face, gt_eyes, gt_head)], 0))
+        if cfg.vgg_batched:
+            # two 3B-row calls: the pred rows with gradient, the gt rows without
+            B = gt_rgb.shape[0]
+            fp = vgg_capture_fn(torch.cat([prep(x) for x in (res_face, res_eyes, res_img)], 0))
+            with torch.no_grad():
+                fg = vgg_capture_fn(torch.cat([prep(x) for x in (gt_face, gt_eyes, gt_head)], 0))
 
-        def dist(i):
-            a = i * B
-            return sum(
-                (p[a : a + B] - g[a : a + B]).abs().to(torch.float32).mean()
-                for p, g in zip(fp, fg)
-            )
+            def dist(i):
+                a = i * B
+                return sum(
+                    (p[a : a + B] - g[a : a + B]).abs().to(torch.float32).mean()
+                    for p, g in zip(fp, fg)
+                )
 
-        losses["vgg_face_loss"] = dist(0)
-        losses["vgg_eyes_loss"] = dist(1)
-        losses["vgg"] = dist(2) * cfg.vgg_importance
+            losses["vgg_face_loss"] = dist(0)
+            losses["vgg_eyes_loss"] = dist(1)
+            losses["vgg"] = dist(2) * cfg.vgg_importance
+        else:  # six calls, one per image
+            losses["vgg_face_loss"] = vgg_perceptual_distance(
+                vgg_capture_fn, prep(res_face), prep(gt_face))
+            losses["vgg_eyes_loss"] = vgg_perceptual_distance(
+                vgg_capture_fn, prep(res_eyes), prep(gt_eyes))
+            losses["vgg"] = vgg_perceptual_distance(
+                vgg_capture_fn, prep(res_img), prep(gt_head)) * cfg.vgg_importance
+
+    if cfg.use_angular_loss and gaze_fn is not None:
+        losses["angular"] = (gaze_angular_distance(gaze_fn, prep(res_img), prep(gt_head))
+                             * cfg.angular_scale * eye_imp)
+
+    if cfg.use_patch_gan_loss and disc_fn is not None:
+        fake_logits = disc_fn(resize_bilinear(res_img, (224, 224)))
+        losses["gen_patch_gan_loss"] = generator_loss(fake_logits) * gan_warmup(cfg, step)
 
     total = sum(losses.values())
 

@@ -11,10 +11,13 @@ the fused field kernels (``kernels/fused_field``: the forward kernel, and
 under autograd the backward kernel as its gradient; with
 ``pallas_stash_acts`` the backward reads the forward's bf16 activation
 stash, else it recomputes; ``pallas_dens_vpu`` selects its ``dens_vpu``
-density head), or with ``pallas_dual_branch`` both fields in one
-dual-branch kernel (``kernels/fused_field2``; with ``pallas_stash_acts``
-its backward reads the stash; ``pallas_dens_vpu`` is cleared there, as the
-JAX package does); otherwise through :class:`NeRFFieldMLP` in the compute
+density head; ``pallas_split_dw`` runs the backward reading the bf16
+stash of every layer without ``dens_vpu``, and no ``pallas_fuse_embed``:
+see :data:`_SPLIT_DW_SETS`), or with ``pallas_dual_branch`` both
+fields in one dual-branch kernel (``kernels/fused_field2``; with
+``pallas_stash_acts`` its backward reads the stash; ``pallas_dens_vpu``
+and ``pallas_split_dw`` are cleared there, as the JAX package does);
+otherwise through :class:`NeRFFieldMLP` in the compute
 dtype, then :func:`integrate_rays`.  With ``include_vd`` the fields take
 the view-direction embedding and run eagerly (as in the JAX package).
 
@@ -58,11 +61,29 @@ _PORTED = (
     ("pallas_fuse_embed", False, "Queue 2b, mode 4"),
     ("pallas_stash_every", 1, "Queue 2b, mode 1"),
     ("pallas_stash_dtype", "bfloat16", "Queue 2b, mode 1"),
-    ("pallas_split_dw", False, "Queue 2b, mode 2"),
     ("pallas_embed_bf16", False, "Queue 2b, mode 4"),
     ("renderer_fold_feat", True, "Queue 1 item 4"),
     ("renderer_rgb_cf", True, "Queue 1 item 4"),
 )
+# what pallas_split_dw sets, whatever the config says.  The JAX package's
+# _fused_dims: the bf16 stash of every layer, the embedding outside the
+# kernel.  Its backward kernel's split_dw epilogue contracts each weight
+# gradient over the stash in one large-K matmul of the bf16 cotangents,
+# which the port's backward kernel does in every mode, and takes dWd from
+# the bf16-rounded density cotangent even under dens_vpu; dWd is all that
+# dens_vpu changes in the port's backward, so split_dw is its stash mode
+# without dens_vpu.
+_SPLIT_DW_SETS = {"pallas_fuse_embed": False, "pallas_stash_every": 1,
+                  "pallas_stash_dtype": "bfloat16", "pallas_stash_acts": True,
+                  "pallas_dens_vpu": False}
+
+
+def kernel_setting(cfg: ModelConfig, name: str):
+    """A kernel setting as the fused path runs it: the config's, or what
+    ``pallas_split_dw`` sets in its place."""
+    if cfg.pallas_split_dw and name in _SPLIT_DW_SETS:
+        return _SPLIT_DW_SETS[name]
+    return getattr(cfg, name)
 
 
 def chunked(cfg: ModelConfig, rays: int) -> bool:
@@ -118,7 +139,7 @@ class GazeNeRF(nn.Module):
     def __init__(self, cfg: ModelConfig, device=None, seed: int = 0):
         super().__init__()
         for name, value, item in _PORTED:
-            if getattr(cfg, name) != value:
+            if kernel_setting(cfg, name) != value:
                 raise NotImplementedError(
                     f"{name}={getattr(cfg, name)!r} is not ported yet "
                     f"(the port runs {name}={value!r}; ROADMAP {item})"
@@ -260,12 +281,13 @@ class GazeNeRF(nn.Module):
     ) -> Integrated:
         """Field evaluation + volume integration for one stream: the fused
         kernels unless view directions are given (``stash_acts`` defaults
-        to the config's)."""
+        to the config's, as :func:`kernel_setting` reads it)."""
         if self.fused and embed_vd is None:
-            stash = self.cfg.pallas_stash_acts if stash_acts is None else stash_acts
+            if stash_acts is None:
+                stash_acts = kernel_setting(self.cfg, "pallas_stash_acts")
             feat_int, bg_alpha, depth, w = field.fused_render(
                 embed, shape_ext_code, appea_code, zvals, z_dists,
-                stash_acts=stash, dens_vpu=self.cfg.pallas_dens_vpu,
+                stash_acts=stash_acts, dens_vpu=kernel_setting(self.cfg, "pallas_dens_vpu"),
             )
             return Integrated(features=feat_int, bg_alpha=bg_alpha, depth=depth, weights=w)
         feat, density = field(embed, shape_ext_code, appea_code, embed_vd)

@@ -5,7 +5,9 @@ holds ``state`` and ``config.json`` (the serialised :class:`Config` and the
 epoch).  Here ``state`` is one ``torch.save`` file: the model's parameters,
 the per-sample offset tables, Adam's state, the learning-rate schedule, the
 trainer's generator (the jitter's draws), the step, the epoch and the
-epoch summaries so far.  Restoring it into a trainer of the same config
+epoch summaries so far; with the GAN loss also the discriminator's
+parameters, BatchNorm statistics and Adam state (``TrainState``'s
+``disc_params``, ``disc_batch_stats`` and ``disc_opt_state`` in JAX).  Restoring it into a trainer of the same config
 continues the run where it stopped, to the bit.
 
 A JAX checkpoint's ``state`` is an orbax directory, which the port cannot
@@ -42,6 +44,9 @@ def save_checkpoint(directory: str, trainer, cfg: Config, epoch: int) -> str:
         "epoch": epoch,
         "history": list(trainer.history),
     }
+    if trainer.disc is not None:
+        state["disc"] = trainer.disc.state_dict()
+        state["disc_optimizer"] = trainer.disc_optimizer.state_dict()
     tmp = os.path.join(path, _STATE + ".tmp")
     torch.save(state, tmp)
     os.replace(tmp, os.path.join(path, _STATE))  # a reader never sees half a file
@@ -93,6 +98,11 @@ def load_checkpoint(path: str, trainer) -> Tuple[Config, int]:
     trainer.optimizer.load_state_dict(state["optimizer"])
     trainer.scheduler.load_state_dict(state["scheduler"])
     trainer.generator.set_state(state["generator"].cpu())
+    if trainer.disc is not None:
+        if "disc" not in state:
+            raise ValueError(f"{path} holds no discriminator: it was saved without the GAN loss")
+        trainer.disc.load_state_dict(state["disc"], strict=True)
+        trainer.disc_optimizer.load_state_dict(state["disc_optimizer"])
     trainer.step = state["step"]
     trainer.history = list(state["history"])
     return cfg, state["epoch"]

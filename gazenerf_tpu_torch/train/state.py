@@ -8,7 +8,8 @@ optimizer is one ``torch.optim.Adam`` with six parameter groups (net x1,
 iden x1, expr x0.1, appea x1, euler x0.1, tvec x0.1) and a per-step
 ``LambdaLR`` reproducing upstream's per-epoch decay; optax's
 ``scale_by_adam`` (eps 1e-8, bias-corrected) and torch's Adam compute the
-same update.
+same update.  The PatchGAN discriminator has its own Adam at a constant
+learning rate with L2 weight decay (:func:`make_disc_optimizer`).
 """
 
 from __future__ import annotations
@@ -67,3 +68,12 @@ def make_optimizer(
     # each group's lr: lr * multiplier * the decay, i.e. lr_schedule
     sched = torch.optim.lr_scheduler.LambdaLR(opt, _decay(cfg, steps_per_epoch))
     return opt, sched
+
+
+def make_disc_optimizer(cfg: TrainConfig, params: Iterable[torch.Tensor]) -> torch.optim.Adam:
+    """The discriminator's Adam: ``disc_lr_weight_decay`` times the
+    parameters added to their gradients before Adam (optax's
+    ``add_decayed_weights`` then ``scale_by_adam``: L2, not AdamW), then
+    the constant ``lr``, with the network's betas."""
+    return torch.optim.Adam(list(params), lr=cfg.lr, betas=(cfg.adam_b1, cfg.adam_b2),
+                            eps=1e-8, weight_decay=cfg.disc_lr_weight_decay)

@@ -2,8 +2,9 @@
 
 The port's own copy of what the JAX package's ``utils/logging.py`` gives
 the training and evaluation CLIs and the trainer (upstream
-``utils/logging.py``).  wandb is
-optional: absent or not asked for, its calls are no-ops.
+``utils/logging.py``): the loss scalars, the evaluation metrics and the
+image strips (numpy on the host).  wandb is optional: absent or not asked
+for, its calls are no-ops.
 """
 
 from __future__ import annotations
@@ -11,7 +12,10 @@ from __future__ import annotations
 import logging
 import os
 import sys
-from typing import Dict, Optional
+from typing import Any, Dict, Optional
+
+import numpy as np
+import torch
 
 
 def configure_logging(log_file: Optional[str] = None, level=logging.INFO) -> None:
@@ -41,6 +45,46 @@ def maybe_wandb_init(enabled: bool, **kwargs):
         return None
     wandb.init(project="gazenerf_tpu", **kwargs)
     return wandb
+
+
+def to_uint8(img) -> np.ndarray:
+    """``[H, W, 3]`` floats in [0, 1] (or already uint8, as a loader batch
+    that the card decodes), a numpy array or a tensor -> uint8 on the host,
+    truncating; ``img * 255`` rounds in the image's dtype (bf16 too, as
+    the JAX package's numpy does)."""
+    if isinstance(img, torch.Tensor):
+        img = img.detach().cpu()
+        if img.dtype == torch.uint8:
+            return img.numpy()
+        return (img * 255.0).clamp(0, 255).float().numpy().astype(np.uint8)
+    img = np.asarray(img)
+    if img.dtype == np.uint8:
+        return img
+    return (img * 255.0).clip(0, 255).astype(np.uint8)
+
+
+def log_images(wandb, tag: str, images: Dict[str, Any], step: Optional[int] = None) -> None:
+    """Each image under ``{tag}/{name}`` in one ``wandb.log``."""
+    if wandb is None:
+        return
+    wandb.log({f"{tag}/{k}": wandb.Image(to_uint8(v)) for k, v in images.items()}, step=step)
+
+
+def log_all_images(wandb, gt_batch, coarse_dict, description: str = "Prediction") -> None:
+    """Upstream's five-panel strip of the batch's first row: target |
+    merged | face | eyes | background, side by side (the background only
+    where it has the target's size)."""
+    if wandb is None:
+        return
+    gt = to_uint8(gt_batch[0])
+    panels = [gt]
+    for key in ("merge_img", "merge_img_face", "merge_img_eyes", "bg_img"):
+        img = coarse_dict[key]
+        img = img[0] if img.ndim == 4 else img
+        if img.shape[:2] != gt.shape[:2]:
+            continue
+        panels.append(to_uint8(img))
+    wandb.log({description: wandb.Image(np.concatenate(panels, axis=1))})
 
 
 # the loss dict's key -> the upstream wandb scalar name, and the flag of the

@@ -4,9 +4,13 @@ The port's modules carry the upstream module names and layouts
 (``fg_CD_predictor_face.FeaExt_module_0.weight`` as a 1x1 conv ``[out, in,
 1, 1]``, ``neural_render.bg_featmap`` as ``[1, C, H, W]``), so an upstream
 ``.pth`` loads into it directly and a JAX variable tree loads through
-:func:`params_from_jax`.  :func:`vgg_params_from_jax` carries the loss
-stack's VGG16 across, :func:`load_train_state_from_jax` a JAX training
-state's parameters and offset tables.
+:func:`params_from_jax`.  :func:`vgg_params_from_jax`,
+:func:`gaze_vgg_params_from_jax` and :func:`patchgan_params_from_jax` carry
+the loss stack's VGG16, gaze-VGG and PatchGAN across (convolution kernels
+HWIO -> OIHW, dense kernels transposed, BatchNorm ``scale`` / ``bias`` /
+``mean`` / ``var`` -> ``weight`` / ``bias`` / ``running_mean`` /
+``running_var``), :func:`load_train_state_from_jax` a JAX training state's
+parameters and offset tables.
 
 The numpy converters are a copy of the JAX package's ``utils/transplant``
 (the port imports nothing from that package); flax stores a Dense kernel
@@ -171,6 +175,47 @@ def vgg_params_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
             np.ascontiguousarray(np.asarray(p["kernel"], np.float32).transpose(3, 2, 0, 1))
         )
         out[f"convs.{i}.bias"] = torch.from_numpy(np.array(p["bias"], np.float32))
+    return out
+
+
+def _conv_from_jax(kernel) -> torch.Tensor:
+    """A flax conv kernel ``[kh, kw, in, out]`` -> torch's ``[out, in, kh, kw]``."""
+    return torch.from_numpy(np.ascontiguousarray(
+        np.asarray(kernel, np.float32).transpose(3, 2, 0, 1)))
+
+
+def _f32(a) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, np.float32))
+
+
+def gaze_vgg_params_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX ``GazeVGG`` variables (``features/conv_i`` and ``FC1..3``) -> the
+    port's ``GazeVGG`` ``state_dict``."""
+    params = variables["params"] if "params" in variables else variables
+    out = {f"features.{k}": v for k, v in vgg_params_from_jax(params["features"]).items()}
+    for fc in ("FC1", "FC2", "FC3"):
+        out[f"{fc}.weight"] = _f32(np.asarray(params[fc]["kernel"]).T)
+        out[f"{fc}.bias"] = _f32(params[fc]["bias"])
+    return out
+
+
+def patchgan_params_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX ``PatchGAN`` variables (``params`` and ``batch_stats``) -> the
+    port's ``PatchGAN`` ``state_dict``: ``conv1..5`` (biases on conv1 and
+    conv5) and ``norm1..3`` with their running statistics."""
+    params, stats = variables["params"], variables["batch_stats"]
+    out = {}
+    for i in range(1, 6):
+        p = params[f"conv{i}"]
+        out[f"conv{i}.weight"] = _conv_from_jax(p["kernel"])
+        if "bias" in p:
+            out[f"conv{i}.bias"] = _f32(p["bias"])
+    for i in range(1, 4):
+        p, st = params[f"norm{i}"], stats[f"norm{i}"]
+        out[f"norm{i}.weight"] = _f32(p["scale"])
+        out[f"norm{i}.bias"] = _f32(p["bias"])
+        out[f"norm{i}.running_mean"] = _f32(st["mean"])
+        out[f"norm{i}.running_var"] = _f32(st["var"])
     return out
 
 

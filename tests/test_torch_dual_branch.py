@@ -30,6 +30,7 @@ from test_torch_train import (  # noqa: F401
     _step_configs,
     setup,
 )
+from torch_threads import one_thread  # noqa: F401
 
 DUAL = dict(use_pallas=True, pallas_dual_branch=True)
 STASH = {"stash": True, "recompute": False}
@@ -153,14 +154,16 @@ def test_stash_without_dual_branch_raises():
 @pytest.mark.parametrize("option", [
     dict(pallas_stash_every=2),
     dict(pallas_stash_dtype="int8"),
-    dict(pallas_split_dw=True),
+    dict(pallas_embed_bf16=True, pallas_split_dw=True),
     dict(pallas_fuse_embed=True),
     dict(pallas_embed_bf16=True),
 ])
 def test_probe_flags_raise_with_the_dual_branch(option):
-    """The dual path accepts the stash (and ``pallas_dens_vpu``, which it
-    clears) and the ray chunks, not the kernels' other probe flags: each
-    raises, naming itself and its ROADMAP item."""
+    """The dual path accepts the stash (and ``pallas_dens_vpu`` and
+    ``pallas_split_dw``, which it clears) and the ray chunks, not the
+    kernels' other probe flags: each raises, naming itself and its ROADMAP
+    item (``split_dw`` sets the stash flags but not ``pallas_embed_bf16``,
+    as in JAX)."""
     cfg = ModelConfig(compute_dtype="bfloat16", use_pallas=True, pallas_dual_branch=True,
                       pallas_stash_acts=True, **option)
     with pytest.raises(NotImplementedError, match=f"{next(iter(option))}.*ROADMAP"):

@@ -25,6 +25,7 @@ from gazenerf_tpu_torch.kernels import checks
 from gazenerf_tpu_torch.kernels import field_dw
 from gazenerf_tpu_torch.kernels import fused_field as ff
 from gazenerf_tpu_torch.kernels import fused_field_bwd as ffb
+from torch_threads import one_thread  # noqa: F401
 
 B, R, S, DE, H, C = 2, 32, 8, 63, 64, 258
 # 8 tiles in chunks of 3: a chunk across the batch boundary (tiles 3-5, the

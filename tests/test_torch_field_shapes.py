@@ -11,6 +11,7 @@ at most ``PASS_COLS`` columns, or in two passes of half the width.
 import pytest
 
 from gazenerf_tpu_torch.kernels import fused_field as ff
+from torch_threads import one_thread  # noqa: F401
 
 
 @pytest.mark.parametrize("hidden, ok", [(64, True), (128, True), (192, True), (256, True),

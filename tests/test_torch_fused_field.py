@@ -23,6 +23,7 @@ from gazenerf_tpu.models.mlp_nerf import NeRFFieldMLP as JaxField
 from gazenerf_tpu_torch.kernels import fused_field as ff
 from gazenerf_tpu_torch.models.mlp_nerf import NeRFFieldMLP
 from gazenerf_tpu_torch.utils.transplant import field_params_to_torch
+from torch_threads import one_thread  # noqa: F401
 
 B, R, S, DE, H, C = 1, 64, 8, 63, 64, 258
 NAMES = ("feat_int", "bg_alpha", "depth", "weights")

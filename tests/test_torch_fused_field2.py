@@ -25,6 +25,7 @@ from gazenerf_tpu_torch.kernels import fused_field as ff
 from gazenerf_tpu_torch.kernels import fused_field2 as ff2
 from gazenerf_tpu_torch.kernels import fused_field2_bwd as ffb2
 from gazenerf_tpu_torch.kernels.checks import STASH_SLOTS
+from torch_threads import one_thread  # noqa: F401
 
 B, R, S, DE, H, C = 2, 32, 8, 63, 64, 258
 BRANCHES = ("face", "eyes")

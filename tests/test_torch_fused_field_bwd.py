@@ -25,6 +25,7 @@ from gazenerf_tpu_torch.kernels import fused_field as ff
 from gazenerf_tpu_torch.kernels import fused_field_bwd as ffb
 from gazenerf_tpu_torch.models.mlp_nerf import _LAYERS, NeRFFieldMLP
 from gazenerf_tpu_torch.ops.integrate import integrate_rays
+from torch_threads import one_thread  # noqa: F401
 
 B, R, S, DE, H, C = 2, 32, 8, 63, 64, 258
 # the ROADMAP's gradient tolerance (tests/test_model_parity.py)

@@ -15,6 +15,7 @@ import jax.numpy as jnp
 
 from gazenerf_tpu.kernels.fused_upsampler import fused_upsample_block, residual_matrix
 from gazenerf_tpu_torch.kernels import fused_upsampler as fu
+from torch_threads import one_thread  # noqa: F401
 
 # (B, H, W, F, F3): JAX's three, and the renderer's odd width F = 129
 SHAPES = [(1, 8, 8, 12, 6), (2, 16, 8, 8, 4), (1, 4, 4, 8, 4), (1, 8, 8, 129, 64)]

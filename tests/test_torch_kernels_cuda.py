@@ -190,6 +190,47 @@ def test_stash_modes_match_plain_version(card, dens_vpu):
     assert differ == (["dWd"] if dens_vpu else []), differ
 
 
+def test_backward_split_dw_matches_plain_version(card, monkeypatch):
+    """``pallas_split_dw`` (with ``pallas_dens_vpu`` asked for too): a step
+    of the small bf16 model on the card has K1 write the stash and K2 read
+    it without ``dens_vpu`` (dWd from the rounded density cotangent, the
+    mode the model selects for it), and K2 in that mode at the training
+    shape (hidden 384, 64 samples, 4096 rays) is within
+    ``checks.K2_STASH_LIMITS`` of its plain version, the same bits over two
+    launches, and every output to the bit of K2 recomputing."""
+    model = dataclasses.replace(small_test_config(), compute_dtype="bfloat16",
+                                renderer_dtype="bfloat16", use_pallas=True,
+                                pallas_split_dw=True, pallas_dens_vpu=True)
+    trainer = Trainer(Config(model=model, loss=LossConfig(use_vgg_loss=False)),
+                      train_len=4, steps_per_epoch=1)  # the card: no device given
+    modes = []
+    fwd, bwd = ff.fused_field_forward, ffb.fused_field_backward
+    monkeypatch.setattr(ff, "fused_field_forward", lambda *a, stash=False, **k: (
+        modes.append(("K1", stash)), fwd(*a, stash=stash, **k))[1])
+    monkeypatch.setattr(ffb, "fused_field_backward", lambda *a, stash=None, dens_vpu=False, **k: (
+        modes.append(("K2", stash is not None, dens_vpu)), bwd(*a, stash=stash, dens_vpu=dens_vpu,
+                                                               **k))[1])
+    before = ffb.launch_count
+    losses = trainer.train_step(_small_batch(model), update=False)
+    torch.cuda.synchronize()
+    assert ffb.launch_count == before + 2
+    assert modes == [("K1", True)] * 2 + [("K2", True, False)] * 2, modes
+    assert all(torch.isfinite(v) for v in losses.values())
+    monkeypatch.undo()
+    args, cot = checks.field_case(*checks.K2_CASES["training"], card)
+    with torch.no_grad():
+        _, acts = ff.fused_field_forward(*args, stash=True)
+        got = ffb.fused_field_backward(*args, *cot, stash=acts)
+        again = ffb.fused_field_backward(*args, *cot, stash=acts)
+        recompute = ffb.fused_field_backward(*args, *cot)
+        want = ffb.fused_field_backward_reference(*args, *cot, stash=acts)
+    readings, fails = checks.k2_stash_failures("training", got, want)
+    print(json.dumps({"k2_split_dw": "training", "readings": readings}))
+    assert not fails, fails
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert all(torch.equal(a, b) for a, b in zip(got, recompute))
+
+
 @pytest.mark.parametrize("mode", checks.K2_FIT_MODES)
 def test_backward_fit_case_matches_plain_version(card, mode):
     """K2 at B=1 (the single-image fit and the gaze optimization: hidden
@@ -248,6 +289,26 @@ def test_backward_cuda_tensors_never_take_the_plain_version(card):
         ffb.fused_field_backward(*bad, *cot)
 
 
+def _small_batch(model):
+    """A seeded B=2 training batch at the small model's size, the base camera."""
+    gen = torch.Generator().manual_seed(0)
+    size, fs = model.pred_img_size, model.featmap_size
+    inmat = torch.linalg.inv(torch.from_numpy(base_inv_inmat(fs)))  # the base camera
+    inmat[:2] *= size / fs
+    return {
+        "image": torch.rand(2, size, size, 3, generator=gen),
+        "head_mask": (torch.rand(2, size, size, generator=gen) > 0.3).float(),
+        "left_eye_mask": (torch.rand(2, size, size, generator=gen) > 0.9).float(),
+        "right_eye_mask": (torch.rand(2, size, size, generator=gen) > 0.9).float(),
+        "code": 0.1 * torch.randn(2, 306, generator=gen),
+        "sample_idx": torch.tensor([0, 3]),
+        "pitchyaw": 0.2 * torch.randn(2, 2, generator=gen),
+        "c2w_Rmat": torch.diag(torch.tensor([1.0, -1.0, -1.0])).expand(2, 3, 3),
+        "c2w_Tvec": torch.tensor([[0.0, 0.0, 12.0]]).expand(2, 3),
+        "inmat": inmat.expand(2, 3, 3),
+    }
+
+
 @pytest.mark.parametrize("mode", ["phase_gm", "pallas", "fused"])
 def test_training_step_on_card_goes_through_both_kernels(card, mode):
     """One step of the small bf16 model on the card: two launches of each
@@ -260,22 +321,7 @@ def test_training_step_on_card_goes_through_both_kernels(card, mode):
                                 renderer_dtype="bfloat16", use_pallas=True, shuffle_mode=mode)
     trainer = Trainer(Config(model=model, loss=LossConfig(use_vgg_loss=False)),
                       train_len=4, steps_per_epoch=1)  # the card: no device given
-    gen = torch.Generator().manual_seed(0)
-    size, fs = model.pred_img_size, model.featmap_size
-    inmat = torch.linalg.inv(torch.from_numpy(base_inv_inmat(fs)))  # the base camera
-    inmat[:2] *= size / fs
-    batch = {
-        "image": torch.rand(2, size, size, 3, generator=gen),
-        "head_mask": (torch.rand(2, size, size, generator=gen) > 0.3).float(),
-        "left_eye_mask": (torch.rand(2, size, size, generator=gen) > 0.9).float(),
-        "right_eye_mask": (torch.rand(2, size, size, generator=gen) > 0.9).float(),
-        "code": 0.1 * torch.randn(2, 306, generator=gen),
-        "sample_idx": torch.tensor([0, 3]),
-        "pitchyaw": 0.2 * torch.randn(2, 2, generator=gen),
-        "c2w_Rmat": torch.diag(torch.tensor([1.0, -1.0, -1.0])).expand(2, 3, 3),
-        "c2w_Tvec": torch.tensor([[0.0, 0.0, 12.0]]).expand(2, 3),
-        "inmat": inmat.expand(2, 3, 3),
-    }
+    batch = _small_batch(model)
     t_rand = torch.rand(2, model.num_rays, model.num_sample_coarse + 1, device=card)
     before = (ff.launch_count, ffb.launch_count, *_counts())
     losses = trainer.train_step(batch, t_rand=t_rand, update=False)

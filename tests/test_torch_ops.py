@@ -30,6 +30,7 @@ from gazenerf_tpu_torch.ops import rotation as trot
 from gazenerf_tpu_torch.utils import transplant as ttr
 from gazenerf_tpu_torch.utils.png import decode_png, encode_png
 from gazenerf_tpu_torch.viewer.server import lookat_camera
+from torch_threads import one_thread  # noqa: F401
 
 ATOL = 1e-6
 

@@ -24,6 +24,7 @@ from gazenerf_tpu_torch import GazeNeRF, ModelConfig, ViewerApp, params_from_jax
 from gazenerf_tpu_torch.kernels import fused_field as ff
 from gazenerf_tpu_torch.utils.png import decode_png
 from gazenerf_tpu_torch.viewer.server import lookat_camera, make_handler
+from torch_threads import one_thread  # noqa: F401
 
 IMAGES = ("merge_img", "merge_img_face", "merge_img_eyes", "bg_img")
 FEATMAPS = ("face", "eyes", "merge")
@@ -271,7 +272,7 @@ def test_viewer_serves_render_over_http(jax_setup):
     [
         dict(pallas_stash_every=2),
         dict(pallas_fuse_embed=True),
-        dict(pallas_split_dw=True),
+        dict(pallas_embed_bf16=True, pallas_split_dw=True),
         dict(shuffle_mode="phase"),
         dict(shuffle_mode="naive"),
         dict(renderer_fold_feat=False),

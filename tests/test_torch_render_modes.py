@@ -21,6 +21,7 @@ from gazenerf_tpu_torch.kernels import fused_upsampler as fu
 from gazenerf_tpu_torch.kernels import shuffle_blur as sb
 from gazenerf_tpu_torch.models.neural_renderer import NeuralRenderer
 from gazenerf_tpu_torch.utils.transplant import renderer_params_to_torch
+from torch_threads import one_thread  # noqa: F401
 
 KW = dict(feat_nc=66, featmap_size=8, img_size=32, min_feat=8)
 N_BLOCKS = 2

@@ -22,6 +22,7 @@ from gazenerf_tpu_torch.kernels import shuffle_blur as sb
 from gazenerf_tpu_torch.kernels.fused_upsampler import residual_index
 from gazenerf_tpu_torch.models.conv1x1 import Conv1x1
 from gazenerf_tpu_torch.models.neural_renderer import PixelShuffleUpsample, tile_gm
+from torch_threads import one_thread  # noqa: F401
 
 WIDTHS = (258, 129, 64, 32)  # the renderer's block widths at 258 features
 DTYPES = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.bfloat16)}

@@ -13,6 +13,7 @@ import jax.numpy as jnp
 from gazenerf_tpu.ops.rays import sample_coarse as jax_sample_coarse
 from gazenerf_tpu.ops.rays import sample_fine as jax_sample_fine
 from gazenerf_tpu_torch.ops.rays import sample_coarse, sample_fine
+from torch_threads import one_thread  # noqa: F401
 
 B, R, SC, NF = 2, 16, 8, 6
 FIELDS = ("pts", "dirs", "zvals", "z_dists")

@@ -17,6 +17,7 @@ from gazenerf_tpu.kernels.shuffle_blur import pallas_shuffle_blur_gm
 from gazenerf_tpu.ops import image as jax_image
 from gazenerf_tpu_torch.kernels import shuffle_blur as sb
 from gazenerf_tpu_torch.ops import image as torch_image
+from torch_threads import one_thread  # noqa: F401
 
 # JAX's own shapes (tests/test_fused_field.py), the single-tile and the
 # non-square one among them, and one at the renderer's odd folded width

@@ -47,6 +47,7 @@ from gazenerf_tpu_torch.utils.transplant import (
     params_from_jax,
     vgg_params_from_jax,
 )
+from torch_threads import one_thread  # noqa: F401
 
 B, SIZE, TRAIN_LEN = 2, 64, 4
 GROUPS = ("net", "iden", "expr", "appea", "euler", "tvec")
