@@ -40,7 +40,16 @@ Phases (each raises on failure, so any failed phase exits non-zero):
    stash and K2 reading it (density masks equal, K2 recomputing's bits), K3
    and K4 against K1 and K2 per branch, and all four timed at the deep
    march's shape (B=2, 4096 rays x 256 samples) beside their plain versions
-   run in 512-ray chunks (``k2_deep_profile``); each timed (CUDA events; K5 and K6 from a CUDA graph of their launches,
+   run in 512-ray chunks (``k2_deep_profile``); the sample points encoded
+   in K1's and K2's tiles (``embed_in_kernel``, ``checks.POINTS_CASES``:
+   narrow, training, S = 256) against their plain versions and against K1
+   and K2 given the plain encoding computed on the card as a bf16 embedding
+   (to the bit), the count of entries where that encoding and the CPU's
+   round apart, K2 reading the stash, K2 against the unrounded float64
+   gradient (``k2_points_profile``); K5 and K6 at the three levels unfolded (C = 258,
+   129, 64) and K7 and K8 at f32 (the f32 renderer) at the three blocks,
+   against their plain versions and the unrounded result
+   (``f32_block_profile``); each timed (CUDA events; K5 and K6 from a CUDA graph of their launches,
    which take less time on the card than their wrappers on the host)
    beside its bound.  The
    limits are in ``kernels/checks.py``;
@@ -48,7 +57,13 @@ Phases (each raises on failure, so any failed phase exits non-zero):
    ``fused``; ``dual``: both fields in the dual-branch kernels with the
    ``phase_gm`` renderer; ``stash``: K1 writing and K2 reading the
    single-branch stash with ``dens_vpu``, the ``phase_gm`` renderer, whose
-   image must be ``phase_gm``'s to the bit), a full-width bf16 ``ViewerApp`` with the same
+   image must be ``phase_gm``'s to the bit; ``fused_f32``: K7 at f32 with the
+   f32 renderer, its image against a ``phase_gm`` app's with the f32
+   renderer; ``fuse_embed``, ``embed_bf16``: the stash variant with the
+   points encoded in the kernels or the bf16 embedding, their images
+   against the stash variant's; the eager renderer modes ``phase``,
+   ``naive``, ``unfolded``, ``unfolded_pallas``, ``rgb_nhwc``, against
+   ``phase_gm``'s), a full-width bf16 ``ViewerApp`` with the same
    seeded random weights answers ``--requests`` render requests (512x512
    PNGs) with launch counts read around them; one request is rendered again
    with the plain versions in place of the kernels and the two images
@@ -75,7 +90,18 @@ Phases (each raises on failure, so any failed phase exits non-zero):
    a gradient comparison from the same discriminator state, with the
    discriminator update's, the gaze-VGG's and the generator term's stage
    times;
-   then the deep march's variants, ``deep`` and ``deep_stash`` (S = 256 in
+   the embedding settings', the f32 renderer's and the eager modes'
+   variants of step 4 take their steps too (the eager
+   renderer modes one timed step and a step's device time alone), each
+   against the same
+   step without its setting (``fused_f32`` and the eager modes against
+   ``phase_gm`` at the trainer's seeded state, before its first step, the
+   mode's gradients read twice; the embedding settings against the f32
+   embedding), with
+   what the fields' autograd op and each K1 and K2 call take for the
+   embedding read (``EMBED_MODES``);
+   then the deep march's variants, ``deep``, ``deep_stash`` and
+   ``deep_fuse_embed`` (S = 256 in
    checkpointed 512-ray chunks, the CLI's ``--pallas_tuning auto``
    overrides for that shape, no VGG loss; the second reading the stash), as
    the variants above: 2 + ``--steps`` steps with launch counts (per step
@@ -83,7 +109,9 @@ Phases (each raises on failure, so any failed phase exits non-zero):
    a step's time goes and both memory peaks (the ``deep_training`` line);
    and the hierarchical sampler's fine pass in a B=1 model forward (three
    K1 a forward, the fine field at S = 192; the renderer passes stacked for
-   the fused upsampler), its images against the plain versions' (``hier``);
+   the fused upsampler), its images against the plain versions' (``hier``),
+   and the same with the points encoded in the kernels
+   (``hier_fuse_embed``);
 7. cli: ``python -m gazenerf_tpu_torch.cli.train`` in-process at the
    reference shape with ``--pallas_tuning auto`` on one synthetic 512x512
    subject for 2 epochs and, resumed from the last checkpoint, a third:
@@ -101,11 +129,12 @@ Phases (each raises on failure, so any failed phase exits non-zero):
    estimator and LPIPS, and the demo render loops written and parsed as
    GIFs (``phase_eval``).
 
-Prints ``k2_profile``, ``dw``, ``k8_profile``, ``k4_profile``,
-``k2_stash_profile``, ``deep_case``, ``deep_dual_case``, ``k2_deep_profile``,
-``serving``, ``training``, ``deep_training``, ``hier``, ``cli``,
-``k2_fit_case``, ``eval`` and ``kernels`` JSON lines, the
-``nvidia-smi`` line and, last, the device JSON line.  Exits non-zero without
+Prints ``k2_profile``, ``dw``, ``k8_profile``, ``f32_block_profile``,
+``k4_profile``, ``k2_stash_profile``, ``deep_case``, ``deep_dual_case``,
+``k2_deep_profile``, ``points_case``, ``k2_points_profile``, ``serving``,
+``training``, ``deep_training``, ``hier``, ``hier_fuse_embed``, ``cli``,
+``k2_fit_case``, ``eval`` and ``kernels`` JSON lines, the run's wall time,
+the ``nvidia-smi`` line and, last, the device JSON line.  Exits non-zero without
 a result when no CUDA card is present.  Imports nothing of JAX.
 """
 
@@ -150,12 +179,40 @@ SPLIT_DW_FLAGS = {"pallas_split_dw": True, "pallas_dens_vpu": True}
 # the modes (stash read, dens_vpu) of the K2 calls a variant's step makes:
 # split_dw reads the stash without dens_vpu, whatever pallas_dens_vpu says
 K2_MODES = {STASH: [(True, True)], SPLIT_DW: [(True, False)]}
+# the f32 renderer's fused mode: K7 and K8 at f32 (use_bf16=False), the
+# library's default renderer dtype
+FUSED_F32 = "fused_f32"
+FUSED_F32_FLAGS = {"shuffle_mode": "fused", "renderer_dtype": "float32"}
+# the fields' two embedding settings, each beside the stash variant's flags:
+# the sample points encoded in K1's and K2's tiles, and the bf16 embedding
+# with its bf16 cotangent
+FUSE_EMBED = "fuse_embed"
+EMBED_BF16 = "embed_bf16"
+EMBED_FLAGS = {FUSE_EMBED: {**STASH_FLAGS, "pallas_fuse_embed": True},
+               EMBED_BF16: {**STASH_FLAGS, "pallas_embed_bf16": True}}
+# the deep march (S = 256, recomputing, in 512-ray chunks) with the points
+# encoded in the kernels
+DEEP_FUSE_EMBED = "deep_fuse_embed"
+# what the fields of a variant's warm-up steps give their autograd op (the
+# points, or the embedding in its dtype, which its cotangent comes back in)
+# and what every K1 and K2 call takes (the points or the bf16 embedding)
+EMBED_MODES = {FUSE_EMBED: ("points", "points"), EMBED_BF16: ("bfloat16", "bfloat16"),
+               DEEP_FUSE_EMBED: ("points", "points"), STASH: ("float32", "bfloat16")}
+# the renderer's eager modes (bf16), each held against phase_gm: upstream's
+# channel order with the phase stencil or the blur after the shuffle, the
+# feat_layer unfolded (in PyTorch ops, or with K5/K6 at the blocks' own
+# widths), the NHWC rgb chain
+EAGER_MODES = {"phase": {"shuffle_mode": "phase"}, "naive": {"shuffle_mode": "naive"},
+               "unfolded": {"renderer_fold_feat": False},
+               "unfolded_pallas": {"shuffle_mode": "pallas", "renderer_fold_feat": False},
+               "rgb_nhwc": {"renderer_rgb_cf": False}}
 # the epoch whose gradual eye importance the training variants take
 # (eye_loss_importance + 30 * epoch = 70)
 GRADUAL_EPOCH = 2
 # the kernels' counters, in the order of the ``kernels`` line
 KERNELS = ("fused_field_fwd", "fused_field_bwd", "shuffle_blur_fwd", "shuffle_blur_bwd",
-           "fused_upsampler_fwd", "fused_upsampler_bwd", "fused_dual_fwd", "fused_dual_bwd")
+           "fused_upsampler_fwd", "fused_upsampler_bwd", "fused_dual_fwd", "fused_dual_bwd",
+           "fused_upsampler_fwd_f32", "fused_upsampler_bwd_f32")
 
 # whole image with the kernel vs with its plain version: the bf16 image
 # bound of the JAX package's fused-vs-XLA model test
@@ -200,6 +257,56 @@ STASH_IMAGE_ATOL = 0.0
 # dens_vpu takes from the unrounded density cotangent.  Held as the dual
 # path's
 STASH_GRAD_REL_L2 = DUAL_GRAD_REL_L2
+# the embedding settings' and renderer modes' step gradients against the same step without the
+# setting, from the same state (relative L2 per parameter group), on an
+# NVIDIA H100 80GB HBM3 (700 W).  The embedding settings against the f32
+# embedding: the same fields and weight gradients; readings net 2.3e-5, the
+# codes 2.1e-6 to 2.7e-6 (the renderer's atomic index backward, which moved
+# split_dw's step against phase_gm's net group by 2.0e-5 too), the camera offsets
+# 5.5e-5 (the points' cotangent summed in the kernel's order) and with the
+# bf16 cotangent 9.0e-4 and 1.3e-3; held at 2e-4 and 4e-3.  The renderer
+# modes against phase_gm in the same renderer dtype, both at the trainer's
+# seeded state (phase_render_mode_grads): fused_f32 read 1.1e-7 to 1.9e-7
+# and the camera offsets 1.9e-6 and 7.2e-6 (f32 against f32; at the state
+# its steps reached), held at 1e-4 and 1e-3.  The eager bf16 modes round at
+# other points than phase_gm; at the seeded state their distance from it is
+# the same in every run (tools/torch_grad_repeat.py, two processes, with
+# and without deterministic algorithms: its readings spread by 2.7e-4 at
+# most, in the camera offsets, and the net group's by 7e-7), and a step
+# read twice moves by 6.6e-5 at most.  Held per mode and group at twice the largest reading (phase and
+# naive alike, unfolded and unfolded_pallas alike).  At a state reached by a
+# variant's own steps the distance moved fivefold between runs (unfolded's
+# net group 2.4e-3 and 1.1e-2 in two trainers made alike in one process):
+# the atomic sums of the step's index_add_, bilinear and reflect-pad
+# backwards differ in the last place from run to run, and Adam carries that
+# into the camera-offset tables (1.2e-2 apart after three steps)
+_CODES = ("iden", "expr", "appea")
+EMBED_GRAD_REL_L2 = {name: {"net": 2e-4, **dict.fromkeys(_CODES, 2e-4), "euler": 4e-3,
+                            "tvec": 4e-3}
+                     for name in (FUSE_EMBED, EMBED_BF16, DEEP_FUSE_EMBED)}
+_GROUPS = ("net", *_CODES, "euler", "tvec")
+# readings at the seeded state on an NVIDIA H100 80GB HBM3 (700 W), in the
+# order of _GROUPS
+_EAGER_READINGS = {
+    "phase": (9.49e-4, 7.00e-5, 8.46e-5, 4.04e-4, 4.07e-3, 2.10e-3),
+    "unfolded": (5.60e-3, 1.50e-4, 1.58e-4, 4.24e-4, 1.93e-3, 2.53e-3),
+    "rgb_nhwc": (7.17e-3, 4.81e-3, 4.90e-3, 1.04e-2, 6.21e-3, 4.94e-3),
+}
+_EAGER_READINGS["naive"] = _EAGER_READINGS["phase"]
+_EAGER_READINGS["unfolded_pallas"] = _EAGER_READINGS["unfolded"]
+RENDER_GRAD_REL_L2 = {FUSED_F32: {"net": 1e-4, **dict.fromkeys(_CODES, 1e-4), "euler": 1e-3,
+                                  "tvec": 1e-3}}
+RENDER_GRAD_REL_L2.update({name: {g: 2 * r for g, r in zip(_GROUPS, _EAGER_READINGS[name])}
+                           for name in EAGER_MODES})
+# those variants' images, the same card: fused_f32 against a
+# phase_gm app with the f32 renderer (reading 0: K7 at f32 and PyTorch's f32
+# products agree to the bit there; held at 1e-5, f32 noise); the embedding
+# settings against the stash variant (0: the tiles' encoding equals
+# PyTorch's to the bit, no entry rounded apart); the eager modes against
+# phase_gm (2.0e-3 to 2.9e-3, rgb_nhwc the largest: its bf16 rgb chain)
+F32_IMAGE_ATOL = 1e-5
+EMBED_IMAGE_ATOL = 0.0
+EAGER_IMAGE_ATOL = 6e-3
 # the gaze optimization's gradient at its start point, kernels vs plain
 # versions (relative L2 of the 2-vector): K2's conditioning gradient (dcb0,
 # dcb5) and the eye planes' rotation; reading 6.6e-4 on an NVIDIA H100 80GB
@@ -259,7 +366,7 @@ def random_biases_(module, gen):
 
 def demangled_kernel(mangled):
     """The last name of a mangled entry name's nested name (``_ZN...E``),
-    with its bool template arguments (``<true, false>``)."""
+    with its bool and int template arguments (``<true, false, 2>``)."""
     import re
 
     pos = 3 if mangled.startswith("_ZN") else 2 if mangled.startswith("_Z") else -1
@@ -273,11 +380,12 @@ def demangled_kernel(mangled):
         name, pos = mangled[start:start + n], start + n
     if name is None:
         return mangled
-    args = re.match(r"I((?:Lb[01]E)+)E", mangled[pos:])
+    args = re.match(r"I((?:Lb[01]E|Li\d+E)+)E", mangled[pos:])
     if not args:
         return name
-    flags = re.findall(r"Lb([01])E", args.group(1))
-    return name + "<" + ", ".join("true" if f == "1" else "false" for f in flags) + ">"
+    vals = re.findall(r"L([bi])(\d+)E", args.group(1))
+    return name + "<" + ", ".join(
+        v if t == "i" else ("true" if v == "1" else "false") for t, v in vals) + ">"
 
 
 def ptxas_lines(log):
@@ -316,7 +424,8 @@ def kernel_modules():
 # each counter of the ``kernels`` line: (module index in kernel_modules(), name)
 _COUNTERS = ((0, "launch_count"), (1, "launch_count"), (2, "launch_count_fwd"),
              (2, "launch_count_bwd"), (3, "launch_count_fwd"), (3, "launch_count_bwd"),
-             (4, "launch_count"), (5, "launch_count"))
+             (4, "launch_count"), (5, "launch_count"), (3, "launch_count_fwd_f32"),
+             (3, "launch_count_bwd_f32"))
 
 
 def launch_counts():
@@ -349,8 +458,9 @@ def expected_launches(cfg, n, train, forward=False):
     forward runs again in the backward, under the checkpoint), and one K1
     for the fine pass; per step two K2 per chunk (K4 once on the dual path
     with the stash, two K2 without it), none for the fine pass, which no
-    loss reads; and the mode's renderer kernels (none in ``phase_gm``) once
-    per upsample block and pass."""
+    loss reads; and the mode's renderer kernels (none in ``phase_gm`` and
+    the eager modes; in ``fused`` K7 and K8 at f32 for the f32 renderer)
+    once per upsample block and pass."""
     from gazenerf_tpu_torch.models.gaze_nerf import chunked
 
     out = dict.fromkeys(KERNELS, 0)
@@ -369,10 +479,11 @@ def expected_launches(cfg, n, train, forward=False):
         out["fused_field_fwd"] += n
     prefix = {"pallas": "shuffle_blur", "fused": "fused_upsampler"}.get(cfg.shuffle_mode)
     if prefix:
+        suffix = "_f32" if prefix == "fused_upsampler" and cfg.renderer_dtype == "float32" else ""
         passes = renderer_passes(cfg) if train or forward else 1
         blocks = cfg.n_upsample_blocks * n
-        out[f"{prefix}_fwd"] = passes * blocks
-        out[f"{prefix}_bwd"] = (passes - cfg.hier_sampling) * blocks if train else 0
+        out[f"{prefix}_fwd{suffix}"] = passes * blocks
+        out[f"{prefix}_bwd{suffix}"] = (passes - cfg.hier_sampling) * blocks if train else 0
     return out
 
 
@@ -516,6 +627,53 @@ def k8_bound(args, dy, grads):
                  nbytes(*args, dy, *grads) / PEAK_BYTES_PER_S)
 
 
+def k7_f32_bound(args, y):
+    """K7 at f32: the chain's products and the stencil in f32 on the CUDA
+    cores, vs x, the weights and the output."""
+    x, W3 = args[0], args[5]
+    B, H, W, F = x.shape
+    P, F3 = B * H * W, W3.shape[1]
+    macs = P * (2 * F * F + 8 * F * F + 4 * F * F3)
+    return bound([(2 * macs + 18 * y.numel()) / PEAK_F32_FLOPS],
+                 nbytes(*args, y) / PEAK_BYTES_PER_S)
+
+
+def k8_f32_bound(args, dy, grads):
+    """K8 at f32: in f32 on the CUDA cores the recompute of h1 and z, the
+    data gradients (dz3 W3^T, dzp W2g^T, dh1p W1^T) and the three weight
+    gradients, each the forward's product's multiply-adds, and the
+    stencil's adjoint; vs x, dy and the weights in, dx and the weight
+    gradients out."""
+    x, W3 = args[0], args[5]
+    B, H, W, F = x.shape
+    P, F3 = B * H * W, W3.shape[1]
+    macs = P * 3 * (2 * F * F + 8 * F * F + 4 * F * F3) - P * 4 * F * F3  # no z3 recompute
+    return bound([(2 * macs + 18 * P * 4 * F3) / PEAK_F32_FLOPS],
+                 nbytes(*args, dy, *grads) / PEAK_BYTES_PER_S)
+
+
+def points_bounds(args, De, outs, acts, cot=None, grads=None, stash_read=False):
+    """K1 (``cot`` None) or K2 given the points: K1's, K2's or K2 reading
+    the stash's operations at the encoded width ``De`` (the encoding's
+    sines and cosines, 60 a point, not counted), vs the points (12 bytes a
+    point in place of the embedding's 126) and the other inputs read once,
+    the outputs (the points' cotangent, 12 bytes a point) written once."""
+    ops = args[6]
+    B, R, S, _ = args[0].shape
+    H, H2, C = ops.w0e.shape[0], ops.wr2.shape[0], ops.wr2.shape[1]
+    P = B * R * S
+    if cot is None:
+        n = 2 * (P * field_macs(De, H) + B * R * H2 * C)
+        moved = nbytes(*args[:6], *ops, *outs, *acts)
+    elif stash_read:
+        n = 2 * (2 * P * field_macs(De, H) + P * (H + H2) + 2 * B * R * H2 * C)
+        moved = nbytes(*args[:3], *ops, *cot, *acts, *grads)
+    else:
+        n = 2 * (3 * P * field_macs(De, H) + 2 * B * R * H2 * C)
+        moved = nbytes(*args[:6], *ops, *cot, *grads)
+    return bound([n / PEAK_BF16_FLOPS], moved / PEAK_BYTES_PER_S)
+
+
 def kernel_entry(name, source, replaces, err, ms, plain_ms, bound_ms, bound_by):
     """A kernel's entry of the ``kernels`` line, printed on a line of its own;
     its launches are filled in from the main path's run.  No single PyTorch
@@ -529,6 +687,136 @@ def kernel_entry(name, source, replaces, err, ms, plain_ms, bound_ms, bound_by):
             "library_ms": None}
 
 
+def mode_record(name, mode, err, ms, plain_ms, bound_ms, bound_by):
+    """A kernel mode's entry, joined to its kernel's entry of the ``kernels``
+    line, printed on a line of its own; its launches are filled in from the
+    main path's run."""
+    print(f"{name} ({mode}): {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+          f"({bound_by}), {100 * bound_ms / ms:.1f}% of bound")
+    return {"mode": mode, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+
+
+def phase_points_kernels(seed, iters):
+    """The sample points encoded in the field kernels (``embed_in_kernel``).
+    In the cases of ``checks.POINTS_CASES`` (narrow, the training shape, the
+    deep march's S = 256): K1 given the points against its plain version
+    and against K1 given the plain encoding, computed on the card in f32
+    and rounded to bf16 (to the bit: the tiles compute the same f32 values
+    with the same ``sinf`` / ``cosf``), with the count of entries where that
+    encoding and the same encoding on the CPU round to other bf16 values;
+    K2 given them against its plain version and against K2 given that
+    embedding (every output but the points' cotangent to the bit); in the
+    narrow and training cases K1 writing the stash and K2 reading it with
+    ``dens_vpu``; at the training shape K2 against the unrounded float64
+    gradient (the points' cotangent included).  Then K1, K2 recomputing and
+    K2 reading the stash timed at the training shape.  Returns their
+    entries of the ``kernels`` line."""
+    import torch
+
+    from gazenerf_tpu_torch.kernels import checks
+    from gazenerf_tpu_torch.kernels import fused_field as ff
+    from gazenerf_tpu_torch.kernels import fused_field_bwd as ffb
+
+    dev = torch.device("cuda")
+    nf, fails, err = checks.N_FREQS, [], {}
+    for case in checks.POINTS_CASES:
+        args, cot = checks.points_case(*checks.POINTS_CASES[case], dev, seed=seed)
+        chunks = checks.deep_chunks(args)
+        line = {"points_case": case, "seed": seed}
+        with torch.no_grad():
+            out = ff.fused_field_forward(*args, n_freqs=nf)
+            torch.cuda.synchronize()
+            want = ff.fused_field_reference(*args, n_freqs=nf)
+            line["k1_readings"], f = checks.points_k1_failures(case, out, want)
+            err[case, "k1"] = max(float((a - b).abs().max()) for a, b in zip(out, want))
+            plain = ff.encoded(args[0], nf).to(torch.bfloat16)
+            line["encoding_flips_card_vs_cpu"] = checks.encoding_flips(
+                plain.cpu(), ff.encoded(args[0].cpu(), nf).to(torch.bfloat16))
+            line["encoding_entries"] = plain.numel()
+            via_plain = ff.fused_field_forward(plain, *args[1:])
+            differ = [int((a != b).sum()) for a, b in zip(out, via_plain)]
+            line["k1_vs_plain_encoding_entries_differing"] = differ
+            if any(differ):
+                f.append(f"K1 differs from K1 given the plain encoding in {differ} entries")
+            del want, via_plain
+            got = ffb.fused_field_backward(*args, *cot, n_freqs=nf)
+            again = ffb.fused_field_backward(*args, *cot, n_freqs=nf)
+            torch.cuda.synchronize()
+            want = ffb.fused_field_backward_reference(*args, *cot, n_freqs=nf, chunks=chunks)
+            line["k2_readings"], f2 = checks.points_k2_failures(case, got, want)
+            err[case, "k2"] = max(float((a - b).abs().max()) for a, b in zip(got, want))
+            f += f2
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                f.append("K2: two launches on the same inputs differ")
+            on_plain = ffb.fused_field_backward(plain, *args[1:], *cot)
+            differ = [n for n, a, b in zip(got._fields[1:], got[1:], on_plain[1:])
+                      if not torch.equal(a, b)]
+            if differ:
+                f.append(f"K2 differs from K2 given the plain encoding in {differ}")
+            del want, again, on_plain, plain
+            if case in checks.POINTS_STASH_CASES:
+                _, acts = ff.fused_field_forward(*args, stash=True, n_freqs=nf)
+                sg = ffb.fused_field_backward(*args, *cot, stash=acts, dens_vpu=True, n_freqs=nf)
+                sw = ffb.fused_field_backward_reference(*args, *cot, stash=acts, dens_vpu=True,
+                                                        n_freqs=nf, chunks=chunks)
+                line["k2_stash_readings"], f2 = checks.points_k2_failures(f"{case}_stash", sg, sw)
+                err[case, "k2_stash"] = max(float((a - b).abs().max()) for a, b in zip(sg, sw))
+                f += f2
+                del sw
+        if case == "training":
+            with torch.no_grad():
+                want = ffb.fused_field_backward_reference(*args, *cot, n_freqs=nf)
+                want64 = ffb.fused_field_backward_reference(*args, *cot, n_freqs=nf,
+                                                            dtype=torch.float64)
+            exact = ffb.fused_field_backward_unrounded(*args, *cot, n_freqs=nf)
+            line["k2_unrounded_distance"], ft = checks.truth_failures(
+                got, want, want64, exact, checks.K2_TRUTH_RATIO, checks.K2_TRUTH_EXEMPT)
+            f += ft
+            del want, want64, exact
+            train_args, train_cot, train = args, cot, (out, got, acts, sg)
+        print(json.dumps(line))
+        fails += [f"points {case}: {x}" for x in f]
+        del got
+        torch.cuda.empty_cache()
+    check(not fails, "\n".join(fails))
+
+    args, cot = train_args, train_cot
+    out, got, acts, sg = train
+    De = ff.points_width(nf)
+    k2_iters = max(4, iters // 4)
+    with torch.no_grad():
+        ms = {
+            "k1": cuda_ms(lambda: ff.fused_field_forward(*args, n_freqs=nf), iters),
+            "k2": cuda_ms(lambda: ffb.fused_field_backward(*args, *cot, n_freqs=nf), k2_iters),
+            "k2_stash": cuda_ms(lambda: ffb.fused_field_backward(
+                *args, *cot, stash=acts, dens_vpu=True, n_freqs=nf), k2_iters),
+        }
+        plain_iters = max(2, k2_iters // 4)
+        plain = {
+            "k1": cuda_ms(lambda: ff.fused_field_reference(*args, n_freqs=nf), plain_iters,
+                          warmup=1),
+            "k2": cuda_ms(lambda: ffb.fused_field_backward_reference(*args, *cot, n_freqs=nf),
+                          plain_iters, warmup=1),
+            "k2_stash": cuda_ms(lambda: ffb.fused_field_backward_reference(
+                *args, *cot, stash=acts, dens_vpu=True, n_freqs=nf), plain_iters, warmup=1),
+        }
+        print(json.dumps({"k2_points_profile": device_profile(
+            lambda: ffb.fused_field_backward(*args, *cot, n_freqs=nf), top=6)}))
+    bnd = {"k1": points_bounds(args, De, out, ()),
+           "k2": points_bounds(args, De, out, (), cot, got),
+           "k2_stash": points_bounds(args, De, out, acts, cot, sg, stash_read=True)}
+    shape = "training shape (B=2, 4096 rays x 64 samples, hidden 384)"
+    modes = {"k1": f"points encoded in the tile, {shape}",
+             "k2": f"points encoded in the tile, recomputing, {shape}",
+             "k2_stash": f"points encoded in the tile, reading the stash with dens_vpu, {shape}"}
+    errs = {"k1": err["training", "k1"], "k2": err["training", "k2"],
+            "k2_stash": err["training", "k2_stash"]}
+    names = {"k1": "fused_field_fwd"}
+    return {k: mode_record(names.get(k, "fused_field_bwd"), modes[k], errs[k], ms[k], plain[k],
+                           *bnd[k]) for k in ms}
+
+
 def phase_renderer_kernels(seed, iters):
     """The renderer's kernels at the shapes of one B=2 bf16 renderer pass:
     K5 and K6 at the three stencil levels, to the bit against their plain
@@ -537,7 +825,13 @@ def phase_renderer_kernels(seed, iters):
     gradient and for equal bits over two launches.  Each kernel's ms, plain
     ms and bound are summed over the three levels: one renderer pass's
     worth.  No single PyTorch call computes any of the four functions (the
-    stencil's reflect edge is no convolution's padding)."""
+    stencil's reflect edge is no convolution's padding).  Then the same for
+    K5 and K6 at the three levels unfolded (``renderer_fold_feat`` off: C =
+    258, 129, 64), and for K7 and K8 at f32 (the f32 renderer) at the three
+    blocks against their f32 plain versions, each output against the
+    unrounded result at ``F32_TRUTH_RATIO`` of the plain version's distance
+    (or under ``F32_TRUTH_FLOOR``), K8 for equal bits over two launches:
+    their entries join the four as the modes ``unfolded`` and ``f32``."""
     import torch
 
     from gazenerf_tpu_torch.kernels import checks
@@ -548,7 +842,7 @@ def phase_renderer_kernels(seed, iters):
     fails = []
     # per kernel: max abs err, ms, plain ms, bound ms, bound ms by what bounds it
     tot = {k: [0.0, 0.0, 0.0, 0.0, {"bytes": 0.0, "operations": 0.0}]
-           for k in ("k5", "k6", "k7", "k8")}
+           for k in ("k5", "k6", "k7", "k8", "k5u", "k6u", "k7f", "k8f")}
 
     def timed(key, err, fn, plain, bnd, graph=False):
         t = tot[key]
@@ -558,7 +852,8 @@ def phase_renderer_kernels(seed, iters):
         t[3] += bnd[0]
         t[4][bnd[1]] += bnd[0]
 
-    for level in ("level0", "level1", "level2"):
+    for level in ("level0", "level1", "level2", "unfolded0", "unfolded1", "unfolded2"):
+        k5, k6 = ("k5u", "k6u") if level.startswith("unfolded") else ("k5", "k6")
         x, dy = checks.stencil_case(checks.STENCIL_CASES[level], dev, seed=seed)
         y, dx = sb.shuffle_blur_forward(x), sb.shuffle_blur_backward(dy)
         torch.cuda.synchronize()
@@ -572,9 +867,9 @@ def phase_renderer_kernels(seed, iters):
                 fails.append(f"{key} {level}: max abs err {errs[-1]:.3e}, dtype {got.dtype}")
         # K5 and K6 take less time on the card than their wrappers on the
         # host: timed from a CUDA graph of their launches
-        timed("k5", errs[0], lambda: sb.shuffle_blur_forward(x),
+        timed(k5, errs[0], lambda: sb.shuffle_blur_forward(x),
               lambda: sb.shuffle_blur_reference(x), stencil_bound(x, y), graph=True)
-        timed("k6", errs[1], lambda: sb.shuffle_blur_backward(dy),
+        timed(k6, errs[1], lambda: sb.shuffle_blur_backward(dy),
               lambda: sb.shuffle_blur_backward_reference(dy), stencil_bound(dy, dx), graph=True)
 
     k8_profile = {}
@@ -609,20 +904,70 @@ def phase_renderer_kernels(seed, iters):
         # and its partials' sum, the bias sums
         k8_profile[block] = device_profile(lambda: fu.fused_upsample_backward(*args, dy), top=6)
     print(json.dumps({"k8_profile": k8_profile}))
+
+    f32_profile = {}
+    for block in ("block0", "block1", "block2"):
+        args, dy = checks.f32_block_case(checks.BLOCK_CASES[block], dev, seed=seed)
+        y = fu.fused_upsample_forward(*args, use_bf16=False)
+        got = fu.fused_upsample_backward(*args, dy, use_bf16=False)
+        again = fu.fused_upsample_backward(*args, dy, use_bf16=False)
+        torch.cuda.synchronize()
+        y_ref = fu.fused_upsample_reference(*args, use_bf16=False)
+        want = fu.fused_upsample_backward_reference(*args, dy, use_bf16=False)
+        r7, f7 = checks.f32_k7_failures(block, y, y_ref)
+        r8, f8 = checks.f32_k8_failures(block, got, want)
+        y64 = fu.fused_upsample_reference(*(a.double() for a in args), use_bf16=False)
+        t7, ft7 = checks.f32_truth_failures(checks.Image(y), checks.Image(y_ref), checks.Image(y64))
+        exact = fu.fused_upsample_backward_unrounded(*args, dy)
+        t8, ft8 = checks.f32_truth_failures(got, want, exact)
+        del y64, exact
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            f8.append("two launches on the same inputs differ")
+        print(json.dumps({"f32_block_case": block, "seed": seed, "k7_readings": r7,
+                          "k8_readings": r8, "k7_unrounded_distance": t7,
+                          "k8_unrounded_distance": t8}))
+        fails += [f"K7 f32 {block}: {f}" for f in f7 + ft7]
+        fails += [f"K8 f32 {block}: {f}" for f in f8 + ft8]
+        timed("k7f", float((y - y_ref).abs().max()),
+              lambda: fu.fused_upsample_forward(*args, use_bf16=False),
+              lambda: fu.fused_upsample_reference(*args, use_bf16=False), k7_f32_bound(args, y))
+        timed("k8f", float(max((a - b).abs().max() for a, b in zip(got, want))),
+              lambda: fu.fused_upsample_backward(*args, dy, use_bf16=False),
+              lambda: fu.fused_upsample_backward_reference(*args, dy, use_bf16=False),
+              k8_f32_bound(args, dy, got))
+        f32_profile[block] = {
+            "k7": device_profile(lambda: fu.fused_upsample_forward(*args, use_bf16=False), top=3),
+            "k8": device_profile(lambda: fu.fused_upsample_backward(*args, dy, use_bf16=False),
+                                 top=6)}
+    print(json.dumps({"f32_block_profile": f32_profile}))
     check(not fails, "\n".join(fails))
 
     def entry(key, name, source, replaces):
         err, ms, plain_ms, bnd, by = tot[key]
         return kernel_entry(name, source, replaces, err, ms, plain_ms, bnd, max(by, key=by.get))
 
-    return [
+    def mode_entry(key, name, mode, source=None):
+        err, ms, plain_ms, bnd, by = tot[key]
+        out = mode_record(name, mode, err, ms, plain_ms, bnd, max(by, key=by.get))
+        if source:
+            out["source"] = f"gazenerf_tpu_torch/csrc/{source}"
+        return out
+
+    k5, k6, k7, k8 = (
         entry("k5", "shuffle_blur_fwd", "shuffle_blur.cu", "gazenerf_tpu/kernels/shuffle_blur.py:55"),
         entry("k6", "shuffle_blur_bwd", "shuffle_blur.cu", "gazenerf_tpu/kernels/shuffle_blur.py:145"),
         entry("k7", "fused_upsampler_fwd", "fused_upsampler_fwd.cu",
               "gazenerf_tpu/kernels/fused_upsampler.py:60"),
         entry("k8", "fused_upsampler_bwd", "fused_upsampler_bwd.cu",
               "gazenerf_tpu/kernels/fused_upsampler.py:179"),
-    ]
+    )
+    unfolded = "the three levels unfolded (C = 258, 129, 64), bf16, B=2, one renderer pass"
+    k5["unfolded"] = mode_entry("k5u", "shuffle_blur_fwd", unfolded)
+    k6["unfolded"] = mode_entry("k6u", "shuffle_blur_bwd", unfolded)
+    f32 = "f32 (use_bf16=False, the f32 renderer), the three blocks, B=2, one renderer pass"
+    k7["f32"] = mode_entry("k7f", "fused_upsampler_fwd", f32, "fused_upsampler_f32.cu")
+    k8["f32"] = mode_entry("k8f", "fused_upsampler_bwd", f32, "fused_upsampler_f32.cu")
+    return [k5, k6, k7, k8]
 
 
 def seeded_field(seed, cfg, dev):
@@ -1154,7 +1499,7 @@ def phase_deep_kernels(seed, iters):
     return entries
 
 
-def phase_hier(seed, n_forwards=3):
+def phase_hier(seed, n_forwards=3, fuse_embed=False):
     """The hierarchical sampler's fine pass: a full-width bf16 model
     forward at B=1 with ``hier_sampling`` (64 coarse + 128 fine = 192
     samples), the fused upsampler and the renderer passes stacked into one
@@ -1162,7 +1507,9 @@ def phase_hier(seed, n_forwards=3):
     (two coarse, one fine at S = 192) and K7 once per block for the stacked
     pass and the fine pass; ``fine_dict["merge_img"]`` and
     ``coarse_dict["merge_img"]`` against the same forward with the plain
-    versions (``IMAGE_ATOL``).  Returns the ``hier`` line."""
+    versions (``IMAGE_ATOL``).  With ``fuse_embed`` the three K1 take the
+    sample points (``pallas_fuse_embed``), the fine pass's the fine points.
+    Returns the ``hier`` line."""
     import statistics
 
     import torch
@@ -1174,8 +1521,10 @@ def phase_hier(seed, n_forwards=3):
     from gazenerf_tpu_torch.viewer.server import lookat_camera
 
     cfg = ModelConfig(compute_dtype="bfloat16", renderer_dtype="bfloat16", hier_sampling=True,
-                      shuffle_mode="fused", batch_renderer_passes=True)
+                      shuffle_mode="fused", batch_renderer_passes=True,
+                      pallas_fuse_embed=fuse_embed)
     dev = torch.device("cuda")
+    tag = "hier fuse_embed" if fuse_embed else "hier"
     gen = torch.Generator().manual_seed(seed + 11)
     model = GazeNeRF(cfg, seed=seed).eval()
     random_biases_(model, gen)
@@ -1196,19 +1545,20 @@ def phase_hier(seed, n_forwards=3):
             times.append((time.perf_counter() - t0) * 1e3)
         launches = launch_counts()
         want = expected_launches(cfg, n_forwards, train=False, forward=True)
-        check(launches == want, f"hier: {n_forwards} forwards launched {launches} (expected {want})")
+        check(launches == want, f"{tag}: {n_forwards} forwards launched {launches} (expected {want})")
         with checks.plain_versions():
             plain = model(*args)
     errs = {}
     for d in ("fine_dict", "coarse_dict"):
         img, ref = out[d]["merge_img"].float(), plain[d]["merge_img"].float()
-        check(bool(torch.isfinite(img).all()), f"hier: {d} merge_img is not finite")
+        check(bool(torch.isfinite(img).all()), f"{tag}: {d} merge_img is not finite")
         errs[d] = float((img - ref).abs().max())
-        print(f"hier: {d} merge_img, kernels vs plain, max abs err {errs[d]:.3e} "
+        print(f"{tag}: {d} merge_img, kernels vs plain, max abs err {errs[d]:.3e} "
               f"(atol {IMAGE_ATOL})")
-        check(errs[d] <= IMAGE_ATOL, f"hier: {d} merge_img max abs err {errs[d]:.3e}")
+        check(errs[d] <= IMAGE_ATOL, f"{tag}: {d} merge_img max abs err {errs[d]:.3e}")
     return {"config": "ModelConfig(compute_dtype=bfloat16, renderer_dtype=bfloat16, "
-                      "hier_sampling=True, shuffle_mode=fused, batch_renderer_passes=True); "
+                      "hier_sampling=True, shuffle_mode=fused, batch_renderer_passes=True, "
+                      f"pallas_fuse_embed={fuse_embed}); "
                       "B=1, 4096 rays x (64 + 128) samples, 512x512",
             "forward_ms": {"median": statistics.median(times), "samples": times},
             "launches_per_forward": {k: v / n_forwards for k, v in launches.items() if v},
@@ -1287,12 +1637,30 @@ def phase_serving(seed, cfg, n_requests, name):
 UPSAMPLER_FWD = ("chain_fwd_kernel",)
 UPSAMPLER_BWD = ("dz3_kernel", "block_bwd_kernel", "upsampler_dw_kernel",
                  "upsampler_dwsum_kernel", "upsampler_sum_kernel")
+# and of K7 and K8 at f32
+UPSAMPLER_F32_FWD = ("chain_fwd<",)
+UPSAMPLER_F32_BWD = ("chain_bwd<", "atb_slices", "sum_slices")
+
+
+def renderer_mode(cfg):
+    """The key of the renderer's kernels in ``kernel_ms``: the shuffle mode,
+    ``fused_f32`` for the f32 renderer's fused mode."""
+    f32 = cfg.shuffle_mode == "fused" and cfg.renderer_dtype == "float32"
+    return FUSED_F32 if f32 else cfg.shuffle_mode
 
 
 def kernel_ms(rows, mode):
     """Device ms per kernel of the ``kernels`` line from profiler rows (name,
-    count, ms); the stencil launches belong to the mode's renderer kernels."""
+    count, ms); the stencil launches belong to the mode's renderer kernels
+    (``renderer_mode``)."""
     out = dict.fromkeys(KERNELS, 0.0)
+    if mode == FUSED_F32:
+        for key, _, ms in rows:
+            if any(k in key for k in UPSAMPLER_F32_FWD + ("stencil::fwd_kernel",)):
+                out["fused_upsampler_fwd_f32"] += ms
+            elif any(k in key for k in UPSAMPLER_F32_BWD + ("stencil::bwd_kernel",)):
+                out["fused_upsampler_bwd_f32"] += ms
+        mode = None  # the fields' kernels below
     renderer = {"pallas": "shuffle_blur", "fused": "fused_upsampler"}.get(mode)
     for key, _, ms in rows:
         if "dual_fwd_kernel" in key:
@@ -1391,7 +1759,8 @@ def phase_breakdown(apps, requests, card):
         with torch.no_grad():
             fm = a.model.render_featmaps(*forward_args(a, q))["featmaps"]["merge"]
             a.model.neural_render(fm)  # warm
-            renderer[mode] = device_profile(lambda: a.model.neural_render(fm), mode=mode)
+            renderer[mode] = device_profile(lambda: a.model.neural_render(fm),
+                                            mode=renderer_mode(a.cfg))
     if viewer["device_ms"] != "not measured":
         viewer["busy_unprofiled"] = viewer["device_ms"] / statistics.median(fwd)
     line = {
@@ -1533,7 +1902,7 @@ def synthetic_batch(seed, B, size, featmap_size):
     }
 
 
-def phase_training(seed, cfg, n_steps, name, loss=None):
+def phase_training(seed, cfg, n_steps, name, loss=None, breakdown=True):
     """Full-width training steps in the variant ``name`` of ``cfg`` (and
     ``loss``, the default loss stack if None) with
     launch counts (per step K1 and K2 twice, or K3 and K4 once on the dual
@@ -1542,14 +1911,18 @@ def phase_training(seed, cfg, n_steps, name, loss=None):
     gradient, as the background pass carries ``bg_loss``), then one step's
     gradients with the kernels against the plain versions (on the dual path
     also against the single-branch step, and one step without the stash),
-    then where a step's time goes.  The mode of each K2 call in the two
-    warm-up steps is read (``K2_MODES``).  Returns the variant's part of the
-    ``training`` line."""
+    then where a step's time goes (without ``breakdown`` only the device
+    time of one step).  The mode of
+    each K2 call in the two warm-up steps is read (``K2_MODES``), and what
+    the fields' autograd op and each K1 and K2 call take for the embedding
+    (``EMBED_MODES``).  Returns
+    the variant's part of the ``training`` line."""
     import statistics
 
     import torch
 
     from gazenerf_tpu_torch import Config, Trainer
+    from gazenerf_tpu_torch.kernels import fused_field as ff
     from gazenerf_tpu_torch.kernels import fused_field_bwd as ffb
 
     mode = name
@@ -1563,23 +1936,48 @@ def phase_training(seed, cfg, n_steps, name, loss=None):
     def read(losses):
         return {k: float(v) for k, v in losses.items()}
 
+    render_grads = (phase_render_mode_grads(trainer, batch, seed, name)
+                    if name in RENDER_GRAD_REL_L2 else None)
     eye_imp = trainer.eye_importance(GRADUAL_EPOCH)  # None without is_gradual_loss
-    k2_modes, bwd = [], ffb.fused_field_backward
+    k2_modes, op_inputs, kernel_inputs = [], set(), set()
+    fwd, bwd = ff.fused_field_forward, ffb.fused_field_backward
+
+    def taken(e, n_freqs):  # what a field op or kernel takes for the embedding
+        return "points" if n_freqs is not None else str(e.dtype).split(".")[-1]
+
+    def op_spy(ops, stash, dens_vpu, n_freqs, embed, *rest):
+        op_inputs.add(taken(embed, n_freqs))
+        return apply(ops, stash, dens_vpu, n_freqs, embed, *rest)
+
+    def fwd_spy(*a, **k):
+        kernel_inputs.add(taken(a[0], k.get("n_freqs")))
+        return fwd(*a, **k)
 
     def bwd_spy(*a, stash=None, dens_vpu=False, **k):
         k2_modes.append((stash is not None, dens_vpu))
+        kernel_inputs.add(taken(a[0], k.get("n_freqs")))
         return bwd(*a, stash=stash, dens_vpu=dens_vpu, **k)
 
-    ffb.fused_field_backward = bwd_spy  # the mode of each K2 call in the warm-up steps
+    # the mode of each K1 and K2 call in the warm-up steps, and what the
+    # fields give their autograd op
+    apply = ff.FusedField.apply
+    ff.FusedField.apply = op_spy
+    ff.fused_field_forward, ffb.fused_field_backward = fwd_spy, bwd_spy
     try:
         first = read(trainer.train_step(batch, eye_imp=eye_imp))
         trainer.train_step(batch, eye_imp=eye_imp)
     finally:
-        ffb.fused_field_backward = bwd
+        ff.fused_field_forward, ffb.fused_field_backward = fwd, bwd
+        del ff.FusedField.apply  # the inherited classmethod again
     k2_modes = sorted(set(k2_modes))
+    embed_modes = (",".join(sorted(op_inputs)), ",".join(sorted(kernel_inputs)))
     if name in K2_MODES:
         check(k2_modes == K2_MODES[name], f"{mode}: K2 ran in the modes (stash read, dens_vpu) "
               f"{k2_modes}, expected {K2_MODES[name]}")
+    if name in EMBED_MODES:
+        check(embed_modes == EMBED_MODES[name],
+              f"{mode}: the fields' op took {embed_modes[0]} and K1 and K2 {embed_modes[1]}, "
+              f"expected {EMBED_MODES[name]}")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()  # counts from here on are the main path's
@@ -1613,12 +2011,22 @@ def phase_training(seed, cfg, n_steps, name, loss=None):
     check(launches == want, f"{mode}: {n_steps} steps launched {launches} (expected {want})")
 
     grads = phase_grad_check(trainer, batch, seed, name)
-    parts = phase_step_breakdown(trainer, batch)
+    if render_grads:
+        grads["renderer_mode"] = render_grads
+    if breakdown:
+        parts = phase_step_breakdown(trainer, batch)
+    else:  # the step's device time alone
+        parts = {"step_profile": device_profile(lambda: trainer.train_step(batch, eye_imp=eye_imp),
+                                                top=6, mode=renderer_mode(cfg))}
+        if parts["step_profile"]["device_ms"] != "not measured":
+            parts["step_profile"]["busy_share"] = (parts["step_profile"]["device_ms"]
+                                                   / parts["step_profile"]["wall_ms"])
     return {
         "step_ms": {"median": statistics.median(times), "samples": times},
         "launches": {k: v for k, v in launches.items() if v},
         "launches_per_step": {k: v / n_steps for k, v in launches.items() if v},
         "k2_modes_stash_read_dens_vpu": k2_modes,
+        "field_op_and_kernels_take": embed_modes,
         "losses_first_step": first,
         "losses_last_step": last,
         "eye_loss_importance": eye_imp,
@@ -1628,6 +2036,94 @@ def phase_training(seed, cfg, n_steps, name, loss=None):
         "grad_rel_l2_kernel_vs_plain": grads,
         "breakdown": parts,
     }
+
+
+def step_grads(trainer, batch, t_rand, disc0, step_cfg, name):
+    """One step's gradients (no update) per parameter group, flattened, with
+    the model's field path and renderer mode set to ``step_cfg``'s for the
+    step and back after it, from the discriminator state ``disc0`` and the
+    jitter draws ``t_rand``; the step's launches are checked."""
+    import torch
+
+    model = trainer.model
+    cfg = model.cfg
+
+    def renderer_as(c):  # one parameter tree in every renderer mode
+        model.neural_render.set_mode(c.shuffle_mode, c.renderer_fold_feat, c.renderer_rgb_cf)
+
+    model.cfg = step_cfg  # the field path is read from the model's config per call
+    renderer_as(step_cfg)
+    trainer.load_disc_state(disc0)
+    reset_launch_counts()
+    try:
+        trainer.train_step(batch, t_rand=t_rand, update=False)
+        torch.cuda.synchronize()
+    finally:
+        model.cfg = cfg
+        renderer_as(cfg)
+    used = launch_counts()
+    want = expected_launches(step_cfg, 1, train=True)
+    check(used == want, f"{name}: the kernel step launched {used} (expected {want})")
+    return {g["name"]: torch.cat([p.grad.reshape(-1).float() for p in g["params"]])
+            for g in trainer.optimizer.param_groups}
+
+
+def jitter_draws(trainer, seed):
+    """The stratified sampler's jitter draws of one step, from ``seed``."""
+    import torch
+
+    cfg = trainer.model.cfg
+    gen = torch.Generator(device=trainer.device).manual_seed(seed + 7)
+    return torch.rand((trainer.cfg.train.batch_size, cfg.num_rays, cfg.num_sample_coarse + 1),
+                      generator=gen, device=trainer.device)
+
+
+def compare_grads(name, what, got, want, limits):
+    """Relative L2 per parameter group of two steps' gradients, each
+    printed beside its limit; fails above a limit or on a gradient that is
+    not finite."""
+    import torch
+
+    out, fails = {}, []
+    for group, g in got.items():
+        rel = float((g - want[group]).norm() / want[group].norm())
+        out[group] = rel
+        print(f"{name}: step gradients, {what}, {group}: relative L2 {rel:.3e} "
+              f"(limit {limits[group]:.1e})")
+        if not bool(torch.isfinite(g).all()):
+            fails.append(f"{name}: gradient of {group} is not finite")
+        elif rel > limits[group]:
+            fails.append(f"{name}: gradient of {group}, {what}: relative L2 {rel:.3e} "
+                         f"above {limits[group]}")
+    check(not fails, "\n".join(fails))
+    return out
+
+
+def phase_render_mode_grads(trainer, batch, seed, name):
+    """The renderer variant ``name``'s step gradients (no update) against
+    phase_gm's in the same renderer dtype, both from the trainer's seeded
+    state before it takes a step: a state reached by the variant's own
+    steps differs from run to run (``tools/torch_grad_repeat.py``).  The
+    variant's gradients are read twice; their distance, the step's own
+    noise, is returned beside the comparison."""
+    import dataclasses
+
+    cfg = trainer.model.cfg
+    disc0 = trainer.disc_state()
+    t_rand = jitter_draws(trainer, seed)
+    mode = step_grads(trainer, batch, t_rand, disc0, cfg, name)
+    again = step_grads(trainer, batch, t_rand, disc0, cfg, name)
+    phase_gm = step_grads(trainer, batch, t_rand, disc0, dataclasses.replace(
+        cfg, shuffle_mode="phase_gm", renderer_fold_feat=True, renderer_rgb_cf=True), name)
+    trainer.optimizer.zero_grad(set_to_none=True)
+    trainer.load_disc_state(disc0)
+    repeat = {group: float((g - mode[group]).norm() / mode[group].norm())
+              for group, g in again.items()}
+    print(f"{name}: step gradients read twice, relative L2 per group {repeat}")
+    return {"vs_phase_gm_at_seeded_state": compare_grads(
+                name, "vs phase_gm at the seeded state", mode, phase_gm,
+                RENDER_GRAD_REL_L2[name]),
+            "repeat": repeat}
 
 
 def phase_grad_check(trainer, batch, seed, name):
@@ -1642,43 +2138,16 @@ def phase_grad_check(trainer, batch, seed, name):
 
     from gazenerf_tpu_torch.kernels import checks
 
-    model = trainer.model
-    cfg = model.cfg
+    cfg = trainer.model.cfg
     # a step updates the discriminator: each side starts from this state
     disc0 = trainer.disc_state()
-    gen = torch.Generator(device=trainer.device).manual_seed(seed + 7)
-    t_rand = torch.rand((trainer.cfg.train.batch_size, cfg.num_rays, cfg.num_sample_coarse + 1),
-                        generator=gen, device=trainer.device)
+    t_rand = jitter_draws(trainer, seed)
 
     def grads(step_cfg=cfg):
-        model.cfg = step_cfg  # the field path is read from the model's config per call
-        trainer.load_disc_state(disc0)
-        reset_launch_counts()
-        try:
-            trainer.train_step(batch, t_rand=t_rand, update=False)
-            torch.cuda.synchronize()
-        finally:
-            model.cfg = cfg
-        used = launch_counts()
-        want = expected_launches(step_cfg, 1, train=True)
-        check(used == want, f"{name}: the kernel step launched {used} (expected {want})")
-        return {g["name"]: torch.cat([p.grad.reshape(-1).float() for p in g["params"]])
-                for g in trainer.optimizer.param_groups}
+        return step_grads(trainer, batch, t_rand, disc0, step_cfg, name)
 
     def compare(what, got, want, limits):
-        out, fails = {}, []
-        for group, g in got.items():
-            rel = float((g - want[group]).norm() / want[group].norm())
-            out[group] = rel
-            print(f"{name}: step gradients, {what}, {group}: relative L2 {rel:.3e} "
-                  f"(limit {limits[group]:.1e})")
-            if not bool(torch.isfinite(g).all()):
-                fails.append(f"{name}: gradient of {group} is not finite")
-            elif rel > limits[group]:
-                fails.append(f"{name}: gradient of {group}, {what}: relative L2 {rel:.3e} "
-                             f"above {limits[group]}")
-        check(not fails, "\n".join(fails))
-        return out
+        return compare_grads(name, what, got, want, limits)
 
     with_kernels = grads()
     with checks.plain_versions():
@@ -1704,6 +2173,11 @@ def phase_grad_check(trainer, batch, seed, name):
                                              pallas_split_dw=False))
         out[f"{what.split()[0]}_vs_phase_gm"] = compare(
             f"{what} vs phase_gm (K2 recomputing)", with_kernels, phase_gm, STASH_GRAD_REL_L2)
+    if cfg.pallas_fuse_embed or cfg.pallas_embed_bf16:
+        # the same fields given the f32 embedding
+        other = grads(dataclasses.replace(cfg, pallas_fuse_embed=False, pallas_embed_bf16=False))
+        out["vs_f32_embedding"] = compare("vs the f32 embedding", with_kernels, other,
+                                          EMBED_GRAD_REL_L2[name])
     trainer.optimizer.zero_grad(set_to_none=True)
     trainer.load_disc_state(disc0)
     return out
@@ -1802,7 +2276,7 @@ def phase_step_breakdown(trainer, batch):
     stages()  # warm
     stages()
     profile = device_profile(lambda: trainer.train_step(batch, eye_imp=eye_imp), top=12,
-                             mode=cfg.model.shuffle_mode)
+                             mode=renderer_mode(cfg.model))
     if profile["device_ms"] != "not measured":
         profile["busy_share"] = profile["device_ms"] / profile["wall_ms"]
     return {"stages_ms": ms, "step_profile": profile}
@@ -2325,6 +2799,7 @@ def main() -> int:
     ap.add_argument("--steps", type=int, default=5, help="timed training steps")
     ap.add_argument("--fit_steps", type=int, default=10, help="timed single-image fit steps")
     args = ap.parse_args()
+    t_start = time.perf_counter()
 
     import torch
 
@@ -2363,6 +2838,9 @@ def main() -> int:
     configs = {mode: dataclasses.replace(cfg, shuffle_mode=mode) for mode in MODES}
     configs[DUAL] = dataclasses.replace(cfg, **DUAL_FLAGS)
     configs[STASH] = dataclasses.replace(cfg, **STASH_FLAGS)
+    configs[FUSED_F32] = dataclasses.replace(cfg, **FUSED_F32_FLAGS)
+    for name, flags in (*EMBED_FLAGS.items(), *EAGER_MODES.items()):
+        configs[name] = dataclasses.replace(cfg, **flags)
 
     # 3. kernels vs plain versions
     k1 = phase_kernels(args.seed, cfg, args.iters)
@@ -2375,6 +2853,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     k1["deep"], k2["deep"], k3_deep, k4_deep = phase_deep_kernels(args.seed, args.iters)
     torch.cuda.empty_cache()
+    points = phase_points_kernels(args.seed, args.iters)
+    k1["points"], k2["points"] = points["k1"], points["k2"]
+    k2["points_stash_read"] = points["k2_stash"]
+    torch.cuda.empty_cache()
 
     # 4. serving, per variant, on the same weights
     apps, serving = {}, {}
@@ -2382,22 +2864,44 @@ def main() -> int:
         apps[name], requests, launches, times, img = phase_serving(
             args.seed, vcfg, args.requests, name)
         serving[name] = {"launches": launches, "ms_per_request": times, "image": img}
+    # fused_f32 against a phase_gm app with the f32 renderer, on the same
+    # weights; the embedding settings against the stash variant; every other
+    # variant against phase_gm
+    from gazenerf_tpu_torch import ViewerApp
+
+    f32_app = ViewerApp(dataclasses.replace(cfg, renderer_dtype="float32"), seed=args.seed)
+    random_biases_(f32_app.model, torch.Generator().manual_seed(args.seed))
+    refs = {FUSED_F32: ("phase_gm_f32", f32_app.render_image(*requests[0]).float(),
+                        F32_IMAGE_ATOL)}
+    del f32_app
+    for name in EMBED_FLAGS:
+        refs[name] = (STASH, serving[STASH]["image"], EMBED_IMAGE_ATOL)
     for name in configs:
         if name == "phase_gm":
             continue
-        atol = {DUAL: DUAL_IMAGE_ATOL, STASH: STASH_IMAGE_ATOL}.get(name, MODE_IMAGE_ATOL)
-        err = float((serving[name].pop("image") - serving["phase_gm"]["image"]).abs().max())
-        serving[name]["image_vs_phase_gm_max_abs_err"] = err
-        print(f"serving {name}: image vs phase_gm's max abs err {err:.3e} (atol {atol})")
-        check(err <= atol, f"{name}: image vs phase_gm's max abs err {err:.3e}")
-    del serving["phase_gm"]["image"]
+        atol = {DUAL: DUAL_IMAGE_ATOL, STASH: STASH_IMAGE_ATOL}.get(
+            name, EAGER_IMAGE_ATOL if name in EAGER_MODES else MODE_IMAGE_ATOL)
+        ref, ref_img, atol = refs.get(name, ("phase_gm", serving["phase_gm"]["image"], atol))
+        err = float((serving[name]["image"] - ref_img).abs().max())
+        serving[name][f"image_vs_{ref}_max_abs_err"] = err
+        print(f"serving {name}: image vs {ref}'s max abs err {err:.3e} (atol {atol})")
+        check(err <= atol, f"{name}: image vs {ref}'s max abs err {err:.3e}")
+    for name in configs:
+        del serving[name]["image"]
     k1["launches"] = serving["phase_gm"]["launches"]["fused_field_fwd"]
     k5["launches"] = serving["pallas"]["launches"]["shuffle_blur_fwd"]
     k7["launches"] = serving["fused"]["launches"]["fused_upsampler_fwd"]
+    k5["unfolded"]["launches_per_request"] = serving["unfolded_pallas"]["launches"][
+        "shuffle_blur_fwd"] / args.requests
+    k7["f32"]["launches_per_request"] = serving[FUSED_F32]["launches"][
+        "fused_upsampler_fwd_f32"] / args.requests
+    k1["points"]["launches_per_request"] = serving[FUSE_EMBED]["launches"][
+        "fused_field_fwd"] / args.requests
 
     # 5. breakdown
     dual_app = apps.pop(DUAL)
-    del apps[STASH]  # a render in the stash variant is phase_gm's
+    for name in (STASH, *EMBED_FLAGS, *EAGER_MODES):  # field settings; the eager renderers
+        del apps[name]
     line = phase_breakdown(apps, requests, smi)
     line["dual_viewer_request"] = device_profile(lambda: dual_app.render_image(*requests[0]),
                                                  top=8, mode=DUAL)
@@ -2415,14 +2919,20 @@ def main() -> int:
         (FULL_LOSS, cfg, full_loss),
         (SPLIT_DW, dataclasses.replace(cfg, **SPLIT_DW_FLAGS), full_loss)]
     for name, vcfg, loss in variants:
-        training[name] = phase_training(args.seed, vcfg, args.steps, name, loss=loss)
+        # the eager renderer modes: one timed step, a step's device time
+        eager = name in EAGER_MODES
+        training[name] = phase_training(args.seed, vcfg, 1 if eager else args.steps, name,
+                                        loss=loss, breakdown=not eager)
         torch.cuda.empty_cache()
     print(json.dumps({"training": {
         "card": smi,
         "config": "ModelConfig(compute_dtype=bfloat16, renderer_dtype=bfloat16, shuffle_mode=...; "
                   "dual: pallas_dual_branch=True, pallas_stash_acts=True; stash: "
                   "pallas_stash_acts=True, pallas_dens_vpu=True; split_dw: pallas_split_dw=True, "
-                  "pallas_dens_vpu=True), LossConfig() (full_loss and split_dw: "
+                  "pallas_dens_vpu=True; fused_f32: shuffle_mode=fused, renderer_dtype=float32; "
+                  "fuse_embed, embed_bf16: stash's and pallas_fuse_embed=True or "
+                  "pallas_embed_bf16=True; phase, naive, unfolded, unfolded_pallas, rgb_nhwc: "
+                  f"{EAGER_MODES}, one timed step), LossConfig() (full_loss and split_dw: "
                   f"LossConfig({FULL_LOSS_FLAGS}), eye importance of epoch {GRADUAL_EPOCH}), "
                   "TrainConfig(); B=2, 4096 rays x 64 samples, 512x512",
         "modes": training,
@@ -2436,7 +2946,8 @@ def main() -> int:
         cfg.featmap_size, DEEP_SHAPE[1]))
     deep_training = {}
     for name, vcfg in ((DEEP, deep_cfg),
-                       (DEEP_STASH, dataclasses.replace(deep_cfg, pallas_stash_acts=True))):
+                       (DEEP_STASH, dataclasses.replace(deep_cfg, pallas_stash_acts=True)),
+                       (DEEP_FUSE_EMBED, dataclasses.replace(deep_cfg, pallas_fuse_embed=True))):
         deep_training[name] = phase_training(args.seed, vcfg, args.steps, name,
                                              loss=LossConfig(use_vgg_loss=False))
         torch.cuda.empty_cache()
@@ -2445,12 +2956,15 @@ def main() -> int:
         "config": f"ModelConfig(compute_dtype=bfloat16, renderer_dtype=bfloat16, "
                   f"num_sample_coarse={DEEP_SHAPE[1]}, tuned_kernel_overrides: "
                   f"{tuned_kernel_overrides(cfg.featmap_size, DEEP_SHAPE[1])}; deep_stash: "
-                  f"pallas_stash_acts=True), LossConfig(use_vgg_loss=False), TrainConfig(); "
+                  f"pallas_stash_acts=True; deep_fuse_embed: pallas_fuse_embed=True), "
+                  f"LossConfig(use_vgg_loss=False), TrainConfig(); "
                   f"B=2, 4096 rays x {DEEP_SHAPE[1]} samples, 512x512",
         "modes": deep_training,
     }}))
     hier = phase_hier(args.seed)
     print(json.dumps({"hier": hier}))
+    hier_points = phase_hier(args.seed, fuse_embed=True)
+    print(json.dumps({"hier_fuse_embed": hier_points}))
     phase_cli(args.seed)
     # 8. eval: fitting, gaze optimization, protocols, render loops
     per_fit_step = phase_eval(args.seed, args.fit_steps, smi)
@@ -2478,8 +2992,23 @@ def main() -> int:
     k3_deep["launches_per_deep_step"] = k4_deep["launches_per_deep_step"] = 0
     k3["deep"], k4["deep"] = k3_deep, k4_deep
     k1["launches_per_hier_forward"] = hier["launches_per_forward"]["fused_field_fwd"]
+    # the kernel modes': their launches on the main path
+    k5["unfolded"]["launches"] = training["unfolded_pallas"]["launches"]["shuffle_blur_fwd"]
+    k6["unfolded"]["launches"] = training["unfolded_pallas"]["launches"]["shuffle_blur_bwd"]
+    k7["f32"]["launches"] = training[FUSED_F32]["launches"]["fused_upsampler_fwd_f32"]
+    k8["f32"]["launches"] = training[FUSED_F32]["launches"]["fused_upsampler_bwd_f32"]
+    k1["points"]["launches"] = training[FUSE_EMBED]["launches"]["fused_field_fwd"]
+    k2["points"]["launches"] = deep_training[DEEP_FUSE_EMBED]["launches"]["fused_field_bwd"]
+    k1["points"]["launches_per_deep_step"] = deep_training[DEEP_FUSE_EMBED][
+        "launches_per_step"]["fused_field_fwd"]
+    k1["points"]["launches_per_hier_forward"] = hier_points["launches_per_forward"][
+        "fused_field_fwd"]
+    k2["points"]["launches_per_deep_step"] = deep_training[DEEP_FUSE_EMBED][
+        "launches_per_step"]["fused_field_bwd"]
+    k2["points_stash_read"]["launches"] = training[FUSE_EMBED]["launches"]["fused_field_bwd"]
 
     print(json.dumps({"kernels": [k1, k2, k5, k6, k7, k8, k3, k4]}))
+    print(f"chip_smoke wall time: {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({
         "ok": True,

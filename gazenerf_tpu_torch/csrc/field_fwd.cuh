@@ -9,7 +9,9 @@
 // compositing, and writes the per-ray feature / background alpha / depth
 // and the per-sample weights.
 // With the stash on, it also writes the bf16 activations x0..x7, y0b
-// (rgb_0's output) and y1 (rgb_1's) of every point.
+// (rgb_0's output) and y1 (rgb_1's) of every point.  With kPoints (K1's
+// embed_in_kernel) the tile takes the sample points and encodes them in
+// place of reading the embedding (csrc/point_encoding.cuh).
 //
 // Numerics: bf16 operands with f32 accumulation; bias, conditioning rows and
 // ReLU applied in f32 and the result rounded to bf16 before the next
@@ -70,6 +72,7 @@
 
 #include <cuda.h>
 
+#include "point_encoding.cuh"
 #include "tile_mma.cuh"
 
 #ifndef TILE_POINTS
@@ -127,7 +130,7 @@ __host__ __device__ inline int rays_per_cta(int S) { return kSpan ? cta_rays(S) 
 
 // One branch's operands and outputs.
 struct Params {
-  const bf16* embed;    // [B, R, S, De]
+  const bf16* embed;    // [B, R, S, De]; with kPoints the points, [B, R, S, 3] f32
   const float* zvals;   // [B, R, S]
   const float* zdists;  // [B, R, S]
   const float* cb0;     // [B, H]   sc . W0c + b0
@@ -584,8 +587,9 @@ __device__ inline void composite_span(const Params& p, int tile, size_t pt, cons
 // instantiation, so that the one-tile code carries none of the other's
 // state).  kStash: write the tiles' rows of the ten stash slots through the
 // tensor maps `stash` (x0..x7, y0b: [B R S, H] bf16; y1: [B R S, H/2]),
-// which lie in the kernel's parameters.
-template <bool kStash, bool kSpan>
+// which lie in the kernel's parameters.  kPoints: encode the points p.embed
+// holds into the embedding tile.
+template <bool kStash, bool kSpan, bool kPoints = false>
 __device__ inline void forward_tile(const Params& p, const CUtensorMap* stash, int b, int r0) {
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
@@ -668,7 +672,7 @@ __device__ inline void forward_tile(const Params& p, const CUtensorMap* stash, i
     for (int i = tid; i < kRows * Kp; i += kConsumers) {
       const int r = i / Kp, c = i - r * Kp;
       *reinterpret_cast<bf16*>(E + swz(r, c)) =
-          c < p.De ? p.embed[(pt + r) * p.De + c] : __float2bfloat16(0.f);
+          c < p.De ? enc::embed_at<kPoints>(p.embed, pt + r, c, p.De) : __float2bfloat16(0.f);
     }
     fence_proxy_async();  // E reaches fea_0's wgmma
     consumer_sync();

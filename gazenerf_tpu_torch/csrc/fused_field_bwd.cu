@@ -9,7 +9,15 @@
 //
 // Replaces the TPU kernel gazenerf_tpu/kernels/fused_field_bwd.py:_bwd_kernel
 // (launched by pallas_backward) with stash_acts False or True (stash_every=1,
-// bf16), dens_vpu False or True, and embed_in_kernel=False.  dens_vpu is
+// bf16), dens_vpu False or True, and embed_in_kernel False or True: given the
+// embedding it writes its f32 cotangent (a bf16 embedding's cotangent is
+// that, rounded by the caller); given the points (embed_in_kernel) it
+// recomputes their encoding wherever it reads the embedding (the tile, the
+// GEMM's operand; the stash holds none) and writes the points' f32
+// cotangent, summed from the tile's f32 embedding cotangent as the TPU
+// kernel's _embed_bwd_tile sums it (csrc/point_encoding.cuh): 12 bytes a
+// point in place of 252.  The tile's f32 embedding cotangent goes to a
+// small per-CTA scratch, and the points' cotangent from there.  dens_vpu is
 // one rounding point here: with it, dWd = x7^T ddens takes the f32 density
 // cotangent, without it its bf16 rounding.  split_dw=True is this kernel
 // reading the stash without dens_vpu: that mode's epilogue contracts each
@@ -61,13 +69,14 @@
 // products), so both modes give the same gradients.
 
 #include "field_bwd.cuh"
+#include "point_encoding.cuh"
 
 namespace {
 
 using namespace fbwd;
 
 struct Params {
-  const bf16* embed;    // [B, R, S, De]
+  const bf16* embed;    // [B, R, S, De]; kPoints: the points [B, R, S, 3] f32
   const float* zvals;   // [B, R, S]
   const float* zdists;  // [B, R, S]
   const float* cb0;     // [B, H]
@@ -89,7 +98,7 @@ struct Params {
   const float* gdepth;  // [B, R]
   const float* gw;      // [B, R, S]
   // per-point outputs
-  float* dembed;        // [B, R, S, De]
+  float* dembed;        // [B, R, S, De] (kPoints: the points' [B, R, S, 3])
   float* dzvals;        // [B, R, S]
   float* dzdists;       // [B, R, S]
   // the forward's stash (stash mode): x0..x7, y0b [B, R, S, H], y1 [B, R, S, H/2]
@@ -104,11 +113,27 @@ struct Params {
   int R, S, De, Kp, H, C;
   int t0, nt;               // the chunk's first tile and its tiles
   Grads L;
+  float* dtile;             // kPoints: per CTA a tile's f32 dembed [kRows, De]
 };
 
+// The tile at point p0's points' cotangent from its embedding's f32
+// cotangent in the CTA's scratch `dt` ([kRows, De], which the tile body has
+// finished).  Ends with a barrier: the next tile rewrites `dt`.
+__device__ inline void store_dpts(const Params& p, const float* dt, size_t p0) {
+  const int De = p.De;
+  const float* pts = reinterpret_cast<const float*>(p.embed) + p0 * 3;
+  for (int i = threadIdx.x; i < kRows * 3; i += kThreads) {
+    const int r = i / 3, d = i - 3 * r;
+    p.dembed[p0 * 3 + i] = enc::encode_vjp(pts + r * 3, dt + r * De, d, De);
+  }
+  __syncthreads();
+}
+
 // kSpan: rays longer than a tile (S > kRows), a separate instantiation so
-// that the tile code of whole rays carries none of the two sweeps' state
-template <bool kStash, bool kSpan>
+// that the tile code of whole rays carries none of the two sweeps' state;
+// kPoints (the points encoded in the tile) likewise, so that the
+// embedding's kernels carry none of it
+template <bool kStash, bool kSpan, bool kPoints>
 __global__ void __launch_bounds__(kThreads, 1)
     field_bwd_kernel(const __grid_constant__ Params p) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -129,7 +154,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   auto forward = [&](const Shared& sk, size_t p0, size_t lp0, int b) {
     for (int i = tid; i < kRows * Kp; i += kThreads) {
       const int r = i / Kp, c = i - r * Kp;
-      E[r * lde + c] = c < De ? p.embed[(p0 + r) * De + c] : __float2bfloat16(0.f);
+      E[r * lde + c] = c < De ? enc::embed_at<kPoints>(p.embed, p0 + r, c, De)
+                              : __float2bfloat16(0.f);
     }
     __syncthreads();
     store_tile(p.e + lp0 * Kp, E, lde, Kp);
@@ -183,7 +209,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     io.aw = p.aw + lp0 / S * (H2 + 1);
     io.dzvals = p.dzvals + p0;
     io.dzdists = p.dzdists + p0;
-    io.dembed = p.dembed + p0 * De;
+    io.dembed = kPoints ? p.dtile + (size_t)blockIdx.x * kRows * De : p.dembed + p0 * De;
     io.add = false;
     io.aw_add = false;
     return io;
@@ -198,7 +224,13 @@ __global__ void __launch_bounds__(kThreads, 1)
     for (int i = tid; i < TR * C; i += kThreads) sh.gf[i] = p.gfeat[ray0 * C + i];
     if (!kSpan) {
       forward(sh, p0, lp0, b);
-      backward_tile(sh, p.w, tile_io(p0, lp0, b), S, De, Kp, H, C, p.L, small);
+      if constexpr (kPoints) {
+        const TileIO io = tile_io(p0, lp0, b);
+        backward_tile(sh, p.w, io, S, De, Kp, H, C, p.L, small);
+        store_dpts(p, io.dembed, p0);
+      } else {
+        backward_tile(sh, p.w, tile_io(p0, lp0, b), S, De, Kp, H, C, p.L, small);
+      }
       continue;
     }
     // the ray's tiles' forward parts, the integration backward over all its
@@ -220,8 +252,15 @@ __global__ void __launch_bounds__(kThreads, 1)
       io.aw = p.aw + lp0 / S * (H2 + 1);  // the ray's
       io.aw_add = k > 0;
       backward_heads_trunk(tile_of(sh, k), p.w, io, S, De, Kp, H, p.L, small);
+      if constexpr (kPoints) store_dpts(p, io.dembed, pk);
     }
   }
+}
+
+// field_bwd_kernel<kStash, kSpan, points>
+template <bool kStash, bool kSpan>
+void (*tile_kernel_for(bool points))(Params) {
+  return points ? field_bwd_kernel<kStash, kSpan, true> : field_bwd_kernel<kStash, kSpan, false>;
 }
 
 __global__ void __launch_bounds__(fdw::kThreads)
@@ -251,15 +290,18 @@ extern "C" {
 // W5e, W5x, Wd, bd, Wr0, br0, Wr1x, Wr2, br2, cb0, cb5, cbr1 in `grads` (each
 // block row-major), out[15] the length of `grads`, out[16] the bytes of
 // scratch for G CTAs and chunks of up to chunk_tiles tiles (in stash mode
-// without the chunk buffer's x0..x7 and y0b).
+// without the chunk buffer's x0..x7 and y0b; with `points`, with the CTAs'
+// tile cotangents).
 void fused_field_bwd_layout(int B, int S, int Kp, int H, int C, int G, int chunk_tiles,
-                            int stash, long long* out) {
+                            int stash, int points, long long* out) {
   const Grads s = grad_layout(B, Kp, H, C);
   const size_t v[16] = {s.w0e, s.wmid, s.bmid, s.w5e, s.w5x, s.wd, s.bd, s.wr0,
                         s.br0, s.wr1x, s.wr2, s.br2, s.cb0, s.cb5, s.cbr1, s.total};
   for (int i = 0; i < 16; ++i) out[i] = (long long)v[i];
   const Chunk c = chunk_layout((size_t)chunk_tiles * kRows, S, Kp, H, !stash, 1);
-  out[16] = (long long)(align256((size_t)G * (s.total - s.small) * sizeof(float)) + c.total);
+  out[16] = (long long)(align256((size_t)G * (s.total - s.small) * sizeof(float)) +
+                        align256(c.total) +
+                        (points ? (size_t)G * kRows * Kp * sizeof(float) : 0));
 }
 
 // Launch one chunk on `stream`: tiles [t0, t0 + nt) (first: the first chunk,
@@ -271,7 +313,10 @@ void fused_field_bwd_layout(int B, int S, int Kp, int H, int C, int G, int chunk
 // chunk_tiles, and a chunk holds whole rays; it allocates `scratch` (the
 // layout's bytes) and `grads`.  `stash` is null (recompute mode) or ten
 // pointers: x0..x7, y0b ([B, R, S, H] bf16 each) and y1 ([B, R, S, H/2]).
-// `dens_vpu`: dWd from the unrounded density cotangent.
+// `dens_vpu`: dWd from the unrounded density cotangent.  `points`: `embed`
+// holds the f32 points and `dembed` gets their cotangent (De = 3 + 6
+// n_freqs the encoded width), else the bf16 embedding and its f32
+// cotangent.
 int fused_field_bwd(const void* embed, const float* zvals, const float* zdists,
                     const float* cb0, const float* cb5, const float* cbr1,
                     const void* w0e, const void* wmid, const float* bmid, const void* w5e,
@@ -283,7 +328,7 @@ int fused_field_bwd(const void* embed, const float* zvals, const float* zdists,
                     const float* gw, void* const* stash, float* dembed, float* dzvals,
                     float* dzdists, void* scratch, float* grads, int B, int R, int S, int De,
                     int Kp, int H, int C, int G, int chunk_tiles, int t0, int nt, int first,
-                    int last, int dens_vpu, void* stream) {
+                    int last, int dens_vpu, int points, void* stream) {
   Params p;
   p.embed = static_cast<const bf16*>(embed);
   p.zvals = zvals;
@@ -339,6 +384,7 @@ int fused_field_bwd(const void* embed, const float* zvals, const float* zdists,
   p.e = reinterpret_cast<bf16*>(chunk + CL.e);
   for (int j = 0; j < kDSlots; ++j) p.dbase[j] = reinterpret_cast<bf16*>(chunk + CL.d[0][j]);
   p.aw = reinterpret_cast<float*>(chunk + CL.aw[0]);
+  p.dtile = points ? reinterpret_cast<float*>(chunk + align256(CL.total)) : nullptr;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 
   cudaError_t err;
@@ -348,9 +394,10 @@ int fused_field_bwd(const void* embed, const float* zvals, const float* zdists,
   }
   const size_t smem = smem_bytes(S, Kp, H, C);
   const bool span = S > kRows;
-  auto tile_kernel = stash ? (span ? field_bwd_kernel<true, true> : field_bwd_kernel<true, false>)
-                           : (span ? field_bwd_kernel<false, true>
-                                   : field_bwd_kernel<false, false>);
+  auto tile_kernel = stash ? (span ? tile_kernel_for<true, true>(points)
+                                   : tile_kernel_for<true, false>(points))
+                           : (span ? tile_kernel_for<false, true>(points)
+                                   : tile_kernel_for<false, false>(points));
   err = cudaFuncSetAttribute(tile_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem);
   if (err != cudaSuccess) return (int)err;

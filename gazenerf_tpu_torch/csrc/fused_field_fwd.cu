@@ -10,8 +10,11 @@
 //
 // Replaces the TPU kernel gazenerf_tpu/kernels/fused_field.py:_field_kernel
 // (launched by _pallas_forward), with and without its stash (stash_every=1,
-// bf16).  Its dens_vpu mode computes the same density head: the port's is
-// always an f32 dot product of bf16 values on the CUDA cores.
+// bf16), given the bf16 embedding or (embed_in_kernel) the f32 sample points,
+// which each tile encodes itself (its _embed_tile; csrc/point_encoding.cuh):
+// 12 bytes a point in place of 126, and the [B, R, S, 63] embedding never
+// reaches device memory.  Its dens_vpu mode computes the same density head:
+// the port's is always an f32 dot product of bf16 values on the CUDA cores.
 //
 // Numerics follow that kernel: bf16 operands with f32 accumulation; bias,
 // conditioning rows and ReLU applied in f32 and the result rounded to bf16
@@ -42,11 +45,13 @@
 
 namespace {
 
-// kSpan: rays longer than a tile (cta_tiles(S) > 1)
-template <bool kSpan>
+// kSpan: rays longer than a tile (cta_tiles(S) > 1); kPoints: the points
+// encoded in the tile (a separate instantiation, so that the embedding's
+// kernels carry none of it)
+template <bool kSpan, bool kPoints>
 __global__ void __launch_bounds__(ffwd::kThreads, 1) field_fwd_kernel(ffwd::Params p) {
-  ffwd::forward_tile<false, kSpan>(p, nullptr, blockIdx.y,
-                                   blockIdx.x * ffwd::rays_per_cta<kSpan>(p.S));
+  ffwd::forward_tile<false, kSpan, kPoints>(p, nullptr, blockIdx.y,
+                                            blockIdx.x * ffwd::rays_per_cta<kSpan>(p.S));
 }
 
 struct StashParams {
@@ -54,11 +59,11 @@ struct StashParams {
   CUtensorMap stash[ffwd::kSlots];  // x0..x7, y0b, y1
 };
 
-template <bool kSpan>
+template <bool kSpan, bool kPoints>
 __global__ void __launch_bounds__(ffwd::kThreads, 1)
     field_fwd_stash_kernel(const __grid_constant__ StashParams sp) {
-  ffwd::forward_tile<true, kSpan>(sp.p, sp.stash, blockIdx.y,
-                                  blockIdx.x * ffwd::rays_per_cta<kSpan>(sp.p.S));
+  ffwd::forward_tile<true, kSpan, kPoints>(sp.p, sp.stash, blockIdx.y,
+                                           blockIdx.x * ffwd::rays_per_cta<kSpan>(sp.p.S));
 }
 
 template <typename Kernel, typename Arg>
@@ -83,7 +88,9 @@ extern "C" {
 // `wstream` is scratch for stream_slices(H, Kp) slices, which pack_stream
 // fills first.  `stash` is
 // null (no stash) or ten pointers: x0..x7, y0b ([B, R, S, H] bf16 each) and
-// y1 ([B, R, S, H/2]).
+// y1 ([B, R, S, H/2]).  `encode`: `embed` holds the f32 points [B, R, S, 3],
+// which the tiles encode into De = 3 + 6 n_freqs columns, else the bf16
+// embedding [B, R, S, De].
 int fused_field_fwd(const void* embed, const float* zvals, const float* zdists,
                     const float* cb0, const float* cb5, const float* cbr1,
                     const void* w0e, const void* wmid, const float* bmid,
@@ -92,7 +99,7 @@ int fused_field_fwd(const void* embed, const float* zvals, const float* zdists,
                     const void* wr1x, const void* wr2, const float* br2, void* wstream,
                     float* feat_out, float* bga_out, float* depth_out,
                     float* w_out, void* const* stash, int B, int R, int S, int De, int Kp,
-                    int H, int C, void* stream) {
+                    int H, int C, int encode, void* stream) {
   typedef ffwd::bf16 bf16;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const ffwd::StreamPlan plan = ffwd::stream_plan(
@@ -126,17 +133,21 @@ int fused_field_fwd(const void* embed, const float* zvals, const float* zdists,
   p.H = H;
   p.C = C;
   const bool span = ffwd::cta_tiles(S) > 1;
-  if (!stash)
-    return span ? launch(field_fwd_kernel<true>, p, B, R, S, Kp, H, st)
-                : launch(field_fwd_kernel<false>, p, B, R, S, Kp, H, st);
+  if (!stash) {
+    auto k = encode ? (span ? field_fwd_kernel<true, true> : field_fwd_kernel<false, true>)
+                    : (span ? field_fwd_kernel<true, false> : field_fwd_kernel<false, false>);
+    return launch(k, p, B, R, S, Kp, H, st);
+  }
   StashParams sp = {};
   sp.p = p;
   const size_t points = (size_t)B * R * S;
   for (int k = 0; k < ffwd::kSlots; ++k)
     if (!ffwd::stash_map(&sp.stash[k], stash[k], points, k + 1 < ffwd::kSlots ? H : H / 2))
       return (int)cudaErrorInvalidValue;
-  return span ? launch(field_fwd_stash_kernel<true>, sp, B, R, S, Kp, H, st)
-              : launch(field_fwd_stash_kernel<false>, sp, B, R, S, Kp, H, st);
+  auto k = encode
+               ? (span ? field_fwd_stash_kernel<true, true> : field_fwd_stash_kernel<false, true>)
+               : (span ? field_fwd_stash_kernel<true, false> : field_fwd_stash_kernel<false, false>);
+  return launch(k, sp, B, R, S, Kp, H, st);
 }
 
 }  // extern "C"

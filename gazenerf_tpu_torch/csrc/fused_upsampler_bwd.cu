@@ -484,6 +484,12 @@ inline Grads grad_layout(int F, int F3) {
 constexpr int kMaxDwSplits = 256;
 constexpr size_t kPartBytes = 8 << 20;
 
+// The most point ranges a job list of `len` output floats may split into
+inline int split_cap(size_t len) {
+  const size_t fit = kPartBytes / (len * sizeof(float));
+  return (int)std::min<size_t>(kMaxDwSplits, std::max<size_t>(fdw::kMaxSplits, fit));
+}
+
 inline void weight_jobs(fdw::Jobs (&js)[2], const bf16* x, const Chunk& c, float* grads, int F,
                         int F3, int P, int first, int sms, float* part) {
   const int Fp = pad32(F), F2p = pad32(2 * F), F3p = pad32(F3);
@@ -500,10 +506,8 @@ inline void weight_jobs(fdw::Jobs (&js)[2], const bf16* x, const Chunk& c, float
   for (fdw::Jobs& j : js) {
     size_t len = 0;
     for (int i = 0; i < j.n_jobs; ++i) len += (size_t)j.job[i].M * j.job[i].N;
-    const size_t fit = kPartBytes / (len * sizeof(float));
     j.accumulate = !first;
-    fdw::number_tiles(j, sms, part,
-                      (int)std::min<size_t>(kMaxDwSplits, std::max<size_t>(fdw::kMaxSplits, fit)));
+    fdw::number_tiles(j, sms, part, split_cap(len));
   }
 }
 
@@ -527,11 +531,14 @@ inline Scratch scratch_layout(long long n_tiles, int F, int F3, int rows, int ch
   s.dzb = o; o = align256(o + Pc * 4 * Fp * 2);
   s.dh1 = o; o = align256(o + Pc * F2p * 2);
   s.part = o;
+  // the partial sums of as many point ranges as a job list may split into:
+  // a chunk shorter than a full one (a plan's last) can have more ranges
+  // than the full one, each shorter
   fdw::Jobs js[2];
   weight_jobs(js, nullptr, Chunk{}, nullptr, F, F3, (int)Pc, 1, sms, nullptr);
   size_t part = 0;
   for (const fdw::Jobs& j : js)
-    part = part > (size_t)j.splits * j.part_len ? part : (size_t)j.splits * j.part_len;
+    part = std::max(part, (size_t)split_cap(j.part_len) * j.part_len);
   s.total = align256(o + part * sizeof(float));
   return s;
 }

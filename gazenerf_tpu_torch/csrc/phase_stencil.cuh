@@ -519,10 +519,15 @@ inline Strip plan(int B, int H, int W, int C, int in_size, int V, bool bwd, cons
   return s;
 }
 
-// Plan and launch the kernel of one direction (kBwd: K6) and vector width
+// Plan and launch the kernel of one direction (kBwd: K6) and vector width.
+// Internal linkage: several libraries build from this header, each with its
+// own copy of the kernel, and the function's statics record that copy's
+// attributes (an inline function's statics would be one object shared by
+// every loaded library, and a library would skip raising its own kernel's
+// shared-memory limit after another raised its own).
 template <typename Tin, typename Tout, int V, bool kBwd>
-inline int launch(const Tin* in, Tout* out, int B, int H, int W, int C, int sms,
-                  cudaStream_t stream) {
+static inline int launch(const Tin* in, Tout* out, int B, int H, int W, int C, int sms,
+                         cudaStream_t stream) {
   void (*kernel)(const Tin*, Tout*, Strip);
   if constexpr (kBwd)
     kernel = bwd_kernel<Tin, Tout, V>;

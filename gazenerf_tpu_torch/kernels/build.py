@@ -106,6 +106,7 @@ def every_kernel() -> Dict[str, Mapping[str, int]]:
         shuffle_blur.KERNEL: shuffle_blur.DEFINES,
         fused_upsampler.KERNEL_FWD: fused_upsampler.DEFINES,
         fused_upsampler.KERNEL_BWD: fused_upsampler.DEFINES,
+        fused_upsampler.KERNEL_F32: fused_upsampler.DEFINES,
         field_dw.KERNEL: field_dw.DEFINES,
     }
 

@@ -279,7 +279,8 @@ def truth_failures(got, want, want64, exact, ratio: float, exempt: Tuple[str, ..
 # the strip width (64 pixels at C = 32 in bf16, 32 in f32), an odd width at
 # an odd C (the level0 width, whose bf16 pixels are 8-byte aligned), one
 # pixel (the whole halo clamped), and rows of dy and y that start off a
-# 16-byte boundary in f32 and bf16 (2W C = 70 values).
+# 16-byte boundary in f32 and bf16 (2W C = 70 values); and the three levels
+# without the folded feat_layer.
 STENCIL_CASES = {
     "level0": (2, 64, 64, 129),
     "level1": (2, 128, 128, 64),
@@ -290,6 +291,11 @@ STENCIL_CASES = {
     "odd": (1, 7, 9, 129),
     "one_pixel": (2, 1, 1, 8),
     "rows_off_16": (1, 5, 7, 5),
+    # the three levels unfolded (renderer_fold_feat off under "pallas"): the
+    # stencil runs on the blocks' own widths
+    "unfolded0": (2, 64, 64, 258),
+    "unfolded1": (2, 128, 128, 129),
+    "unfolded2": (2, 256, 256, 64),
 }
 # K5 and K6 against their plain versions: max |kernel - plain|.  Every tap
 # is a power of two, so each product is exact and a fused multiply-add
@@ -899,3 +905,205 @@ def deep_chunks(args):
 
     B, R, S, _ = args[0].shape
     return field_dw.plan_chunks(B, R, S)
+
+
+# ---------------------------------------------------------------------------
+# the sample points encoded in the field kernels (embed_in_kernel): K1 and K2
+# given the points in place of the embedding
+
+# The model's octaves: the encoding's 3 + 6 x 10 = 63 columns
+N_FREQS = 10
+# (hidden, samples per ray, rays per batch), two batches: the narrow case
+# (f32 noise between kernel and plain version), the training step's shape,
+# and the deep march's rays (S = 256, whole 512-ray chunks' worth); K1
+# writes the stash and K2 reads it in the narrow and training cases
+POINTS_CASES = {"narrow": K2_CASES["narrow"], "training": K2_CASES["training"],
+                "deep256": (384, 256, 512)}
+POINTS_STASH_CASES = ("narrow", "training")
+# K1 and K2 (recomputing; "<case>_stash": reading K1's stash with dens_vpu)
+# given the points, against their plain versions given the same points, per
+# output and case: (max |kernel - plain| over max |plain|, relative L2),
+# seed 0, K2's plain version summing the weight gradients in the kernel's
+# chunks, on an NVIDIA H100 80GB HBM3 (700 W).  They read as the embedding's
+# cases do (K2_CASES, DEEP_CASES): the tiles encode the points to the bits
+# of PyTorch's encoding on the card (no entry rounds to another bf16 value
+# in any case), so only summation order parts kernel and plain version.
+# Limits: twice the reading, never below K2's floor (K1's never above
+# K1_LIMIT_CAP).
+_POINTS_K1_READINGS = {
+    "narrow": {"feat_int": (6.8e-8, 7.0e-8), "bg_alpha": (0.0, 0.0),
+        "depth": (0.0, 0.0), "weights": (0.0, 0.0)},
+    "training": {"feat_int": (6.5e-4, 2.3e-4), "bg_alpha": (3.2e-4, 5.3e-5),
+        "depth": (2.2e-3, 8.1e-4), "weights": (4.2e-3, 8.7e-4)},
+    "deep256": {"feat_int": (2.8e-4, 8.7e-5), "bg_alpha": (3.9e-4, 1.1e-4),
+        "depth": (1.3e-3, 3.1e-4), "weights": (4.0e-3, 8.4e-4)},
+}
+_POINTS_K2_READINGS = {
+    "narrow": {
+        "dembed": (9.9e-6, 5.7e-6), "dzvals": (0.0, 0.0), "dzdists": (8.2e-8, 9.4e-8),
+        "dcb0": (4.8e-6, 6.1e-6), "dcb5": (2.4e-6, 3.0e-6), "dcbr1": (1.2e-7, 2.0e-7),
+        "dW0e": (5.9e-5, 2.9e-5), "dWmid": (7.0e-4, 1.5e-4), "dbmid": (1.2e-6, 1.2e-6),
+        "dW5e": (3.9e-6, 2.9e-6), "dW5x": (4.9e-6, 2.1e-6), "dWd": (6.7e-8, 5.4e-8),
+        "dbd": (0.0, 0.0), "dWr0": (1.4e-5, 5.5e-6), "dbr0": (6.0e-6, 4.4e-6),
+        "dWr1x": (9.8e-8, 6.6e-8), "dWr2": (1.6e-3, 1.6e-3), "dbr2": (2.5e-7, 1.5e-7),
+    },
+    "narrow_stash": {
+        "dembed": (9.9e-6, 5.7e-6), "dzvals": (0.0, 0.0), "dzdists": (8.2e-8, 9.4e-8),
+        "dcb0": (4.8e-6, 6.1e-6), "dcb5": (2.4e-6, 3.0e-6), "dcbr1": (1.2e-7, 2.0e-7),
+        "dW0e": (5.9e-5, 2.9e-5), "dWmid": (7.0e-4, 1.5e-4), "dbmid": (1.2e-6, 1.2e-6),
+        "dW5e": (3.9e-6, 2.9e-6), "dW5x": (4.9e-6, 2.1e-6), "dWd": (2.1e-7, 1.4e-7),
+        "dbd": (0.0, 0.0), "dWr0": (1.4e-5, 5.5e-6), "dbr0": (6.0e-6, 4.4e-6),
+        "dWr1x": (9.8e-8, 6.6e-8), "dWr2": (1.6e-3, 1.6e-3), "dbr2": (2.5e-7, 1.5e-7),
+    },
+    "training": {
+        "dembed": (2.9e-1, 1.7e-2), "dzvals": (1.9e-3, 8.7e-4), "dzdists": (4.4e-3, 1.1e-3),
+        "dcb0": (8.6e-3, 1.1e-2), "dcb5": (4.4e-3, 4.7e-3), "dcbr1": (2.3e-3, 1.8e-3),
+        "dW0e": (1.5e-2, 1.9e-2), "dWmid": (1.4e-2, 1.3e-2), "dbmid": (1.2e-2, 1.2e-2),
+        "dW5e": (1.9e-2, 1.7e-2), "dW5x": (1.6e-2, 1.3e-2), "dWd": (2.4e-2, 1.8e-2),
+        "dbd": (2.0e-2, 2.0e-2), "dWr0": (1.9e-3, 2.3e-3), "dbr0": (2.1e-3, 2.1e-3),
+        "dWr1x": (2.7e-3, 2.1e-3), "dWr2": (3.9e-4, 5.0e-4), "dbr2": (1.7e-4, 1.8e-4),
+    },
+    "training_stash": {
+        "dembed": (3.7e-6, 5.0e-6), "dzvals": (1.3e-7, 8.0e-8), "dzdists": (2.3e-7, 1.8e-7),
+        "dcb0": (3.5e-6, 5.8e-6), "dcb5": (1.6e-6, 1.8e-6), "dcbr1": (3.2e-7, 2.8e-7),
+        "dW0e": (1.5e-4, 1.8e-4), "dWmid": (6.4e-5, 7.6e-5), "dbmid": (1.7e-6, 2.3e-6),
+        "dW5e": (1.2e-4, 1.2e-4), "dW5x": (1.1e-4, 1.1e-4), "dWd": (2.4e-6, 1.7e-6),
+        "dbd": (4.1e-7, 4.1e-7), "dWr0": (3.5e-5, 3.1e-5), "dbr0": (1.1e-6, 6.8e-7),
+        "dWr1x": (1.6e-5, 1.7e-5), "dWr2": (3.5e-4, 4.1e-4), "dbr2": (5.0e-7, 4.5e-7),
+    },
+    "deep256": {
+        "dembed": (2.0e-1, 1.3e-2), "dzvals": (2.6e-3, 8.4e-4), "dzdists": (3.3e-3, 1.1e-3),
+        "dcb0": (2.6e-3, 3.8e-3), "dcb5": (2.2e-3, 1.9e-3), "dcbr1": (1.5e-3, 1.2e-3),
+        "dW0e": (7.4e-3, 1.1e-2), "dWmid": (2.2e-3, 2.7e-3), "dbmid": (2.1e-3, 2.2e-3),
+        "dW5e": (3.3e-3, 6.2e-3), "dW5x": (3.6e-3, 3.6e-3), "dWd": (1.9e-3, 1.8e-3),
+        "dbd": (1.8e-3, 1.8e-3), "dWr0": (9.3e-4, 1.2e-3), "dbr0": (8.8e-4, 1.1e-3),
+        "dWr1x": (1.1e-3, 1.2e-3), "dWr2": (1.8e-4, 2.3e-4), "dbr2": (4.8e-5, 4.9e-5),
+    },
+}
+POINTS_K1_LIMITS = {
+    case: {name: tuple(min(K1_LIMIT_CAP, max(K2_LIMIT_FACTOR * v, K2_LIMIT_FLOOR)) for v in r)
+           for name, r in readings_.items()}
+    for case, readings_ in _POINTS_K1_READINGS.items()
+}
+POINTS_K2_LIMITS = {
+    case: {name: _limits(r) for name, r in readings_.items()}
+    for case, readings_ in _POINTS_K2_READINGS.items()
+}
+# K1 given the points equals K1 given the plain encoding computed on the
+# card and rounded to bf16, to the bit: the tiles and PyTorch's CUDA sin and
+# cos evaluate the same f32 functions of the same (exact) arguments.
+
+
+def points_case(hidden: int, samples: int, rays: int, device, seed: int = 0, batch: int = 2):
+    """:func:`field_case` with the sample points in place of the embedding:
+    0.5 N(0, 1) f32 ``[batch, rays, samples, 3]`` (arguments of 2^9 of that at
+    the last octave).  Returns ``(args, cotangents)``; ``args`` is what
+    ``fused_field_forward`` takes with ``n_freqs=N_FREQS``."""
+    args, cot = field_case(hidden, samples, rays, device, seed, batch)
+    gen = torch.Generator().manual_seed(hidden + 1000 * seed + 7)
+    pts = (0.5 * torch.randn(batch, rays, samples, 3, generator=gen)).to(device)
+    return (pts, *args[1:]), cot
+
+
+def encoding_flips(got: torch.Tensor, want: torch.Tensor) -> int:
+    """Entries of two bf16 embeddings that differ."""
+    return int((got != want).sum())
+
+
+def points_k1_failures(case: str, got, want) -> Tuple[Dict[str, Tuple[float, float]], List[str]]:
+    """K1 given the points against its plain version given them, in ``case``."""
+    return limit_failures(Outputs(*got), Outputs(*want), POINTS_K1_LIMITS[case])
+
+
+def points_k2_failures(case: str, got, want) -> Tuple[Dict[str, Tuple[float, float]], List[str]]:
+    """K2 given the points against its plain version given them, in
+    ``case`` (``<case>_stash``: reading the stash with ``dens_vpu``)."""
+    return limit_failures(got, want, POINTS_K2_LIMITS[case])
+
+
+# ---------------------------------------------------------------------------
+# the f32 fused upsampler (K7 and K8 with use_bf16=False, the f32 renderer)
+
+# The renderer's three blocks at B=2, and the narrow and ragged cases
+F32_BLOCK_CASES = ("block0", "block1", "block2", "half_tile", "ragged")
+# Per output (K7: its output; K8: each gradient), the kernel's relative L2
+# distance from the unrounded result (the plain version in float64) is at
+# most F32_TRUTH_RATIO times that of the f32 plain version (TF32 off), or
+# under F32_TRUTH_FLOOR, f32 summation noise: the mode's accuracy is what it
+# is for, and a kernel that rounds an operand or a product to TF32 or bf16
+# lies ~100 times farther.
+F32_TRUTH_RATIO = 1.15
+F32_TRUTH_FLOOR = 1e-6
+# K7 and K8 against their f32 plain versions, per output and case: (max
+# |kernel - plain| over max |plain|, relative L2), seed 0, on an NVIDIA H100
+# 80GB HBM3 (700 W): f32 summation noise, ~1e-7 (K7's output at the three
+# blocks equal to the bit).  Their distances from the unrounded result read
+# 1.7e-7 to 3.9e-7 where the plain version's read the same (K7, K8's dx at
+# block0), within a few 1e-7 of it elsewhere, and at block1 and block2
+# 3e-5 to 2.5e-4 for dx, dW1, db1 (dW2g, db2g at block1) in both, equal to
+# four digits.  Limits: twice the reading, never below K2's floor.
+_F32_K7_READINGS = {
+    "block0": (0.0, 0.0),
+    "block1": (0.0, 0.0),
+    "block2": (0.0, 0.0),
+    "half_tile": (2.9e-7, 1.3e-7),
+    "ragged": (2.3e-7, 2.0e-7),
+}
+_F32_K8_READINGS = {
+    "block0": {
+        "dx": (1.4e-7, 4.8e-8), "dW1": (6.6e-7, 5.5e-7), "db1": (1.9e-7, 2.0e-7),
+        "dW2g": (6.6e-7, 5.2e-7),
+        "db2g": (2.0e-7, 2.1e-7), "dW3": (2.9e-7, 3.3e-7), "db3": (1.2e-7, 1.1e-7),
+    },
+    "block1": {
+        "dx": (1.3e-7, 4.9e-8), "dW1": (8.4e-7, 8.2e-7), "db1": (2.0e-7, 2.0e-7),
+        "dW2g": (8.5e-7, 7.2e-7),
+        "db2g": (3.1e-7, 2.3e-7), "dW3": (5.0e-7, 5.0e-7), "db3": (1.9e-7, 2.0e-7),
+    },
+    "block2": {
+        "dx": (1.4e-7, 4.0e-8), "dW1": (6.6e-7, 5.3e-7), "db1": (8.3e-7, 5.8e-7),
+        "dW2g": (6.3e-7, 6.4e-7),
+        "db2g": (4.4e-7, 3.8e-7), "dW3": (7.7e-7, 6.3e-7), "db3": (2.2e-7, 2.1e-7),
+    },
+    "half_tile": {
+        "dx": (2.0e-7, 1.1e-7), "dW1": (1.9e-7, 1.6e-7), "db1": (2.5e-7, 2.3e-7),
+        "dW2g": (1.3e-7, 1.1e-7),
+        "db2g": (1.2e-7, 1.1e-7), "dW3": (2.1e-7, 1.8e-7), "db3": (0.0, 0.0),
+    },
+    "ragged": {
+        "dx": (2.8e-7, 2.6e-7), "dW1": (4.4e-7, 3.9e-7), "db1": (3.6e-7, 3.2e-7),
+        "dW2g": (3.4e-7, 2.6e-7),
+        "db2g": (2.6e-7, 1.7e-7), "dW3": (2.1e-7, 2.1e-7), "db3": (0.0, 0.0),
+    },
+}
+F32_K7_LIMITS = {case: _limits(r) for case, r in _F32_K7_READINGS.items()}
+F32_K8_LIMITS = {case: {name: _limits(r) for name, r in rs.items()}
+                 for case, rs in _F32_K8_READINGS.items()}
+
+Image = collections.namedtuple("Image", ("out",))
+
+
+def f32_block_case(shape, device, seed: int = 0):
+    """:func:`block_case` as the f32 renderer gives it: x and the output
+    cotangent in f32."""
+    args, dy = block_case(shape, device, seed)
+    return (args[0].float(), *args[1:]), dy.float()
+
+
+def f32_k7_failures(case: str, got, want) -> Tuple[Dict[str, Tuple[float, float]], List[str]]:
+    """K7 at f32 against its f32 plain version in ``case``."""
+    return limit_failures(Image(got), Image(want), {"out": F32_K7_LIMITS[case]})
+
+
+def f32_k8_failures(case: str, got, want) -> Tuple[Dict[str, Tuple[float, float]], List[str]]:
+    """K8 at f32 against its f32 plain version in ``case``."""
+    return limit_failures(got, want, F32_K8_LIMITS[case])
+
+
+def f32_truth_failures(got, want, exact) -> Tuple[Dict[str, Tuple[float, ...]], List[str]]:
+    """Per output of two named tuples (K7's ``Image`` or K8's gradients), the
+    kernel's and the f32 plain version's relative L2 distances from the
+    unrounded ``exact``, and a line for each output where the kernel's is
+    over both ``F32_TRUTH_FLOOR`` and ``F32_TRUTH_RATIO`` times the plain
+    version's."""
+    return truth_failures(got, want, want, exact, F32_TRUTH_RATIO, floor=F32_TRUTH_FLOOR)

@@ -3,8 +3,12 @@
 Counterpart of the JAX package's ``kernels/fused_field.py`` (its Pallas
 ``_field_kernel``, launched by ``_pallas_forward``), with and without the
 bf16 activation stash (``stash_acts``, ``stash_every=1``) that the backward
-can read in place of its recompute; its ``dens_vpu`` density head is the
-port's only one (an f32 dot product of bf16 values).  The kernel is
+can read in place of its recompute, and with the sample points encoded in
+the kernel's tile (``embed_in_kernel``: the input is the points ``[B, R, S,
+3]`` f32, encoded as :func:`~gazenerf_tpu_torch.ops.embedding.
+positional_encoding_matmul` in f32 and rounded to bf16 once) or the
+embedding given; its ``dens_vpu`` density head is the port's only one (an
+f32 dot product of bf16 values).  The kernel is
 hand-written CUDA for Hopper (``csrc/fused_field_fwd.cu``; its header
 states its bound and design); :func:`fused_field_reference` is its plain
 PyTorch version with the same rounding points.
@@ -26,6 +30,7 @@ from typing import Dict, Mapping, NamedTuple, Tuple
 import torch
 
 from gazenerf_tpu_torch.kernels import build
+from gazenerf_tpu_torch.ops.embedding import positional_encoding_matmul
 from gazenerf_tpu_torch.ops.integrate import exclusive_transmittance
 
 KERNEL = "fused_field_fwd"
@@ -131,8 +136,19 @@ def conditioning_rows(p: Mapping[str, torch.Tensor], sc: torch.Tensor, ac: torch
     return cb0.contiguous(), cb5.contiguous(), cbr1.contiguous()
 
 
+def encoded(embed: torch.Tensor, n_freqs) -> torch.Tensor:
+    """The kernels' embedding: ``embed`` itself, or with ``n_freqs`` given
+    (``embed_in_kernel``) the encoding of the points ``embed`` in their
+    dtype (at least f32), as the kernels compute it before rounding to
+    bf16."""
+    if n_freqs is None:
+        return embed
+    return positional_encoding_matmul(embed.to(torch.promote_types(embed.dtype, torch.float32)),
+                                      n_freqs)
+
+
 def fused_field_reference(embed, zvals, zdists, cb0, cb5, cbr1, w: FieldOperands,
-                          stash: bool = False):
+                          stash: bool = False, n_freqs=None):
     """Plain PyTorch version of the kernel, with its rounding points.
 
     bf16-in / f32-accumulate products are emulated by rounding each operand
@@ -141,8 +157,11 @@ def fused_field_reference(embed, zvals, zdists, cb0, cb5, cbr1, w: FieldOperands
     returns ``(outputs, acts)``: ``acts`` the activation stash the JAX
     kernel writes under a gradient, the bf16 values x0..x7 and y0b
     (``[B,R,S,H]``) and y1 (``[B,R,S,H/2]``) that its products read.
+    With ``n_freqs`` (``embed_in_kernel``) ``embed`` is the sample points
+    ``[B,R,S,3]``, encoded in f32 (:func:`encoded`).
     """
     f32 = torch.float32
+    embed = encoded(embed, n_freqs)
     B, R, S, De = embed.shape
 
     def rnd(t):  # a bf16 rounding point
@@ -176,7 +195,7 @@ def fused_field_reference(embed, zvals, zdists, cb0, cb5, cbr1, w: FieldOperands
     return out, tuple(a.to(torch.bfloat16).reshape(B, R, S, -1) for a in (*acts, y0, y1))
 
 
-_ARGTYPES = [ctypes.c_void_p] * 24 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 24 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
 N_SLOTS = 10  # the stash: x0..x7, y0b, y1
 
 
@@ -220,12 +239,27 @@ def sample_rule(S: int) -> str:
             f"multiple of {RAY_STEP} up to {MAX_SAMPLES}: not S={S}")
 
 
+def points_width(n_freqs: int) -> int:
+    """The embedding's width the kernels encode points into: ``3 + 6 n_freqs``
+    (the identity columns, then sin and cos of each octave)."""
+    return 3 + 6 * n_freqs
+
+
+def check_points(embed_dims: int, n_freqs: int) -> None:
+    """Raise unless a field of ``embed_dims`` embedding columns takes the
+    points encoded in the kernel at ``n_freqs`` octaves."""
+    if embed_dims != points_width(n_freqs):
+        raise ValueError(f"embed_in_kernel encodes the points into {points_width(n_freqs)} "
+                         f"columns (n_freqs={n_freqs}); the field takes {embed_dims}")
+
+
 def check_shapes(R, S, H, H2, Kp, De):
     """Raise unless the tile body takes these shapes: rays of
     :func:`takes_samples`, whole rays in every CTA (``R`` a multiple of
     :func:`cta_rays`); activations and the embedding tile stored in
     64-column blocks, and a layer of more than ``PASS_COLS`` columns
-    computed in two passes of half its width."""
+    computed in two passes of half its width.  ``De`` is the embedding's
+    width, the points' encoded width with ``embed_in_kernel``."""
     if not takes_samples(S):
         raise ValueError(sample_rule(S))
     if R % cta_rays(S):
@@ -264,16 +298,18 @@ def pointer_array(tensors):
     return (ctypes.c_void_p * len(tensors))(*(t.data_ptr() for t in tensors))
 
 
-def _launch(embed, zvals, zdists, cb0, cb5, cbr1, w: FieldOperands, stash: bool = False):
+def _launch(embed, zvals, zdists, cb0, cb5, cbr1, w: FieldOperands, stash: bool = False,
+            n_freqs=None):
     global launch_count
-    B, R, S, De = embed.shape
+    B, R, S, Din = embed.shape
+    De = Din if n_freqs is None else points_width(n_freqs)
     H, Kp = w.w0e.shape
     H2, C = w.wr2.shape
     dev = embed.device
     check_shapes(R, S, H, H2, Kp, De)
     bf, f32 = torch.bfloat16, torch.float32
     expected = {
-        "embed": (embed, bf, (B, R, S, De)),
+        "embed": (embed, bf, (B, R, S, De)) if n_freqs is None else (embed, f32, (B, R, S, 3)),
         "zvals": (zvals, f32, (B, R, S)),
         "zdists": (zdists, f32, (B, R, S)),
         "cb0": (cb0, f32, (B, H)),
@@ -309,7 +345,7 @@ def _launch(embed, zvals, zdists, cb0, cb5, cbr1, w: FieldOperands, stash: bool 
         *(t.data_ptr() for t in ins), stream.data_ptr(),
         *(t.data_ptr() for t in (feat, bga, depth, wts)),
         pointer_array(acts) if stash else None,
-        B, R, S, De, Kp, H, C,
+        B, R, S, De, Kp, H, C, int(n_freqs is not None),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     if err:
@@ -320,19 +356,22 @@ def _launch(embed, zvals, zdists, cb0, cb5, cbr1, w: FieldOperands, stash: bool 
 
 
 def fused_field_forward(
-    embed, zvals, zdists, cb0, cb5, cbr1, w: FieldOperands, stash: bool = False
+    embed, zvals, zdists, cb0, cb5, cbr1, w: FieldOperands, stash: bool = False, n_freqs=None
 ) -> Tuple[torch.Tensor, ...]:
     """The kernel's wrapper.  CUDA tensors launch the kernel (on the current
     stream, no synchronisation); CPU tensors take
-    :func:`fused_field_reference`.  With ``stash`` it returns ``(outputs,
-    acts)``, the ten stash tensors as the plain version gives them.  No
-    autograd: :func:`fused_field_render` wraps it in :class:`FusedField`,
-    whose backward is the backward kernel."""
+    :func:`fused_field_reference`.  ``embed`` is the bf16 embedding, or
+    with ``n_freqs`` (``embed_in_kernel``) the f32 sample points ``[B, R,
+    S, 3]``, which the kernel encodes.  With ``stash`` it returns
+    ``(outputs, acts)``, the ten stash tensors as the plain version gives
+    them.  No autograd: :func:`fused_field_render` wraps it in
+    :class:`FusedField`, whose backward is the backward kernel."""
     if embed.device.type == "cpu":
-        return fused_field_reference(embed, zvals, zdists, cb0, cb5, cbr1, w, stash=stash)
+        return fused_field_reference(embed, zvals, zdists, cb0, cb5, cbr1, w, stash=stash,
+                                     n_freqs=n_freqs)
     if embed.device.type != "cuda":
         raise ValueError(f"no fused field kernel for device {embed.device}")
-    return _launch(embed, zvals, zdists, cb0, cb5, cbr1, w, stash=stash)
+    return _launch(embed, zvals, zdists, cb0, cb5, cbr1, w, stash=stash, n_freqs=n_freqs)
 
 
 # the split_params blocks that carry gradients, in FusedField's input order
@@ -346,21 +385,28 @@ class FusedField(torch.autograd.Function):
     JAX package's ``custom_vjp`` around the two Pallas kernels).
 
     Inputs: the bf16 kernel operands (values), whether to stash, whether
-    the backward takes the ``dens_vpu`` density head, then the embedding, z
-    values, segment lengths, conditioning rows and the :data:`WEIGHT_KEYS`
-    blocks (f32 views of the parameters, which receive the weight
-    gradients).  The forward launches the forward kernel and saves its
+    the backward takes the ``dens_vpu`` density head, ``n_freqs`` (None, or
+    the octaves of the points the kernels encode: ``embed_in_kernel``), then
+    the embedding (or the points), z values, segment lengths, conditioning
+    rows and the :data:`WEIGHT_KEYS` blocks (f32 views of the parameters,
+    which receive the weight gradients).  The forward launches the forward kernel and saves its
     inputs and, with the stash, the ten stash tensors, which autograd holds
     until it frees the graph (a backward with ``retain_graph`` can run again
     on them) and the backward reads; without the stash the backward
     recomputes them.  The embedding's
-    cotangent comes back in the embedding's dtype."""
+    cotangent comes back in the embedding's dtype (a bf16 embedding's is its
+    f32 cotangent rounded once); the points' in f32."""
 
     @staticmethod
-    def forward(ctx, ops: FieldOperands, stash: bool, dens_vpu: bool, embed, zvals, zdists,
-                cb0, cb5, cbr1, *weights):
-        e = embed.to(torch.bfloat16).contiguous()
-        out = fused_field_forward(e, zvals, zdists, cb0, cb5, cbr1, ops, stash=stash)
+    def forward(ctx, ops: FieldOperands, stash: bool, dens_vpu: bool, n_freqs, embed, zvals,
+                zdists, cb0, cb5, cbr1, *weights):
+        if n_freqs is None:
+            e = embed.to(torch.bfloat16).contiguous()
+        else:
+            check_points(weights[0].shape[0], n_freqs)
+            e = embed.to(torch.float32).contiguous()
+        out = fused_field_forward(e, zvals, zdists, cb0, cb5, cbr1, ops, stash=stash,
+                                  n_freqs=n_freqs)
         acts = ()
         if stash:
             out, acts = out
@@ -369,6 +415,7 @@ class FusedField(torch.autograd.Function):
         ctx.save_for_backward(e, zvals, zdists, cb0, cb5, cbr1, *ops, *acts)
         ctx.embed_dtype = embed.dtype
         ctx.dens_vpu = dens_vpu
+        ctx.n_freqs = n_freqs
         return out
 
     @staticmethod
@@ -387,21 +434,23 @@ class FusedField(torch.autograd.Function):
 
         C = ops[-1].shape[0]
         # the modes in use only: a recompute-mode call takes the plain signature
-        mode = {k: v for k, v in (("stash", acts), ("dens_vpu", ctx.dens_vpu)) if v}
+        mode = {k: v for k, v in (("stash", acts), ("dens_vpu", ctx.dens_vpu),
+                                  ("n_freqs", ctx.n_freqs)) if v}
         g = fused_field_bwd.fused_field_backward(
             e, zvals, zdists, cb0, cb5, cbr1, FieldOperands(*ops),
             cot(gfeat, (B, R, C)), cot(gbga, (B, R)), cot(gdepth, (B, R)), cot(gw, (B, R, S)),
             **mode,
         )
         return (
-            None, None, None, g.dembed.to(ctx.embed_dtype), g.dzvals, g.dzdists, g.dcb0, g.dcb5, g.dcbr1,
+            None, None, None, None, g.dembed.to(ctx.embed_dtype), g.dzvals, g.dzdists, g.dcb0,
+            g.dcb5, g.dcbr1,
             g.dW0e, g.dWmid, g.dbmid, g.dW5e, g.dW5x, g.dWd, g.dbd,
             g.dWr0, g.dbr0, g.dWr1x, g.dWr2, g.dbr2,
         )
 
 
 def fused_field_render(p, ops: FieldOperands, embed, sc, ac, zvals, zdists,
-                       stash_acts: bool = False, dens_vpu: bool = False):
+                       stash_acts: bool = False, dens_vpu: bool = False, n_freqs=None):
     """Field evaluation + integration for one branch.
 
     ``p``: the field's :func:`split_params` blocks and ``ops`` its
@@ -411,7 +460,10 @@ def fused_field_render(p, ops: FieldOperands, embed, sc, ac, zvals, zdists,
     embedding.  With ``stash_acts`` the forward writes the activation stash
     for the backward to read, only where a backward will run (under a
     gradient, some input requiring one), as the JAX primal call skips it;
-    ``dens_vpu`` selects the backward's ``dens_vpu`` rounding of dWd.
+    ``dens_vpu`` selects the backward's ``dens_vpu`` rounding of dWd.  With
+    ``n_freqs`` (``embed_in_kernel``) ``embed`` is the sample points ``[B,
+    R, S, 3]``, which the kernels encode at ``n_freqs`` octaves, and the
+    gradient reaches the points.
     Returns ``(feat_int [B,R,C], bg_alpha [B,R], depth [B,R], weights
     [B,R,S])``.
     """
@@ -420,6 +472,6 @@ def fused_field_render(p, ops: FieldOperands, embed, sc, ac, zvals, zdists,
     stash = stash_acts and torch.is_grad_enabled() and any(
         t.requires_grad for t in (embed, sc, ac, zvals, zdists, *weights))
     return FusedField.apply(
-        ops, stash, dens_vpu, embed, zvals.to(torch.float32).contiguous(),
+        ops, stash, dens_vpu, n_freqs, embed, zvals.to(torch.float32).contiguous(),
         zdists.to(torch.float32).contiguous(), cb0, cb5, cbr1, *weights,
     )

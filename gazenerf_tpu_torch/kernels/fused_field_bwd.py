@@ -3,7 +3,11 @@
 Counterpart of the JAX package's ``kernels/fused_field_bwd.py`` (its Pallas
 ``_bwd_kernel``, launched by ``pallas_backward``) in recompute mode or
 reading the forward's bf16 activation stash (``stash_acts``,
-``stash_every=1``), with or without ``dens_vpu``, the weight gradients
+``stash_every=1``), with or without ``dens_vpu``, given the embedding (its
+cotangent in f32) or the sample points that it encodes in its tile as the
+forward does
+(``embed_in_kernel``: the cotangent is the points', ``[B, R, S, 3]`` f32,
+in :class:`FieldGrads`' ``dembed``), the weight gradients
 computed by the kernel's own GEMM over chunks of points
 (``kernels/field_dw.py``).  The Pallas kernel's ``split_dw`` mode is the
 stash mode without ``dens_vpu`` here (``models/gaze_nerf.py``).  The
@@ -31,7 +35,11 @@ import torch
 from gazenerf_tpu_torch.kernels import build
 from gazenerf_tpu_torch.kernels import field_dw
 from gazenerf_tpu_torch.kernels import fused_field as ff
-from gazenerf_tpu_torch.kernels.fused_field import FieldOperands, check_tensor
+from gazenerf_tpu_torch.kernels.fused_field import FieldOperands, check_tensor, encoded
+from gazenerf_tpu_torch.ops.embedding import (
+    positional_encoding_matmul,
+    positional_encoding_matmul_vjp,
+)
 from gazenerf_tpu_torch.ops.integrate import exclusive_transmittance, integrate_rays
 
 KERNEL = "fused_field_bwd"
@@ -62,7 +70,7 @@ class FieldGrads(NamedTuple):
     ``[in, out]`` layout of :func:`~gazenerf_tpu_torch.kernels.fused_field.
     split_params`, f32."""
 
-    dembed: torch.Tensor  # [B, R, S, De]
+    dembed: torch.Tensor  # [B, R, S, De]; with embed_in_kernel the points' [B, R, S, 3]
     dzvals: torch.Tensor  # [B, R, S]
     dzdists: torch.Tensor  # [B, R, S]
     dcb0: torch.Tensor  # [B, H]
@@ -111,7 +119,7 @@ def density_pre(x7: torch.Tensor, wd: torch.Tensor, bd: torch.Tensor) -> torch.T
 
 def fused_field_backward_reference(
     embed, zvals, zdists, cb0, cb5, cbr1, w: FieldOperands, gfeat, gbga, gdepth, gw,
-    dtype=torch.float32, stash=None, chunks=None, dens_vpu=False,
+    dtype=torch.float32, stash=None, chunks=None, dens_vpu=False, n_freqs=None,
 ) -> FieldGrads:
     """Plain PyTorch version of the kernel, with the Pallas kernel's
     formulas and rounding points: the forward recomputed with K1's bf16
@@ -128,11 +136,20 @@ def fused_field_backward_reference(
     weight gradient chunk by chunk in the kernel's order, else over all
     points at once.  ``dens_vpu``: the density head's weight gradient takes
     the density cotangent unrounded (the Pallas kernel's ``dens_vpu``
-    mode), not its bf16 rounding."""
+    mode), not its bf16 rounding.  ``n_freqs`` (``embed_in_kernel``):
+    ``embed`` is the sample points, encoded in ``dtype`` as the kernel
+    encodes them (:func:`~gazenerf_tpu_torch.kernels.fused_field.encoded`),
+    and ``dembed`` is their cotangent, the encoding's backward
+    (:func:`~gazenerf_tpu_torch.ops.embedding.positional_encoding_matmul_vjp`)
+    of the f32 embedding cotangent."""
+    pts = None if n_freqs is None else embed.to(dtype)
     grads, dembed5, dembed0 = fused_field_backward_parts(
-        embed, zvals, zdists, cb0, cb5, cbr1, w, gfeat, gbga, gdepth, gw, dtype, stash, chunks,
-        dens_vpu)
-    return grads._replace(dembed=dembed5 + dembed0)
+        embed if pts is None else encoded(pts, n_freqs), zvals, zdists, cb0, cb5, cbr1, w,
+        gfeat, gbga, gdepth, gw, dtype, stash, chunks, dens_vpu)
+    dembed = dembed5 + dembed0
+    if pts is not None:
+        return grads._replace(dembed=positional_encoding_matmul_vjp(pts, dembed, n_freqs))
+    return grads._replace(dembed=dembed)
 
 
 def fused_field_backward_parts(embed, zvals, zdists, cb0, cb5, cbr1, w: FieldOperands, gfeat,
@@ -240,14 +257,18 @@ def fused_field_backward_parts(embed, zvals, zdists, cb0, cb5, cbr1, w: FieldOpe
 @torch.enable_grad()  # also when called from a backward
 def fused_field_backward_unrounded(
     embed, zvals, zdists, cb0, cb5, cbr1, w: FieldOperands, gfeat, gbga, gdepth, gw,
-    dtype=torch.float64,
+    dtype=torch.float64, n_freqs=None,
 ) -> FieldGrads:
     """The gradient that the kernel and its plain version both approximate:
     autograd in ``dtype`` of the same field (the bf16 operands' values) and
     volume integration, with no rounding point.  Rays go through in chunks
     of 512, which bounds the memory autograd keeps (a few GB at hidden 384
-    in float64).  Every output is in ``dtype``."""
+    in float64).  Every output is in ``dtype``.  With ``n_freqs``
+    (``embed_in_kernel``) ``embed`` is the sample points, encoded in
+    ``dtype``, and ``dembed`` their cotangent."""
     B, R, S, De = embed.shape
+    if n_freqs is not None:
+        De = ff.points_width(n_freqs)
     P = {k: getattr(w, k).detach().to(dtype).requires_grad_(True) for k in w._fields}
     conds = [t.detach().to(dtype).requires_grad_(True) for t in (cb0, cb5, cbr1)]
     c0, c5, cr1 = (t[:, None, None, :] for t in conds)
@@ -256,8 +277,9 @@ def fused_field_backward_unrounded(
     per_point = []
     for r0 in range(0, R, 512):
         rays = slice(r0, r0 + 512)
-        e, zv, zd = (t[:, rays].detach().to(dtype).requires_grad_(True)
-                     for t in (embed, zvals, zdists))
+        x_in, zv, zd = (t[:, rays].detach().to(dtype).requires_grad_(True)
+                        for t in (embed, zvals, zdists))
+        e = x_in if n_freqs is None else positional_encoding_matmul(x_in, n_freqs)
         x = torch.relu(e @ P["w0e"][:, :De].t() + c0)
         mid = 0
         for i in range(1, 8):
@@ -271,7 +293,7 @@ def fused_field_backward_unrounded(
         out = integrate_rays(y1 @ P["wr2"] + P["br2"], sigma, zd, zv)
         cot = (gfeat[:, rays], gbga[:, rays], gdepth[:, rays], gw[:, rays])
         loss = sum((o * c.to(dtype)).sum() for o, c in zip(out, cot))
-        g = torch.autograd.grad(loss, [e, zv, zd] + conds + weights)
+        g = torch.autograd.grad(loss, [x_in, zv, zd] + conds + weights)
         per_point.append(g[:3])
         for acc, t in zip(sums, g[3:]):
             acc += t
@@ -286,7 +308,7 @@ def fused_field_backward_unrounded(
     )
 
 
-_ARGTYPES = [ctypes.c_void_p] * 34 + [ctypes.c_int] * 14 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 34 + [ctypes.c_int] * 15 + [ctypes.c_void_p]
 # the gradient blocks in the order of the offsets the library gives
 _GRAD_BLOCKS = ("dW0e", "dWmid", "dbmid", "dW5e", "dW5x", "dWd", "dbd", "dWr0", "dbr0", "dWr1x",
                 "dWr2", "dbr2", "dcb0", "dcb5", "dcbr1")
@@ -296,7 +318,7 @@ def _library() -> ctypes.CDLL:
     lib = build.load(KERNEL, DEFINES)
     lib.fused_field_bwd.argtypes = _ARGTYPES
     lib.fused_field_bwd.restype = ctypes.c_int
-    lib.fused_field_bwd_layout.argtypes = [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    lib.fused_field_bwd_layout.argtypes = [ctypes.c_int] * 9 + [ctypes.c_void_p]
     lib.fused_field_bwd_layout.restype = None
     return lib
 
@@ -316,7 +338,8 @@ def layout(layout_fn, B: int, S: int, Kp: int, H: int, C: int, G: int, chunk_til
            *mode: int):
     """A backward library's buffer layout: the gradient blocks' offsets (in
     floats), the gradient buffer's length and the scratch's bytes.  ``mode``:
-    the library's further arguments (K2's: whether it reads a stash)."""
+    the library's further arguments (K2's: whether it reads a stash, and
+    whether it takes the points)."""
     out = (ctypes.c_longlong * (len(_GRAD_BLOCKS) + 2))()
     layout_fn(B, S, Kp, H, C, G, chunk_tiles, *mode, out)
     n = len(_GRAD_BLOCKS)
@@ -330,9 +353,12 @@ def persistent_ctas(dev, n_tiles: int) -> int:
 
 
 def _launch(embed, zvals, zdists, cb0, cb5, cbr1, w: FieldOperands, gfeat, gbga, gdepth, gw,
-            stash=None, dens_vpu=False) -> FieldGrads:
+            stash=None, dens_vpu=False, n_freqs=None) -> FieldGrads:
     global launch_count
     B, R, S, De = embed.shape
+    points = n_freqs is not None
+    if points:
+        De = ff.points_width(n_freqs)
     H, Kp = w.w0e.shape
     H2, C = w.wr2.shape
     dev = embed.device
@@ -344,7 +370,7 @@ def _launch(embed, zvals, zdists, cb0, cb5, cbr1, w: FieldOperands, gfeat, gbga,
     bf, f32 = torch.bfloat16, torch.float32
     bw = prepare_backward_operands(w)
     expected = {
-        "embed": (embed, bf, (B, R, S, De)),
+        "embed": (embed, f32, (B, R, S, 3)) if points else (embed, bf, (B, R, S, De)),
         "zvals": (zvals, f32, (B, R, S)),
         "zdists": (zdists, f32, (B, R, S)),
         "cb0": (cb0, f32, (B, H)),
@@ -385,10 +411,10 @@ def _launch(embed, zvals, zdists, cb0, cb5, cbr1, w: FieldOperands, gfeat, gbga,
     G = persistent_ctas(dev, B * R * S // TILE_POINTS)
     chunk_tiles = chunks[0].tiles
     offsets, total, scratch_bytes = layout(lib.fused_field_bwd_layout, B, S, Kp, H, C, G,
-                                           chunk_tiles, stash is not None)
+                                           chunk_tiles, stash is not None, points)
     scratch = torch.empty((scratch_bytes,), dtype=torch.uint8, device=dev)
     grads = torch.empty((total,), dtype=f32, device=dev)
-    dembed = torch.empty((B, R, S, De), dtype=f32, device=dev)
+    dembed = torch.empty((B, R, S, 3 if points else De), dtype=f32, device=dev)
     dzvals = torch.empty((B, R, S), dtype=f32, device=dev)
     dzdists = torch.empty((B, R, S), dtype=f32, device=dev)
     ptrs = [t.data_ptr() for t, _, _ in expected.values()]
@@ -397,7 +423,8 @@ def _launch(embed, zvals, zdists, cb0, cb5, cbr1, w: FieldOperands, gfeat, gbga,
     stream = torch.cuda.current_stream(dev).cuda_stream
     for i, ch in enumerate(chunks):
         err = lib.fused_field_bwd(*ptrs, B, R, S, De, Kp, H, C, G, chunk_tiles, ch.tile0,
-                                  ch.tiles, i == 0, i == len(chunks) - 1, dens_vpu, stream)
+                                  ch.tiles, i == 0, i == len(chunks) - 1, dens_vpu, points,
+                                  stream)
         if err:
             raise RuntimeError(f"{KERNEL} launch failed with CUDA error {err}")
     launch_count += 1
@@ -412,17 +439,19 @@ def _launch(embed, zvals, zdists, cb0, cb5, cbr1, w: FieldOperands, gfeat, gbga,
 
 def fused_field_backward(
     embed, zvals, zdists, cb0, cb5, cbr1, w: FieldOperands, gfeat, gbga, gdepth, gw,
-    stash=None, dens_vpu=False,
+    stash=None, dens_vpu=False, n_freqs=None,
 ) -> FieldGrads:
     """The kernel's wrapper.  CUDA tensors launch the kernel (on the current
     stream, no synchronisation); CPU tensors take
     :func:`fused_field_backward_reference`.  ``embed`` is the bf16 embedding
-    the forward read; the cotangents are f32.  ``stash``, the forward's ten
-    bf16 stash tensors (``fused_field_forward(..., stash=True)``), is read in
-    place of the recompute; ``dens_vpu`` as the plain version's."""
+    the forward read, or with ``n_freqs`` the f32 sample points it encoded;
+    the cotangents are f32.  ``stash``, the forward's ten bf16 stash tensors
+    (``fused_field_forward(..., stash=True)``), is read in place of the
+    recompute; ``dens_vpu`` and ``n_freqs`` as the plain version's."""
     args = (embed, zvals, zdists, cb0, cb5, cbr1, w, gfeat, gbga, gdepth, gw)
+    mode = dict(stash=stash, dens_vpu=dens_vpu, n_freqs=n_freqs)
     if embed.device.type == "cpu":
-        return fused_field_backward_reference(*args, stash=stash, dens_vpu=dens_vpu)
+        return fused_field_backward_reference(*args, **mode)
     if embed.device.type != "cuda":
         raise ValueError(f"no fused field backward kernel for device {embed.device}")
-    return _launch(*args, stash=stash, dens_vpu=dens_vpu)
+    return _launch(*args, **mode)

@@ -19,10 +19,14 @@ and it takes no gradient).
 
 The kernels are hand-written CUDA for Hopper (``csrc/fused_upsampler_fwd.cu``,
 ``csrc/fused_upsampler_bwd.cu``, one chain body ``csrc/upsampler_chain.cuh``;
-their headers state the bound and the design); each takes the bf16
-configuration (``use_bf16=True``).  K8 takes the pixels in chunks of whole
-tiles of 64, 128 or 256 pixels (:func:`group_rows`, :func:`plan_chunks`) and
-its weight gradients as a GEMM over each chunk's pixels, chunk after chunk.
+their headers state the bound and the design) for the bf16 configuration
+(``use_bf16=True``); K8 takes the pixels in chunks of whole tiles of 64, 128
+or 256 pixels (:func:`group_rows`, :func:`plan_chunks`) and its weight
+gradients as a GEMM over each chunk's pixels, chunk after chunk.  The f32
+configuration (``use_bf16=False``, the f32 renderer) is
+``csrc/fused_upsampler_f32.cu``: both directions in f32 fused multiply-adds
+on the CUDA cores, its own counts (``launch_count_fwd_f32``,
+``launch_count_bwd_f32``).
 
 * :func:`fused_upsample_reference` / :func:`fused_upsample_backward_reference`:
   the plain versions with the Pallas kernels' rounding points, for
@@ -50,6 +54,7 @@ from gazenerf_tpu_torch.kernels.shuffle_blur import (
 
 KERNEL_FWD = "fused_upsampler_fwd"
 KERNEL_BWD = "fused_upsampler_bwd"
+KERNEL_F32 = "fused_upsampler_f32"
 DEFINES: dict = {}
 # pixels of a warpgroup's rows: a tile is 64, 128 or 256 (csrc/upsampler_chain.cuh)
 GROUP_PIXELS = 64
@@ -68,11 +73,11 @@ SMEM_LIMIT = 232448
 # the weight-gradient GEMM's launches, then the bias sums).
 launch_count_fwd = 0
 launch_count_bwd = 0
-
-_ROADMAP_F32 = (
-    "the fused upsampler kernels take the bf16 renderer (use_bf16=True) only; "
-    "the f32 renderer's fused mode on the card is ROADMAP.md Queue 2b, mode 5"
-)
+# the same for the f32 kernels (use_bf16=False): one per block, forward and
+# backward (each several CUDA launches: the chain, the stencil or its
+# adjoint, the weight gradients' contractions)
+launch_count_fwd_f32 = 0
+launch_count_bwd_f32 = 0
 
 
 def residual_index(F: int) -> np.ndarray:
@@ -325,16 +330,73 @@ def _check_block(x, W1, b1, W2g, b2g, W3, b3):
     return B, H, W, F, F3
 
 
-def _is_cuda(t: torch.Tensor, use_bf16: bool, what: str) -> bool:
-    """True for a CUDA tensor (which must take the bf16 kernel), False for a
-    CPU one; raises for any other device."""
+def _is_cuda(t: torch.Tensor, what: str) -> bool:
+    """True for a CUDA tensor, False for a CPU one; raises for any other
+    device."""
     if t.device.type == "cpu":
         return False
     if t.device.type != "cuda":
         raise ValueError(f"no fused upsampler {what} kernel for device {t.device}")
-    if not use_bf16:
-        raise NotImplementedError(_ROADMAP_F32)
     return True
+
+
+def _f32_rows(lib, F: int, F3: int, bwd: bool) -> int:
+    """Rows of the f32 kernels' tiles; raises where not even 8 fit."""
+    rows = lib.fused_upsampler_f32_rows(F, F3, int(bwd))
+    if not rows:
+        raise ValueError(f"widths F={F}, F3={F3}: the f32 kernel's tile of 8 pixels needs more "
+                         f"than {SMEM_LIMIT} bytes of shared memory")
+    return rows
+
+
+def _forward_f32(x, W1, b1, W2g, b2g, W3, b3):
+    """K7 at f32: every operand and product in f32, the output in x's dtype."""
+    global launch_count_fwd_f32
+    B, H, W, F, F3 = _check_block(x, W1, b1, W2g, b2g, W3, b3)
+    lib = _library(KERNEL_F32)
+    _f32_rows(lib, F, F3, False)
+    ins = [t.to(torch.float32).contiguous() for t in (x, W1, b1, W2g, b2g, W3, b3)]
+    z3 = torch.empty((B * H * W, 4 * F3), dtype=torch.float32, device=x.device)
+    y = torch.empty((B, 2 * H, 2 * W, F3), dtype=x.dtype, device=x.device)
+    err = lib.fused_upsampler_f32_fwd(
+        *(t.data_ptr() for t in ins), z3.data_ptr(), y.data_ptr(), B, H, W, F, F3,
+        int(x.dtype == torch.bfloat16), torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    if err:
+        raise RuntimeError(f"{KERNEL_F32} forward launch failed with CUDA error {err}")
+    launch_count_fwd_f32 += 1
+    return y
+
+
+def _backward_f32(x, W1, b1, W2g, b2g, W3, b3, dy) -> UpsampleGrads:
+    """K8 at f32: the cotangents in f32 (dx in x's dtype), the weight
+    gradients' sums in a fixed order."""
+    global launch_count_bwd_f32
+    B, H, W, F, F3 = _check_block(x, W1, b1, W2g, b2g, W3, b3)
+    dev, P, f32 = x.device, B * H * W, torch.float32
+    lib = _library(KERNEL_F32)
+    _f32_rows(lib, F, F3, True)
+    xf, w1, b1, w2, b2g = (t.to(f32).contiguous() for t in (x, W1, b1, W2g, b2g))
+    w3t, w2t, w1t = (t.t().contiguous() for t in (W3, W2g, W1))
+    dyf = dy.to(f32).contiguous()
+    scratch = torch.empty((lib.fused_upsampler_f32_scratch(P, F, F3),), dtype=f32, device=dev)
+    g = UpsampleGrads(
+        dx=torch.empty((B, H, W, F), dtype=f32, device=dev),
+        dW1=torch.empty((F, 2 * F), dtype=f32, device=dev),
+        db1=torch.empty((2 * F,), dtype=f32, device=dev),
+        dW2g=torch.empty((2 * F, 4 * F), dtype=f32, device=dev),
+        db2g=torch.empty((4 * F,), dtype=f32, device=dev),
+        dW3=torch.empty((F, F3), dtype=f32, device=dev),
+        db3=torch.empty((F3,), dtype=f32, device=dev),
+    )
+    err = lib.fused_upsampler_f32_bwd(
+        *(t.data_ptr() for t in (xf, dyf, w1, b1, w2, b2g, w3t, w2t, w1t, *g, scratch)),
+        B, H, W, F, F3, torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if err:
+        raise RuntimeError(f"{KERNEL_F32} backward launch failed with CUDA error {err}")
+    launch_count_bwd_f32 += 1
+    return g._replace(dx=g.dx.to(x.dtype))
 
 
 def fused_upsample_forward(x, W1, b1, W2g, b2g, W3, b3, use_bf16: bool = True):
@@ -342,8 +404,10 @@ def fused_upsample_forward(x, W1, b1, W2g, b2g, W3, b3, use_bf16: bool = True):
     CUDA tensors launch the kernel (on the current stream, no
     synchronisation); CPU tensors take :func:`fused_upsample_reference`."""
     global launch_count_fwd
-    if not _is_cuda(x, use_bf16, "forward"):
+    if not _is_cuda(x, "forward"):
         return fused_upsample_reference(x, W1, b1, W2g, b2g, W3, b3, use_bf16)
+    if not use_bf16:
+        return _forward_f32(x, W1, b1, W2g, b2g, W3, b3)
     B, H, W, F, F3 = _check_block(x, W1, b1, W2g, b2g, W3, b3)
     lib = _library(KERNEL_FWD)
     nrg = group_rows(lambda n: lib.fused_upsampler_fwd_smem(F, F3, n), B * H * W, _sms(x.device))
@@ -365,7 +429,18 @@ def fused_upsample_forward(x, W1, b1, W2g, b2g, W3, b3, use_bf16: bool = True):
 
 def _library(name: str) -> ctypes.CDLL:
     lib = build.load(name, DEFINES)
-    if name == KERNEL_FWD:
+    if name == KERNEL_F32:
+        lib.fused_upsampler_f32_rows.argtypes = [ctypes.c_int] * 3
+        lib.fused_upsampler_f32_rows.restype = ctypes.c_int
+        lib.fused_upsampler_f32_scratch.argtypes = [ctypes.c_longlong, ctypes.c_int, ctypes.c_int]
+        lib.fused_upsampler_f32_scratch.restype = ctypes.c_longlong
+        lib.fused_upsampler_f32_fwd.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [
+            ctypes.c_void_p]
+        lib.fused_upsampler_f32_fwd.restype = ctypes.c_int
+        lib.fused_upsampler_f32_bwd.argtypes = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 5 + [
+            ctypes.c_void_p]
+        lib.fused_upsampler_f32_bwd.restype = ctypes.c_int
+    elif name == KERNEL_FWD:
         lib.fused_upsampler_fwd_smem.argtypes = [ctypes.c_int] * 3
         lib.fused_upsampler_fwd_smem.restype = ctypes.c_longlong
         lib.fused_upsampler_fwd.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
@@ -391,12 +466,14 @@ def fused_upsample_backward(x, W1, b1, W2g, b2g, W3, b3, dy, use_bf16: bool = Tr
     gradients are summed in a fixed order: two calls on the same inputs give
     the same bits."""
     global launch_count_bwd
-    if not _is_cuda(x, use_bf16, "backward"):
+    if not _is_cuda(x, "backward"):
         return fused_upsample_backward_reference(x, W1, b1, W2g, b2g, W3, b3, dy, use_bf16)
     B, H, W, F, F3 = _check_block(x, W1, b1, W2g, b2g, W3, b3)
     if dy.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"dy: dtype {dy.dtype}, expected float32 or bfloat16")
     check_tensor("dy", dy, x.device, dy.dtype, (B, 2 * H, 2 * W, F3))
+    if not use_bf16:
+        return _backward_f32(x, W1, b1, W2g, b2g, W3, b3, dy)
     dev, P = x.device, B * H * W
     lib = _library(KERNEL_BWD)
     sms = _sms(dev)

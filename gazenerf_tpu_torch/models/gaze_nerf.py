@@ -13,10 +13,13 @@ under autograd the backward kernel as its gradient; with
 stash, else it recomputes; ``pallas_dens_vpu`` selects its ``dens_vpu``
 density head; ``pallas_split_dw`` runs the backward reading the bf16
 stash of every layer without ``dens_vpu``, and no ``pallas_fuse_embed``:
-see :data:`_SPLIT_DW_SETS`), or with ``pallas_dual_branch`` both
+see :data:`_SPLIT_DW_SETS`; ``pallas_fuse_embed`` gives the kernels the
+sample points to encode in their tile, ``pallas_embed_bf16`` the bf16
+embedding: :meth:`GazeNeRF.encodes_points`), or with ``pallas_dual_branch`` both
 fields in one dual-branch kernel (``kernels/fused_field2``; with
-``pallas_stash_acts`` its backward reads the stash; ``pallas_dens_vpu``
-and ``pallas_split_dw`` are cleared there, as the JAX package does);
+``pallas_stash_acts`` its backward reads the stash; ``pallas_dens_vpu``,
+``pallas_split_dw``, ``pallas_fuse_embed`` and ``pallas_embed_bf16`` are
+cleared there, as the JAX package does);
 otherwise through :class:`NeRFFieldMLP` in the compute
 dtype, then :func:`integrate_rays`.  With ``include_vd`` the fields take
 the view-direction embedding and run eagerly (as in the JAX package).
@@ -48,7 +51,7 @@ from gazenerf_tpu_torch.kernels import fused_field as ff
 from gazenerf_tpu_torch.kernels.field_dw import TILE_POINTS as BWD_TILE_POINTS
 from gazenerf_tpu_torch.kernels.fused_field2 import fused_dual_render, stack_operands
 from gazenerf_tpu_torch.models.mlp_nerf import NeRFFieldMLP
-from gazenerf_tpu_torch.models.neural_renderer import SHUFFLE_MODES, NeuralRenderer
+from gazenerf_tpu_torch.models.neural_renderer import NeuralRenderer
 from gazenerf_tpu_torch.ops.embedding import positional_encoding
 from gazenerf_tpu_torch.ops.integrate import Integrated, integrate_rays
 from gazenerf_tpu_torch.ops.rays import SampleSet, sample_coarse, sample_fine
@@ -58,12 +61,8 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float64": torc
 
 # settings not ported yet: (field, value the port runs, the ROADMAP item)
 _PORTED = (
-    ("pallas_fuse_embed", False, "Queue 2b, mode 4"),
     ("pallas_stash_every", 1, "Queue 2b, mode 1"),
     ("pallas_stash_dtype", "bfloat16", "Queue 2b, mode 1"),
-    ("pallas_embed_bf16", False, "Queue 2b, mode 4"),
-    ("renderer_fold_feat", True, "Queue 1 item 4"),
-    ("renderer_rgb_cf", True, "Queue 1 item 4"),
 )
 # what pallas_split_dw sets, whatever the config says.  The JAX package's
 # _fused_dims: the bf16 stash of every layer, the embedding outside the
@@ -144,12 +143,6 @@ class GazeNeRF(nn.Module):
                     f"{name}={getattr(cfg, name)!r} is not ported yet "
                     f"(the port runs {name}={value!r}; ROADMAP {item})"
                 )
-        # JAX's "phase" and "naive" renderer modes are not ported
-        if cfg.shuffle_mode not in SHUFFLE_MODES:
-            raise NotImplementedError(
-                f"shuffle_mode={cfg.shuffle_mode!r} is not ported yet "
-                f"(the port runs shuffle_mode in {SHUFFLE_MODES})"
-            )
         check_ray_shapes(cfg)
         device = resolve_device(device)
         self.cfg = cfg
@@ -181,6 +174,8 @@ class GazeNeRF(nn.Module):
             img_size=cfg.pred_img_size,
             dtype=_DTYPES[cfg.renderer_dtype],
             shuffle_mode=cfg.shuffle_mode,
+            fold_feat_layer=cfg.renderer_fold_feat,
+            rgb_channel_first=cfg.renderer_rgb_cf,
         )
         # (both fields' kernel operands, their stack); see _dual_operands
         self._stacked = None
@@ -203,6 +198,25 @@ class GazeNeRF(nn.Module):
     def fused(self) -> bool:
         """Whether the fields run through the fused field kernel."""
         return self.cfg.use_pallas and self.cfg.compute_dtype == "bfloat16"
+
+    @property
+    def encodes_points(self) -> bool:
+        """Whether a single-branch fused field takes the sample points and
+        encodes them in its kernels (JAX ``_render_branch``:
+        ``pallas_fuse_embed``, not under ``pallas_split_dw``, with the raw
+        points in the embedding and ``3 + 6 vp_n_freqs`` columns; else
+        ``pallas_embed_bf16`` gives them the bf16 embedding)."""
+        cfg = self.cfg
+        return (self.fused and not cfg.include_vd and kernel_setting(cfg, "pallas_fuse_embed")
+                and cfg.include_input_vp and cfg.vp_embed_dims == 3 + 6 * cfg.vp_n_freqs)
+
+    def _embedding(self, pts: torch.Tensor, single_branch: bool) -> Optional[torch.Tensor]:
+        """The points' positional embedding, or None where the fields'
+        kernels encode the points themselves (it would be read by nothing)."""
+        if single_branch and self.encodes_points:
+            return None
+        cfg = self.cfg
+        return positional_encoding(pts, cfg.vp_n_freqs, cfg.include_input_vp)
 
     @property
     def dual(self) -> bool:
@@ -235,27 +249,31 @@ class GazeNeRF(nn.Module):
         under ``torch.utils.checkpoint``, which keeps none of its tensors
         for the backward but recomputes them there (the stash included, so
         the backward reads the recomputed one); the chunks' outputs are
-        joined along the rays.  The numbers do not change."""
-        R = embed.shape[1]
+        joined along the rays.  The numbers do not change.  ``embed`` is None
+        where the kernels encode the points (:attr:`encodes_points`)."""
+        R = samples.pts.shape[1]
         if embed_vd is not None or not chunked(self.cfg, R):
             return self._render_both_impl(embed, shape_ext_code, appea_code,
-                                          samples.zvals, samples.z_dists, embed_vd)
+                                          samples.zvals, samples.z_dists, embed_vd, samples.pts)
 
-        def chunk(e, zv, zd):
-            return tuple(t for o in self._render_both_impl(e, shape_ext_code, appea_code, zv, zd)
+        def chunk(e, pts, zv, zd):
+            return tuple(t for o in self._render_both_impl(e, shape_ext_code, appea_code, zv, zd,
+                                                           pts=pts)
                          for t in o)
 
         rc = self.cfg.ray_chunk
-        parts = [checkpoint(chunk, embed[:, r0:r0 + rc], samples.zvals[:, r0:r0 + rc],
+        parts = [checkpoint(chunk, None if embed is None else embed[:, r0:r0 + rc],
+                            samples.pts[:, r0:r0 + rc], samples.zvals[:, r0:r0 + rc],
                             samples.z_dists[:, r0:r0 + rc], use_reentrant=False)
                  for r0 in range(0, R, rc)]
         joined = [torch.cat(ts, dim=1) for ts in zip(*parts)]
         return Integrated(*joined[:4]), Integrated(*joined[4:])
 
     def _render_both_impl(self, embed, shape_ext_code, appea_code, zvals, z_dists,
-                          embed_vd=None) -> Tuple[Integrated, Integrated]:
-        """Both streams: one dual-branch kernel when it applies, else one
-        field at a time (JAX ``_render_both_impl``)."""
+                          embed_vd=None, pts=None) -> Tuple[Integrated, Integrated]:
+        """Both streams: one dual-branch kernel when it applies (on the
+        embedding, as JAX's), else one field at a time (JAX
+        ``_render_both_impl``)."""
         if self.dual and embed_vd is None:
             ps, ops = self._dual_operands()
             outs = fused_dual_render(ps, ops, embed, shape_ext_code, appea_code,
@@ -264,7 +282,8 @@ class GazeNeRF(nn.Module):
                           for o in outs)
             return face, eyes
         return tuple(
-            self._render_branch(f, embed, shape_ext_code, appea_code, zvals, z_dists, embed_vd)
+            self._render_branch(f, embed, shape_ext_code, appea_code, zvals, z_dists, embed_vd,
+                                pts=pts)
             for f in (self.fg_CD_predictor_face, self.fg_CD_predictor_eyes)
         )
 
@@ -278,16 +297,26 @@ class GazeNeRF(nn.Module):
         z_dists: torch.Tensor,
         embed_vd: Optional[torch.Tensor] = None,
         stash_acts: Optional[bool] = None,
+        pts: Optional[torch.Tensor] = None,
     ) -> Integrated:
         """Field evaluation + volume integration for one stream: the fused
         kernels unless view directions are given (``stash_acts`` defaults
-        to the config's, as :func:`kernel_setting` reads it)."""
+        to the config's, as :func:`kernel_setting` reads it); they take the
+        points ``pts`` where :attr:`encodes_points`, the bf16 embedding
+        under ``pallas_embed_bf16``, else the embedding."""
+        cfg = self.cfg
         if self.fused and embed_vd is None:
             if stash_acts is None:
-                stash_acts = kernel_setting(self.cfg, "pallas_stash_acts")
+                stash_acts = kernel_setting(cfg, "pallas_stash_acts")
+            x_in, n_freqs = embed, None
+            if self.encodes_points:
+                x_in, n_freqs = pts, cfg.vp_n_freqs
+            elif cfg.pallas_embed_bf16:
+                x_in = embed.to(torch.bfloat16)
             feat_int, bg_alpha, depth, w = field.fused_render(
-                embed, shape_ext_code, appea_code, zvals, z_dists,
-                stash_acts=stash_acts, dens_vpu=kernel_setting(self.cfg, "pallas_dens_vpu"),
+                x_in, shape_ext_code, appea_code, zvals, z_dists,
+                stash_acts=stash_acts, dens_vpu=kernel_setting(cfg, "pallas_dens_vpu"),
+                n_freqs=n_freqs,
             )
             return Integrated(features=feat_int, bg_alpha=bg_alpha, depth=depth, weights=w)
         feat, density = field(embed, shape_ext_code, appea_code, embed_vd)
@@ -336,7 +365,7 @@ class GazeNeRF(nn.Module):
             t_rand=t_rand if train else None,
         )
         # one positional embedding for both branches
-        embed = positional_encoding(samples.pts, cfg.vp_n_freqs, cfg.include_input_vp)
+        embed = self._embedding(samples.pts, single_branch=not self.dual)
         embed_vd = self._view_embedding(samples)
         shape_ext_code = torch.cat([shape_code, gaze_code.reshape(B, 2)], dim=-1)
 
@@ -450,10 +479,10 @@ class GazeNeRF(nn.Module):
         B = weights.shape[0]
         Fs = cfg.featmap_size
         fine = sample_fine(weights, samples, cfg.num_sample_fine, generator=generator)
-        embed = positional_encoding(fine.pts, cfg.vp_n_freqs, cfg.include_input_vp)
-        out = self._render_branch(self.fine_fg_CD_predictor, embed, shape_ext_code, appea_code,
-                                  fine.zvals, fine.z_dists, self._view_embedding(fine),
-                                  stash_acts=False)
+        out = self._render_branch(self.fine_fg_CD_predictor,
+                                  self._embedding(fine.pts, single_branch=True), shape_ext_code,
+                                  appea_code, fine.zvals, fine.z_dists,
+                                  self._view_embedding(fine), stash_acts=False, pts=fine.pts)
         fine_merge = (out.features.reshape(B, Fs, Fs, cfg.featmap_nc)
                       + out.bg_alpha.reshape(B, Fs, Fs, 1) * bg_featmap)
         return {"merge_img": self.neural_render(fine_merge), "bg_img": bg_img}

@@ -121,17 +121,19 @@ class NeRFFieldMLP(nn.Module):
         return p, ops
 
     def fused_render(self, embed_vp, shape_cond, appea_cond, zvals, zdists,
-                     stash_acts: bool = False, dens_vpu: bool = False):
+                     stash_acts: bool = False, dens_vpu: bool = False, n_freqs=None):
         """Field + integration through the fused field kernels (bf16); with
         ``stash_acts`` the backward reads the forward's activation stash,
-        with ``dens_vpu`` it takes the ``dens_vpu`` density head
+        with ``dens_vpu`` it takes the ``dens_vpu`` density head; with
+        ``n_freqs`` (``embed_in_kernel``) ``embed_vp`` is the sample points,
+        which the kernels encode at ``n_freqs`` octaves
         (``fused_field_render``).
 
         Returns ``(feat_int [B,R,C], bg_alpha [B,R], depth [B,R], w [B,R,S])``.
         """
         p, ops = self.kernel_blocks()
         return fused_field_render(p, ops, embed_vp, shape_cond, appea_cond, zvals, zdists,
-                                  stash_acts=stash_acts, dens_vpu=dens_vpu)
+                                  stash_acts=stash_acts, dens_vpu=dens_vpu, n_freqs=n_freqs)
 
     def forward(
         self,

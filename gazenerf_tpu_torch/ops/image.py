@@ -2,16 +2,24 @@
 
 * :func:`pixel_shuffle2_blur_gm` — ``blur3x3(pixel_shuffle2(x))`` on a
   group-major NHWC input, computed as shifted FMAs of the four phase
-  images (the renderer's ``phase_gm`` mode);
+  images (the renderer's ``phase_gm`` mode); :func:`pixel_shuffle2_blur`
+  the same on upstream's channel order (``phase`` mode);
+* :func:`pixel_shuffle2` and :func:`blur3x3` — the two steps on their own
+  (the ``naive`` mode);
 * :func:`upsample2x_blur_cf` — the rgb skip chain's x2 bilinear upsample
   plus binomial blur on channel-first ``[B, C, H, W]`` tensors;
+  :func:`upsample2x_blur` the same on NHWC tensors (``renderer_rgb_cf``
+  off);
 * :func:`resize_bilinear` — NHWC bilinear resize (the perceptual loss's
   224x224 input).
 
 The blur is the 3x3 binomial ``[1,2,1] x [1,2,1] / 16`` with a reflect
-boundary (kornia ``filter2d`` semantics, as upstream).  The two stencils sum
-their nine taps in at least f32 and return that type, as the JAX package's
-do (its taps are numpy scalars, which promote a bf16 input to f32).
+boundary (kornia ``filter2d`` semantics, as upstream).  The phase stencils
+and ``blur3x3_cf`` sum their nine taps in at least f32 and return that type,
+as the JAX package's do (its taps are numpy scalars, which promote a bf16
+input to f32); :func:`blur3x3` and :func:`upsample2x_blur` return the
+input's type, rounded once after an f32 sum (the JAX package's depthwise
+convolution and resize run in the input's type).
 """
 
 from __future__ import annotations
@@ -34,6 +42,42 @@ def pixel_shuffle2_blur_gm(x: torch.Tensor) -> torch.Tensor:
     C = C4 // 4
     g = [x[..., k * C : (k + 1) * C] for k in range(4)]
     return _phase_shuffle_blur(g, B, H, W, C)
+
+
+def pixel_shuffle2_blur(x: torch.Tensor) -> torch.Tensor:
+    """``[B, H, W, 4C]`` in upstream's shuffle order (channel ``4c + k`` is
+    phase ``k`` of channel ``c``) -> ``[B, 2H, 2W, C]`` blurred pixel
+    shuffle, summed and returned in f32 (f64 for f64)."""
+    B, H, W, C4 = x.shape
+    if C4 % 4:
+        raise ValueError(f"channels {C4} not a multiple of 4")
+    g = [x[..., k::4] for k in range(4)]
+    return _phase_shuffle_blur(g, B, H, W, C4 // 4)
+
+
+def pixel_shuffle2(x: torch.Tensor) -> torch.Tensor:
+    """Pixel shuffle by 2 in torch's channel order, NHWC: ``[B, H, W, 4C]``
+    -> ``[B, 2H, 2W, C]`` with ``out[2h+i, 2w+j, c] = x[h, w, 4c + 2i + j]``."""
+    B, H, W, C4 = x.shape
+    if C4 % 4:
+        raise ValueError(f"channels {C4} not a multiple of 4")
+    x = x.reshape(B, H, W, C4 // 4, 2, 2).permute(0, 1, 4, 2, 5, 3)
+    return x.reshape(B, 2 * H, 2 * W, C4 // 4)
+
+
+def blur3x3(x: torch.Tensor) -> torch.Tensor:
+    """Binomial blur of NHWC ``x`` with a reflect boundary: the nine taps
+    summed in f32 (f64 for f64) and rounded once to x's type."""
+    return blur3x3_cf(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1).to(x.dtype)
+
+
+def upsample2x_blur(x: torch.Tensor) -> torch.Tensor:
+    """x2 bilinear upsample then blur, NHWC, in x's type: each axis's exact
+    x2 resize (half-pixel centres, edge clamp) summed in f32 and rounded to
+    x's type, rows then columns, then :func:`blur3x3`."""
+    acc = sum_dtype(x.dtype)
+    up = _up2_axis_cf(x.to(acc), 1).to(x.dtype)
+    return blur3x3(_up2_axis_cf(up.to(acc), 2).to(x.dtype))
 
 
 def _edge_pad_hw(t: torch.Tensor) -> torch.Tensor:

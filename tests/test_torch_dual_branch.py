@@ -160,14 +160,34 @@ def test_stash_without_dual_branch_raises():
 ])
 def test_probe_flags_raise_with_the_dual_branch(option):
     """The dual path accepts the stash (and ``pallas_dens_vpu`` and
-    ``pallas_split_dw``, which it clears) and the ray chunks, not the
-    kernels' other probe flags: each raises, naming itself and its ROADMAP
-    item (``split_dw`` sets the stash flags but not ``pallas_embed_bf16``,
-    as in JAX)."""
+    ``pallas_split_dw``, which it clears) and the ray chunks.  The stash
+    settings of ROADMAP Queue 2b mode 1 raise, naming themselves and the
+    item; ``pallas_fuse_embed`` and ``pallas_embed_bf16`` (with or without
+    ``split_dw``) are ignored there, as JAX's ``_render_both_impl`` passes
+    the embedding: the model takes the dual path and renders the same bits
+    as without the flag."""
     cfg = ModelConfig(compute_dtype="bfloat16", use_pallas=True, pallas_dual_branch=True,
                       pallas_stash_acts=True, **option)
-    with pytest.raises(NotImplementedError, match=f"{next(iter(option))}.*ROADMAP"):
-        GazeNeRF(cfg, device="cpu")
+    if not {"pallas_fuse_embed", "pallas_embed_bf16"} & set(option):
+        with pytest.raises(NotImplementedError, match=f"{next(iter(option))}.*ROADMAP"):
+            GazeNeRF(cfg, device="cpu")
+        return
+    small = dict(featmap_size=8, pred_img_size=32, num_sample_coarse=8, mlp_hidden=64)
+    flagged = GazeNeRF(dataclasses.replace(cfg, **small), device="cpu")
+    base = dataclasses.replace(cfg, pallas_fuse_embed=False, pallas_embed_bf16=False,
+                               pallas_split_dw=False, **small)
+    plain = GazeNeRF(base, device="cpu")
+    assert flagged.dual
+    B, Fs = 1, base.featmap_size
+    R = torch.diag(torch.tensor([1.0, -1.0, -1.0]))[None]
+    K = torch.tensor([[[Fs * 2.0, 0, Fs / 2], [0, Fs * 2.0, Fs / 2], [0, 0, 1]]]).inverse()
+    args = (torch.stack(torch.meshgrid(torch.arange(Fs) + 0.5, torch.arange(Fs) + 0.5,
+                                       indexing="xy"), -1).reshape(1, -1, 2),
+            0.1 * torch.ones(B, base.shape_code_dims), 0.1 * torch.ones(B, base.appea_code_dims),
+            torch.zeros(B, 2), R, torch.tensor([[[0.0], [0.0], [12.0]]]), K)
+    with torch.no_grad():
+        got, want = (m(*args)["coarse_dict"]["merge_img"] for m in (flagged, plain))
+    assert torch.equal(got, want)
 
 
 def test_dual_branch_is_ignored_without_the_fused_path(jax_setup, monkeypatch):

@@ -255,3 +255,24 @@ def test_tile_x_pads_with_zeros():
     assert not t[6:].any() and not t[:, 5:].any()
     x32 = torch.randn(2, 2, 2, 32).to(torch.bfloat16)
     assert fu._tile_x(x32, 8).data_ptr() == x32.data_ptr()
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_f32_autograd_op_matches_pallas_kernel(jax_results, shape):
+    """The f32 block (``use_bf16=False``, the f32 renderer's ``fused`` mode)
+    through ``FusedUpsample`` on CPU tensors against JAX's
+    ``fused_upsample_block`` with ``use_bf16=False`` in interpret mode and
+    its VJP: the output at JAX's bound, 1e-4, every cotangent at 1e-3, all
+    in f32; no kernel launch."""
+    want_y, want_g = jax_results[shape, False]
+    args, g = _torch_args(shape, False)
+    args = [a.requires_grad_(True) for a in args]
+    before = (fu.launch_count_fwd_f32, fu.launch_count_bwd_f32)
+    y = fu.FusedUpsample.apply(*args, False)
+    got = torch.autograd.grad(y, args, g)
+    assert (fu.launch_count_fwd_f32, fu.launch_count_bwd_f32) == before
+    assert y.dtype == torch.float32
+    np.testing.assert_allclose(y.detach().numpy(), want_y, atol=1e-4, rtol=0)
+    for name, a, b in zip(NAMES, got, want_g):
+        assert a.dtype == torch.float32, name
+        np.testing.assert_allclose(a.numpy(), b, atol=1e-3, rtol=0, err_msg=name)

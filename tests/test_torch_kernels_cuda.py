@@ -266,6 +266,117 @@ def test_backward_fit_case_matches_plain_version(card, mode):
     assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
+@pytest.mark.parametrize("case", list(checks.POINTS_CASES))
+def test_points_forward_matches_plain_version(card, case):
+    """K1 given the sample points (``embed_in_kernel``) against its plain
+    version given them within ``POINTS_K1_LIMITS``, one launch, the same
+    bits over two launches, and to the bit K1 given the plain encoding of
+    the points computed on the card and rounded to bf16; the entries where
+    that encoding and the same encoding on the CPU round to other bf16
+    values are counted and printed."""
+    args, _ = checks.points_case(*checks.POINTS_CASES[case], card)
+    nf = checks.N_FREQS
+    with torch.no_grad():
+        before = ff.launch_count
+        got = ff.fused_field_forward(*args, n_freqs=nf)
+        torch.cuda.synchronize()
+        assert ff.launch_count == before + 1
+        again = ff.fused_field_forward(*args, n_freqs=nf)
+        want = ff.fused_field_reference(*args, n_freqs=nf)
+        plain = ff.encoded(args[0], nf).to(torch.bfloat16)
+        via_plain = ff.fused_field_forward(plain, *args[1:])
+    readings, fails = checks.points_k1_failures(case, got, want)
+    flips = checks.encoding_flips(plain.cpu(),
+                                  ff.encoded(args[0].cpu(), nf).to(torch.bfloat16))
+    print(json.dumps({"k1_points": case, "readings": readings,
+                      "encoding_flips_card_vs_cpu": flips, "entries": plain.numel()}))
+    assert not fails, fails
+    for n, a, b, c in zip(NAMES, got, again, via_plain):
+        assert torch.equal(a, b), f"{n}: two launches differ"
+        assert torch.equal(a, c), f"{n}: differs from K1 given the plain encoding"
+
+
+@pytest.mark.parametrize("case", list(checks.POINTS_CASES))
+def test_points_backward_matches_plain_version(card, case):
+    """K2 given the points against its plain version given them (the
+    weight gradients summed in the kernel's chunks) within
+    ``POINTS_K2_LIMITS``, one launch, the same bits over two launches; every
+    output but the points' cotangent to the bit of K2 given the plain
+    encoding computed on the card as a bf16 embedding; in the stash cases K2 reading K1's stash of the
+    points with ``dens_vpu`` against its plain version reading it."""
+    args, cot = checks.points_case(*checks.POINTS_CASES[case], card)
+    nf, chunks = checks.N_FREQS, checks.deep_chunks(args)
+    with torch.no_grad():
+        before = ffb.launch_count
+        got = ffb.fused_field_backward(*args, *cot, n_freqs=nf)
+        torch.cuda.synchronize()
+        assert ffb.launch_count == before + 1
+        assert got.dembed.shape == args[0].shape and got.dembed.dtype == torch.float32
+        again = ffb.fused_field_backward(*args, *cot, n_freqs=nf)
+        want = ffb.fused_field_backward_reference(*args, *cot, n_freqs=nf, chunks=chunks)
+        plain = ffb.fused_field_backward(ff.encoded(args[0], nf).to(torch.bfloat16),
+                                         *args[1:], *cot)
+    readings, fails = checks.points_k2_failures(case, got, want)
+    out = {"k2_points": case, "readings": readings}
+    if case in checks.POINTS_STASH_CASES:
+        with torch.no_grad():
+            _, acts = ff.fused_field_forward(*args, stash=True, n_freqs=nf)
+            sg = ffb.fused_field_backward(*args, *cot, stash=acts, dens_vpu=True, n_freqs=nf)
+            sw = ffb.fused_field_backward_reference(*args, *cot, stash=acts, dens_vpu=True,
+                                                    n_freqs=nf, chunks=chunks)
+        out["stash_readings"], f = checks.points_k2_failures(f"{case}_stash", sg, sw)
+        fails += f
+    print(json.dumps(out))
+    assert not fails, fails
+    for n, a, b, c in zip(got._fields, got, again, plain):
+        assert torch.equal(a, b), f"{n}: two launches differ"
+        assert n == "dembed" or torch.equal(a, c), f"{n}: differs from K2 on the plain encoding"
+
+
+@pytest.mark.parametrize("case", ["narrow", "training"])
+def test_points_backward_as_close_to_unrounded_as_plain(card, case):
+    """K2 given the points against the unrounded float64 gradient (the
+    points' cotangent included): K2's rule (``K2_TRUTH_RATIO``)."""
+    args, cot = checks.points_case(*checks.POINTS_CASES[case], card)
+    nf = checks.N_FREQS
+    with torch.no_grad():
+        got = ffb.fused_field_backward(*args, *cot, n_freqs=nf)
+        want = ffb.fused_field_backward_reference(*args, *cot, n_freqs=nf)
+        want64 = ffb.fused_field_backward_reference(*args, *cot, n_freqs=nf, dtype=torch.float64)
+    exact = ffb.fused_field_backward_unrounded(*args, *cot, n_freqs=nf)
+    dist, fails = checks.truth_failures(got, want, want64, exact, checks.K2_TRUTH_RATIO,
+                                        checks.K2_TRUTH_EXEMPT)
+    print(json.dumps({"k2_points_truth": case, "float64": dist}))
+    assert not fails, fails
+
+
+@pytest.mark.parametrize("case", ["narrow", "training"])
+def test_backward_bf16_dembed_is_one_rounding(card, case):
+    """The field's autograd op given a bf16 embedding (``pallas_embed_bf16``)
+    returns its cotangent in bf16: the rounding of the f32 cotangent that
+    K2 gives the f32 embedding, to the bit, and the same weight gradients."""
+    args, cot = checks.field_case(*checks.K2_CASES[case], card)
+    embed, rest, w = args[0], args[1:6], args[6]
+    H, Kp = w.w0e.shape
+    H2, C = w.wr2.shape
+    B, De = embed.shape[0], embed.shape[-1]
+    shapes = ffb.grad_shapes(B, Kp, H, C)
+    shapes["dW0e"] = shapes["dW5e"] = (De, H)
+    grads = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        e = embed.to(dtype).requires_grad_(True)
+        weights = [torch.zeros(shapes[f"d{k}"], device=card, requires_grad=True)
+                   for k in ff.WEIGHT_KEYS]
+        out = ff.FusedField.apply(w, False, False, None, e, *rest, *weights)
+        torch.autograd.backward(out, cot)
+        grads[dtype] = (e.grad, [t.grad for t in weights])
+    (d32, w32), (dbf, wbf) = grads[torch.float32], grads[torch.bfloat16]
+    assert dbf.dtype == torch.bfloat16
+    assert torch.equal(dbf, d32.to(torch.bfloat16))
+    for k, a, b in zip(ff.WEIGHT_KEYS, w32, wbf):
+        assert torch.equal(a, b), k
+
+
 def test_cuda_tensors_never_take_the_plain_version(card):
     """A CUDA input the kernel cannot take raises; it is not computed by
     the plain version instead."""
@@ -444,15 +555,78 @@ def test_fused_upsampler_backward_as_close_to_unrounded_as_plain(card, case, see
 
 
 def test_renderer_cuda_tensors_never_take_the_plain_version(card):
-    """CUDA inputs the renderer's kernels cannot take raise: a wrong dtype,
-    and the f32 block (``use_bf16=False``), which has no kernel yet."""
+    """CUDA inputs the renderer's kernels cannot take raise (a wrong dtype);
+    the f32 block (``use_bf16=False``) launches its own kernels."""
     with pytest.raises(ValueError, match="dtype"):
         sb.shuffle_blur_forward(torch.zeros(1, 4, 4, 8, dtype=torch.float64, device=card))
-    args, dy = checks.block_case(checks.BLOCK_CASES["half_tile"], card)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        fu.fused_upsample_forward(*args, use_bf16=False)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        fu.fused_upsample_backward(*args, dy, use_bf16=False)
+    args, dy = checks.f32_block_case(checks.BLOCK_CASES["half_tile"], card)
+    before = (fu.launch_count_fwd_f32, fu.launch_count_bwd_f32)
+    fu.fused_upsample_forward(*args, use_bf16=False)
+    fu.fused_upsample_backward(*args, dy, use_bf16=False)
+    torch.cuda.synchronize()
+    assert (fu.launch_count_fwd_f32, fu.launch_count_bwd_f32) == (before[0] + 1, before[1] + 1)
+    with pytest.raises(ValueError, match="dtype"):
+        fu.fused_upsample_forward(args[0].double(), *args[1:], use_bf16=False)
+
+
+@pytest.mark.parametrize("case", checks.F32_BLOCK_CASES)
+def test_f32_upsampler_matches_plain_version(card, case):
+    """K7 and K8 at f32 (``use_bf16=False``, the f32 renderer) against their
+    f32 plain versions within ``F32_K7_LIMITS`` / ``F32_K8_LIMITS``, one
+    launch each, K8 the same bits over two launches; and each output's
+    distance from the unrounded float64 result at most ``F32_TRUTH_RATIO``
+    times the plain version's, or under ``F32_TRUTH_FLOOR``."""
+    args, dy = checks.f32_block_case(checks.BLOCK_CASES[case], card)
+    before = (fu.launch_count_fwd_f32, fu.launch_count_bwd_f32)
+    got = fu.fused_upsample_forward(*args, use_bf16=False)
+    g = fu.fused_upsample_backward(*args, dy, use_bf16=False)
+    torch.cuda.synchronize()
+    assert (fu.launch_count_fwd_f32, fu.launch_count_bwd_f32) == (before[0] + 1, before[1] + 1)
+    again = fu.fused_upsample_backward(*args, dy, use_bf16=False)
+    want = fu.fused_upsample_reference(*args, use_bf16=False)
+    gw = fu.fused_upsample_backward_reference(*args, dy, use_bf16=False)
+    assert got.dtype == want.dtype == torch.float32 and got.shape == want.shape
+    r7, fails = checks.f32_k7_failures(case, got, want)
+    r8, f8 = checks.f32_k8_failures(case, g, gw)
+    exact = fu.fused_upsample_reference(*(a.double() for a in args), use_bf16=False)
+    t7, ft7 = checks.f32_truth_failures(checks.Image(got), checks.Image(want), checks.Image(exact))
+    t8, ft8 = checks.f32_truth_failures(g, gw, fu.fused_upsample_backward_unrounded(*args, dy))
+    print(json.dumps({"f32_block": case, "k7": r7, "k8": r8, "k7_truth": t7, "k8_truth": t8}))
+    assert not fails + f8 + ft7 + ft8, fails + f8 + ft7 + ft8
+    for n, a, c in zip(fu.UpsampleGrads._fields, g, again):
+        assert torch.equal(a, c), f"{n}: two launches differ"
+
+
+@pytest.mark.parametrize("mode", ["phase", "naive", "unfolded", "unfolded_pallas", "rgb_nhwc",
+                                  "fused_f32"])
+def test_renderer_modes_on_card(card, mode):
+    """The small model's render in each renderer mode without a bf16 kernel
+    of its own, in its dtype (the f32 renderer for ``fused_f32``), against
+    ``phase_gm`` in the same dtype on the same weights: the eager modes
+    within 5e-3 (``chip_smoke.MODE_IMAGE_ATOL``), launching K5 per block
+    and pass only ``unfolded_pallas``, K7 at f32 only ``fused_f32``."""
+    flags = {"phase": dict(shuffle_mode="phase"), "naive": dict(shuffle_mode="naive"),
+             "unfolded": dict(renderer_fold_feat=False),
+             "unfolded_pallas": dict(shuffle_mode="pallas", renderer_fold_feat=False),
+             "rgb_nhwc": dict(renderer_rgb_cf=False), "fused_f32": dict(shuffle_mode="fused")}
+    rdt = "float32" if mode == "fused_f32" else "bfloat16"
+    base = dataclasses.replace(small_test_config(), compute_dtype="bfloat16",
+                               renderer_dtype=rdt, use_pallas=True)
+    R, T, K = (torch.from_numpy(a).to(card) for a in lookat_camera(10, -5, 12.0, base.featmap_size))
+    args = (pixel_grid(base.featmap_size, device=card)[None],
+            0.1 * torch.ones(1, base.shape_code_dims, device=card),
+            0.1 * torch.ones(1, base.appea_code_dims, device=card),
+            torch.tensor([[0.2, -0.3]], device=card), R, T, K)
+    with torch.no_grad():
+        ref = GazeNeRF(base).eval()(*args)["coarse_dict"]["merge_img"].float()
+        before = (sb.launch_count_fwd, fu.launch_count_fwd_f32)
+        img = GazeNeRF(dataclasses.replace(base, **flags[mode])).eval()(*args)
+        img = img["coarse_dict"]["merge_img"].float()
+    n = 4 * base.n_upsample_blocks
+    want = {"unfolded_pallas": (n, 0), "fused_f32": (0, n)}.get(mode, (0, 0))
+    assert (sb.launch_count_fwd - before[0], fu.launch_count_fwd_f32 - before[1]) == want
+    assert torch.isfinite(img).all()
+    torch.testing.assert_close(img, ref, atol=5e-3, rtol=0)
 
 
 @pytest.mark.parametrize("mode", ["pallas", "fused"])

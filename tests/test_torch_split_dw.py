@@ -193,15 +193,19 @@ def test_split_dw_step_takes_the_stash_and_the_mode(split_step):
 def test_split_dw_sets_what_jax_sets(option):
     """As JAX's ``_fused_dims``: ``split_dw`` runs the bf16 stash of every
     layer with the embedding outside the kernel, whatever these flags say
-    (without it each still raises, naming its ROADMAP item); it is no
-    longer among the refused settings."""
+    (without it the stash settings still raise, naming their ROADMAP item,
+    and ``pallas_fuse_embed`` gives the kernels the points); it is no longer
+    among the refused settings."""
     assert "pallas_split_dw" not in {name for name, _, _ in gaze_nerf._PORTED}
     cfg = ModelConfig(compute_dtype="bfloat16", use_pallas=True, **option)
-    with pytest.raises(NotImplementedError, match=f"{next(iter(option))}.*ROADMAP"):
-        GazeNeRF(cfg, device="cpu")
+    if "pallas_fuse_embed" in option:
+        assert GazeNeRF(cfg, device="cpu").encodes_points
+    else:
+        with pytest.raises(NotImplementedError, match=f"{next(iter(option))}.*ROADMAP"):
+            GazeNeRF(cfg, device="cpu")
     model = GazeNeRF(dataclasses.replace(cfg, pallas_split_dw=True), device="cpu")
-    assert model.fused and not model.dual
-    for name, value, _ in gaze_nerf._PORTED:
+    assert model.fused and not model.dual and not model.encodes_points
+    for name, value in (*((n, v) for n, v, _ in gaze_nerf._PORTED), ("pallas_fuse_embed", False)):
         assert gaze_nerf.kernel_setting(model.cfg, name) == value, name
 
 

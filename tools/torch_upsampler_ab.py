@@ -13,8 +13,10 @@ CUDA events) at each of the renderer's three upsample blocks at B=2
 device ms per CUDA kernel of one call of each (``torch.profiler``), and
 with ``--steps``, for the trees without a variant, the device time, device
 ms per kernel and peak memory of one full-width training step in each
-variant (``phase_gm``, ``pallas``, ``fused``, ``dual``).  Imports nothing of
-JAX.
+variant (``phase_gm``, ``pallas``, ``fused``, ``dual``); ``digest``: a hash of
+each output of K7 and K8 (bf16) in every case of ``kernels/checks.py``
+``BLOCK_CASES``.  The last line, ``digests_equal``, says per output whether
+every tree gave the same bits.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ import os
 import subprocess
 import sys
 
-from torch_field_ab import parse_args, run_turns, step_profiles, summarise
+from torch_field_ab import digest, parse_args, run_turns, step_profiles, summarise
 
 BWD = "gazenerf_tpu_torch/csrc/fused_upsampler_bwd.cu"
 FWD = "gazenerf_tpu_torch/csrc/fused_upsampler_fwd.cu"
@@ -125,6 +127,14 @@ def child(args) -> dict:
         for k in ("K7", "K8"):
             out["ms"][f"{k} pass"] = sum(out["ms"][f"{k} {b}"] for b in BLOCKS)
         out["ms"]["K7 pass B=1"] = sum(out["ms"][f"K7 {b} B=1"] for b in BLOCKS)
+        out["digest"] = {}
+        for case in checks.BLOCK_CASES:
+            a, dy = checks.block_case(checks.BLOCK_CASES[case], dev)
+            out["digest"][f"K7 {case} out"] = digest(fu.fused_upsample_forward(*a))
+            g = fu.fused_upsample_backward(*a, dy)
+            for n, t in zip(g._fields, g):
+                out["digest"][f"K8 {case} {n}"] = digest(t)
+            del a, dy, g
     if args.steps:
         out["step"] = step_profiles(cs, {"phase_gm": {}, "pallas": {"shuffle_mode": "pallas"},
                                          "fused": {"shuffle_mode": "fused"},
@@ -137,7 +147,13 @@ def main() -> int:
     if args.child:
         print(json.dumps(child(args)))
         return 0
-    summarise(run_turns(__file__, args, VARIANTS))
+    results = run_turns(__file__, args, VARIANTS)
+    summarise(results)
+    same = {}
+    for r in results:
+        for k, v in r.get("digest", {}).items():
+            same.setdefault(k, set()).add(v)
+    print(json.dumps({"digests_equal": {k: len(v) == 1 for k, v in same.items()}}))
     return 0
 
 
