@@ -99,11 +99,18 @@ Phases (each raises on failure, so any failed phase exits non-zero):
    mode's gradients read twice; the embedding settings against the f32
    embedding), with
    what the fields' autograd op and each K1 and K2 call take for the
-   embedding read (``EMBED_MODES``);
-   then the deep march's variants, ``deep``, ``deep_stash`` and
-   ``deep_fuse_embed`` (S = 256 in
-   checkpointed 512-ray chunks, the CLI's ``--pallas_tuning auto``
-   overrides for that shape, no VGG loss; the second reading the stash), as
+   embedding read (``EMBED_MODES``); the stash's forms' variants
+   ``stash_every2`` and ``stash_int8`` (the ``stash`` variant's flags with
+   ``pallas_stash_every=2`` or ``pallas_stash_dtype="int8"``, a step's
+   device time in place of the breakdown, the form of each K2 call read)
+   against the bf16 stash of every layer's step (``INT8_GRAD_REL_L2``),
+   and ``fuse_embed_every2`` and ``fuse_embed_int8`` (``fuse_embed`` with
+   the same forms, also against the f32 embedding);
+   then the deep march's variants, ``deep``, ``deep_stash``,
+   ``deep_fuse_embed``, ``deep_stash_every2`` and ``deep_stash_int8`` (S =
+   256 in checkpointed 512-ray chunks, the CLI's ``--pallas_tuning auto``
+   overrides for that shape, no VGG loss; the second reading the stash, the
+   last two its forms, as the variants at S = 64), as
    the variants above: 2 + ``--steps`` steps with launch counts (per step
    32 K1 and 16 K2), one step's gradients against the plain versions, where
    a step's time goes and both memory peaks (the ``deep_training`` line);
@@ -131,7 +138,8 @@ Phases (each raises on failure, so any failed phase exits non-zero):
 
 Prints ``k2_profile``, ``dw``, ``k8_profile``, ``f32_block_profile``,
 ``k4_profile``, ``k2_stash_profile``, ``deep_case``, ``deep_dual_case``,
-``k2_deep_profile``, ``points_case``, ``k2_points_profile``, ``serving``,
+``k2_deep_profile``, ``stash_form_case``, ``stash_form_points_case``,
+``stash_forms``, ``points_case``, ``k2_points_profile``, ``serving``,
 ``training``, ``deep_training``, ``hier``, ``hier_fuse_embed``, ``cli``,
 ``k2_fit_case``, ``eval`` and ``kernels`` JSON lines, the run's wall time,
 the ``nvidia-smi`` line and, last, the device JSON line.  Exits non-zero without
@@ -176,9 +184,22 @@ SPLIT_DW = "split_dw"
 FULL_LOSS_FLAGS = dict(use_vgg_loss=True, use_angular_loss=True, use_patch_gan_loss=True,
                        is_gradual_loss=True, gan_warmup_steps=10)
 SPLIT_DW_FLAGS = {"pallas_split_dw": True, "pallas_dens_vpu": True}
+# the stash's other forms on the training path: the stash variant's flags
+# with the stash of every second trunk layer or the int8 stash, and the
+# deep march's deep_stash with the same
+STASH_EVERY2 = "stash_every2"
+STASH_INT8 = "stash_int8"
+FORM_FLAGS = {STASH_EVERY2: {"pallas_stash_every": 2}, STASH_INT8: {"pallas_stash_dtype": "int8"}}
+DEEP_FORM_FLAGS = {f"deep_{name}": flags for name, flags in FORM_FLAGS.items()}
+# and the fuse_embed variant's (below) with the same forms: the points
+# encoded in the tiles of the forms' kernels
+POINTS_FORM_FLAGS = {name.replace("stash", "fuse_embed"): flags
+                     for name, flags in FORM_FLAGS.items()}
 # the modes (stash read, dens_vpu) of the K2 calls a variant's step makes:
 # split_dw reads the stash without dens_vpu, whatever pallas_dens_vpu says
-K2_MODES = {STASH: [(True, True)], SPLIT_DW: [(True, False)]}
+K2_MODES = {STASH: [(True, True)], SPLIT_DW: [(True, False)],
+            **dict.fromkeys((*FORM_FLAGS, *DEEP_FORM_FLAGS, *POINTS_FORM_FLAGS),
+                            [(True, True)])}
 # the f32 renderer's fused mode: K7 and K8 at f32 (use_bf16=False), the
 # library's default renderer dtype
 FUSED_F32 = "fused_f32"
@@ -197,7 +218,8 @@ DEEP_FUSE_EMBED = "deep_fuse_embed"
 # points, or the embedding in its dtype, which its cotangent comes back in)
 # and what every K1 and K2 call takes (the points or the bf16 embedding)
 EMBED_MODES = {FUSE_EMBED: ("points", "points"), EMBED_BF16: ("bfloat16", "bfloat16"),
-               DEEP_FUSE_EMBED: ("points", "points"), STASH: ("float32", "bfloat16")}
+               DEEP_FUSE_EMBED: ("points", "points"), STASH: ("float32", "bfloat16"),
+               **dict.fromkeys(POINTS_FORM_FLAGS, ("points", "points"))}
 # the renderer's eager modes (bf16), each held against phase_gm: upstream's
 # channel order with the phase stencil or the blur after the shuffle, the
 # feat_layer unfolded (in PyTorch ops, or with K5/K6 at the blocks' own
@@ -279,11 +301,14 @@ STASH_GRAD_REL_L2 = DUAL_GRAD_REL_L2
 # net group 2.4e-3 and 1.1e-2 in two trainers made alike in one process):
 # the atomic sums of the step's index_add_, bilinear and reflect-pad
 # backwards differ in the last place from run to run, and Adam carries that
-# into the camera-offset tables (1.2e-2 apart after three steps)
+# into the camera-offset tables (1.2e-2 apart after three steps).  The
+# stash's forms given the points as fuse_embed: K1 given the points writes
+# the stash of K1 given the card's encoding, to the bit (int8 codes
+# included: phase_stash_forms), so only the points' cotangent parts them
 _CODES = ("iden", "expr", "appea")
 EMBED_GRAD_REL_L2 = {name: {"net": 2e-4, **dict.fromkeys(_CODES, 2e-4), "euler": 4e-3,
                             "tvec": 4e-3}
-                     for name in (FUSE_EMBED, EMBED_BF16, DEEP_FUSE_EMBED)}
+                     for name in (FUSE_EMBED, EMBED_BF16, DEEP_FUSE_EMBED, *POINTS_FORM_FLAGS)}
 _GROUPS = ("net", *_CODES, "euler", "tvec")
 # readings at the seeded state on an NVIDIA H100 80GB HBM3 (700 W), in the
 # order of _GROUPS
@@ -294,6 +319,20 @@ _EAGER_READINGS = {
 }
 _EAGER_READINGS["naive"] = _EAGER_READINGS["phase"]
 _EAGER_READINGS["unfolded_pallas"] = _EAGER_READINGS["unfolded"]
+# the int8 stash's step gradients against the bf16 stash's on the same
+# state: the JAX package's bound for its int8 stash against its bf16 path
+# (tests/test_fused_field.py: 0.03 relative L2 over all of a field's
+# gradients, the weights' and the inputs' together), over all the step's
+# gradients together and per group of the field's weights and codes.  The
+# camera offsets' gradient is the embedding cotangent's sum against the
+# rays' Jacobians, a small sum of large per-pixel terms, which the int8
+# stash's flipped ReLU masks move by far more than the field's gradients:
+# readings 9.4e-2 and 2.1e-1 at S = 64, 2.6e-2 and 1.1e-1 at S = 256 on an
+# NVIDIA H100 80GB HBM3 (700 W); held at twice the larger.  The port's int8
+# step lies as close to JAX's int8 step on the CPU as the bf16 steps do
+# (tests/test_torch_stash_forms.py), so JAX's int8 stash moves them alike.
+INT8_GRAD_REL_L2_ALL = 0.03
+INT8_GRAD_REL_L2 = {**dict.fromkeys(_GROUPS, 0.03), "euler": 0.19, "tvec": 0.43}
 RENDER_GRAD_REL_L2 = {FUSED_F32: {"net": 1e-4, **dict.fromkeys(_CODES, 1e-4), "euler": 1e-3,
                                   "tvec": 1e-3}}
 RENDER_GRAD_REL_L2.update({name: {g: 2 * r for g, r in zip(_GROUPS, _EAGER_READINGS[name])}
@@ -581,6 +620,31 @@ def k2_stash_bound(args, cot, acts, grads):
     H, H2, C = ops.w0e.shape[0], ops.wr2.shape[0], ops.wr2.shape[1]
     P = B * R * S
     ops_count = 2 * (2 * P * field_macs(De, H) + P * (H + H2) + 2 * B * R * H2 * C)
+    return bound([ops_count / PEAK_BF16_FLOPS], nbytes(*args[:3], *ops, *cot, *acts, *grads)
+                 / PEAK_BYTES_PER_S)
+
+
+def k2_form_bound(args, cot, acts, grads, form):
+    """K2 reading the stash in ``form``: K2 reading the bf16 stash of every
+    layer's operations (``k2_stash_bound``) and, for a partial stash, the
+    forward's products of the trunk layers it does not keep and of rgb_0
+    and rgb_1 (recomputed from x7), vs the inputs, cotangents and stash (int8
+    codes and scales as they are) read once and the gradients written once.
+    The int8 stash's dequantization (one f32 product a value) is not
+    counted."""
+    from gazenerf_tpu_torch.kernels import fused_field as ff
+
+    embed, ops = args[0], args[6]
+    B, R, S, De = embed.shape
+    H, H2, C = ops.w0e.shape[0], ops.wr2.shape[0], ops.wr2.shape[1]
+    P = B * R * S
+    macs = 2 * P * field_macs(De, H) + P * (H + H2)
+    if form.every > 1:
+        kept = {t for t, _ in ff.stash_layout(H, form)}
+        layer_macs = [De * H] + [H * H] * 4 + [(De + H) * H] + [H * H] * 2
+        macs += P * (sum(m for i, m in enumerate(layer_macs) if f"x{i}" not in kept)
+                     + H * H + H * H2)
+    ops_count = 2 * (macs + 2 * B * R * H2 * C)
     return bound([ops_count / PEAK_BF16_FLOPS], nbytes(*args[:3], *ops, *cot, *acts, *grads)
                  / PEAK_BYTES_PER_S)
 
@@ -1499,6 +1563,159 @@ def phase_deep_kernels(seed, iters):
     return entries
 
 
+def phase_stash_forms(seed, iters):
+    """The stash's other forms (``checks.STASH_FORMS``: every second and
+    every fourth trunk layer, the int8 stash).  At the training shape (B=2,
+    4096 rays x 64 samples, hidden 384) and in the ``deep256`` case (S =
+    256): K1 writing each form, its outputs K1's without the stash, a kept
+    bf16 slot K1's bf16 stash's, the int8 codes and scales the plain
+    quantizer's on the card over that stash (each to the bit); K2 reading
+    it, with and without ``dens_vpu``, against its plain version on the same
+    stash and (a partial stash) against K2 reading the full stash, to the
+    bit; the int8 stash's K2 with ``dens_vpu`` at the training shape also
+    against the unrounded float64 gradient (``checks.k1_form_failures``,
+    ``checks.k2_form_failures``).  Then at the training shape and at the
+    deep march's (``DEEP_SHAPE``) K1 and K2 (``dens_vpu``, as the training
+    CLI's overrides run them) of each form timed beside the recompute and
+    the bf16 stash of every layer, with their bounds and plain versions (at
+    the deep shape in ``DEEP_CHUNK``-ray chunks, their largest differences
+    printed), and the bits of the deep shape checked as above.  In both
+    cases each form also with the sample points encoded in the tiles
+    (``checks.points_form_failures``: K1 and K2 given the points against K1
+    and K2 given the card's encoding, to the bit but the points' cotangent,
+    a partial stash against the full one, each against its plain version).
+    Prints a ``stash_form_case`` and a ``stash_form_points_case`` line per
+    case and form and the ``stash_forms`` line: per shape and form K1's and K2's ms and the stash's GB per
+    launch.  Returns the forms' K1 and K2 entries of the ``kernels`` line."""
+    import torch
+
+    from gazenerf_tpu_torch.kernels import checks
+    from gazenerf_tpu_torch.kernels import fused_field as ff
+    from gazenerf_tpu_torch.kernels import fused_field_bwd as ffb
+
+    dev = torch.device("cuda")
+    fails = []
+    k2_err = {}
+    for case, shape in (("training", checks.K2_CASES["training"]),
+                        ("deep256", checks.DEEP_CASES["deep256"])):
+        args, cot = checks.field_case(*shape, dev, seed=seed)
+        chunks = checks.deep_chunks(args) if case == "deep256" else None
+        with torch.no_grad():
+            _, full = ff.fused_field_forward(*args, stash=True)
+            full_grads = {d: ffb.fused_field_backward(*args, *cot, stash=full, dens_vpu=d)
+                          for d in (False, True)}
+            for name, form in checks.STASH_FORMS.items():
+                (_, acts), r1, f = checks.k1_form_failures(args, form, full)
+                line = {"stash_form_case": case, "form": name, "seed": seed,
+                        "k1_entries_differ": r1}
+                fails += [f"K1 {name} {case}: {x}" for x in f]
+                for dens_vpu in (False, True):
+                    truth = form.dtype == "int8" and case == "training" and dens_vpu
+                    _, line[f"k2_dens_vpu_{dens_vpu}"], f = checks.k2_form_failures(
+                        case, args, cot, form, acts, full_grads[dens_vpu], dens_vpu,
+                        chunks=chunks, truth=truth)
+                    fails += [f"K2 {name} {case} dens_vpu={dens_vpu}: {x}" for x in f]
+                k2_err[case, name] = line["k2_dens_vpu_True"]["max_abs_err"]
+                print(json.dumps(line))
+                del acts
+        del args, cot, full, full_grads
+        torch.cuda.empty_cache()
+        # the same forms with the points encoded in the tiles
+        args, cot = checks.points_case(*shape, dev, seed=seed)
+        for name, form in checks.STASH_FORMS.items():
+            line, f = checks.points_form_failures(case, args, cot, form, chunks=chunks)
+            print(json.dumps({"stash_form_points_case": case, "form": name, "seed": seed,
+                              **line}))
+            fails += [f"points {name} {case}: {x}" for x in f]
+        del args, cot
+        torch.cuda.empty_cache()
+    check(not fails, "\n".join(fails))
+
+    # times at the training shape and the deep march's
+    entries = {"k1": {}, "k2": {}}
+    table = {}
+    per_point = ("dembed", "dzvals", "dzdists")
+    for label, (H, S, R) in (("training", checks.K2_CASES["training"]), ("deep", DEEP_SHAPE)):
+        deep = label == "deep"
+        args, cot = checks.field_case(H, S, R, dev, seed=seed)
+        k2_iters = max(2, iters // (10 if deep else 4))
+        rows = table[f"S={S}"] = {}
+        with torch.no_grad():
+            _, full = ff.fused_field_forward(*args, stash=True)
+            full_grads = ffb.fused_field_backward(*args, *cot, stash=full, dens_vpu=True)
+            rows["recompute"] = {
+                "k1_ms": cuda_ms(lambda: ff.fused_field_forward(*args), iters),
+                "k2_ms": cuda_ms(lambda: ffb.fused_field_backward(*args, *cot, dens_vpu=True),
+                                 k2_iters), "stash_gb": 0.0}
+            rows["full"] = {
+                "k1_ms": cuda_ms(lambda: ff.fused_field_forward(*args, stash=True), iters),
+                "k2_ms": cuda_ms(lambda: ffb.fused_field_backward(
+                    *args, *cot, stash=full, dens_vpu=True), k2_iters),
+                "stash_gb": nbytes(*full) / 1e9}
+            for name, form in checks.STASH_FORMS.items():
+                if deep:  # the bits, as in the cases above
+                    (out, acts), _, f = checks.k1_form_failures(args, form, full)
+                    got = ffb.fused_field_backward(*args, *cot, stash=acts, dens_vpu=True,
+                                                   stash_form=form)
+                    if form.dtype != "int8":
+                        f += [f"K2 {n} differs from K2 reading the full stash" for n, a, b in
+                              zip(got._fields, got, full_grads) if not torch.equal(a, b)]
+                    fails += [f"{name} {label}: {x}" for x in f]
+                    def ref(*a):  # the plain K1 writing the form
+                        return ff.fused_field_reference(*a, stash=form)[0]
+
+                    plain = plain_forward_chunked(ref, args)
+                    k1_plain_ms = cuda_ms(lambda: plain_forward_chunked(ref, args), 1, warmup=0)
+
+                    def plain_bwd():
+                        parts = []
+                        for sl in _ray_chunks(R):
+                            a = (*(t[:, sl] for t in args[:3]), *args[3:])
+                            parts.append(ffb.fused_field_backward_reference(
+                                *a, *(t[:, sl] for t in cot), stash=[t[:, sl] for t in acts],
+                                dens_vpu=True, stash_form=form))
+                        return type(parts[0])(*(torch.cat(ts, 1) if n in per_point else sum(ts)
+                                                for n, ts in zip(parts[0]._fields, zip(*parts))))
+
+                    want = plain_bwd()
+                    k2_plain_ms = cuda_ms(plain_bwd, 1, warmup=0)
+                else:
+                    out, acts = ff.fused_field_forward(*args, stash=form)
+                    got = ffb.fused_field_backward(*args, *cot, stash=acts, dens_vpu=True,
+                                                   stash_form=form)
+                    plain = ff.fused_field_reference(*args, stash=form)[0]
+                    k1_plain_ms = cuda_ms(lambda: ff.fused_field_reference(*args, stash=form),
+                                          max(2, iters // 4), warmup=1)
+                    want = None
+                    k2_plain_ms = cuda_ms(lambda: ffb.fused_field_backward_reference(
+                        *args, *cot, stash=acts, dens_vpu=True, stash_form=form),
+                        max(2, k2_iters // 4), warmup=1)
+                k1_err = max(float((a - b).abs().max()) for a, b in zip(out, plain))
+                err2 = (k2_err["training", name] if want is None else
+                        float(max((a - b).abs().max() for a, b in zip(got, want))))
+                del plain, want
+                k1_ms = cuda_ms(lambda: ff.fused_field_forward(*args, stash=form), iters)
+                k2_ms = cuda_ms(lambda: ffb.fused_field_backward(
+                    *args, *cot, stash=acts, dens_vpu=True, stash_form=form), k2_iters)
+                rows[name] = {"k1_ms": k1_ms, "k2_ms": k2_ms, "stash_gb": nbytes(*acts) / 1e9}
+                b1 = k1_stash_bound(args, out, acts)
+                b2 = k2_form_bound(args, cot, acts, got, form)
+                mode = f"stash {name}, {'deep march, S=256' if deep else 'training shape'}"
+                where = f" (plain in {DEEP_CHUNK}-ray chunks)" if deep else ""
+                for kern, err, ms, plain_ms, bnd in (("k1", k1_err, k1_ms, k1_plain_ms, b1),
+                                                     ("k2", err2, k2_ms, k2_plain_ms, b2)):
+                    entry = mode_record(kern.upper(), f"{mode}, writing it" if kern == "k1" else
+                                        f"{mode}, reading it with dens_vpu{where}", err, ms,
+                                        plain_ms, *bnd)
+                    entries[kern][f"{'deep_' if deep else ''}stash_{name}"] = entry
+                del out, acts, got
+        del args, cot, full, full_grads
+        torch.cuda.empty_cache()
+    check(not fails, "\n".join(fails))
+    print(json.dumps({"stash_forms": table}))
+    return entries
+
+
 def phase_hier(seed, n_forwards=3, fuse_embed=False):
     """The hierarchical sampler's fine pass: a full-width bf16 model
     forward at B=1 with ``hier_sampling`` (64 coarse + 128 fine = 192
@@ -1667,9 +1884,10 @@ def kernel_ms(rows, mode):
             name = "fused_dual_fwd"
         elif any(f"dual_{k}_kernel" in key for k in ("bwd", "dw", "dwsum", "head", "sum")):
             name = "fused_dual_bwd"
-        elif "field_fwd_kernel" in key or "field_fwd_stash_kernel" in key:
+        elif any(f"field_fwd_{k}kernel" in key for k in ("", "stash_", "part_", "quant_")):
             name = "fused_field_fwd"
-        elif any(f"field_{k}_kernel" in key for k in ("bwd", "dw", "dwsum", "head", "sum")):
+        elif any(f"field_{k}_kernel" in key
+                 for k in ("bwd", "bwd_part", "dw", "dwsum", "head", "sum")):
             name = "fused_field_bwd"
         elif renderer and any(k in key for k in UPSAMPLER_FWD + ("stencil::fwd_kernel",)):
             name = f"{renderer}_fwd"
@@ -1924,8 +2142,10 @@ def phase_training(seed, cfg, n_steps, name, loss=None, breakdown=True):
     from gazenerf_tpu_torch import Config, Trainer
     from gazenerf_tpu_torch.kernels import fused_field as ff
     from gazenerf_tpu_torch.kernels import fused_field_bwd as ffb
+    from gazenerf_tpu_torch.models.gaze_nerf import stash_form
 
     mode = name
+    t_start = time.perf_counter()
     tcfg = Config(model=cfg) if loss is None else Config(model=cfg, loss=loss)
     trainer = Trainer(tcfg, train_len=8, steps_per_epoch=1000, seed=seed)  # the card
     check(trainer.model.fused, "the bf16 config must run the fused field kernels")
@@ -1939,7 +2159,7 @@ def phase_training(seed, cfg, n_steps, name, loss=None, breakdown=True):
     render_grads = (phase_render_mode_grads(trainer, batch, seed, name)
                     if name in RENDER_GRAD_REL_L2 else None)
     eye_imp = trainer.eye_importance(GRADUAL_EPOCH)  # None without is_gradual_loss
-    k2_modes, op_inputs, kernel_inputs = [], set(), set()
+    k2_modes, k2_forms, op_inputs, kernel_inputs = [], set(), set(), set()
     fwd, bwd = ff.fused_field_forward, ffb.fused_field_backward
 
     def taken(e, n_freqs):  # what a field op or kernel takes for the embedding
@@ -1955,6 +2175,7 @@ def phase_training(seed, cfg, n_steps, name, loss=None, breakdown=True):
 
     def bwd_spy(*a, stash=None, dens_vpu=False, **k):
         k2_modes.append((stash is not None, dens_vpu))
+        k2_forms.add(tuple(k.get("stash_form", ff.StashForm())) if stash is not None else None)
         kernel_inputs.add(taken(a[0], k.get("n_freqs")))
         return bwd(*a, stash=stash, dens_vpu=dens_vpu, **k)
 
@@ -1974,6 +2195,9 @@ def phase_training(seed, cfg, n_steps, name, loss=None, breakdown=True):
     if name in K2_MODES:
         check(k2_modes == K2_MODES[name], f"{mode}: K2 ran in the modes (stash read, dens_vpu) "
               f"{k2_modes}, expected {K2_MODES[name]}")
+        want_form = tuple(stash_form(cfg))
+        check(k2_forms == {want_form}, f"{mode}: K2 read the stash forms {k2_forms}, "
+              f"expected {want_form}")
     if name in EMBED_MODES:
         check(embed_modes == EMBED_MODES[name],
               f"{mode}: the fields' op took {embed_modes[0]} and K1 and K2 {embed_modes[1]}, "
@@ -2026,6 +2250,7 @@ def phase_training(seed, cfg, n_steps, name, loss=None, breakdown=True):
         "launches": {k: v for k, v in launches.items() if v},
         "launches_per_step": {k: v / n_steps for k, v in launches.items() if v},
         "k2_modes_stash_read_dens_vpu": k2_modes,
+        "k2_stash_forms": sorted(k2_forms, key=str),
         "field_op_and_kernels_take": embed_modes,
         "losses_first_step": first,
         "losses_last_step": last,
@@ -2035,6 +2260,7 @@ def phase_training(seed, cfg, n_steps, name, loss=None, breakdown=True):
         "peak_requested_bytes": peak_requested,
         "grad_rel_l2_kernel_vs_plain": grads,
         "breakdown": parts,
+        "seconds": time.perf_counter() - t_start,
     }
 
 
@@ -2137,6 +2363,7 @@ def phase_grad_check(trainer, batch, seed, name):
     import torch
 
     from gazenerf_tpu_torch.kernels import checks
+    from gazenerf_tpu_torch.models.gaze_nerf import stash_form
 
     cfg = trainer.model.cfg
     # a step updates the discriminator: each side starts from this state
@@ -2167,6 +2394,24 @@ def phase_grad_check(trainer, batch, seed, name):
         recompute = grads(dataclasses.replace(cfg, pallas_stash_acts=False))
         out["stash_vs_recompute"] = compare("stash (K4) vs recompute (K2 per branch)",
                                             with_kernels, recompute, DUAL_GRAD_REL_L2)
+    elif stash_form(cfg).dtype == "int8" and cfg.pallas_stash_acts:
+        # the int8 stash against the bf16 stash of every layer
+        bf16 = grads(dataclasses.replace(cfg, pallas_stash_dtype="bfloat16"))
+        out["int8_vs_bf16_stash"] = compare("int8 stash vs the bf16 stash", with_kernels, bf16,
+                                            INT8_GRAD_REL_L2)
+        every, want = (torch.cat([g[k] for k in _GROUPS]) for g in (with_kernels, bf16))
+        rel = float((every - want).norm() / want.norm())
+        print(f"{name}: step gradients, int8 stash vs the bf16 stash, all together: relative L2 "
+              f"{rel:.3e} (limit {INT8_GRAD_REL_L2_ALL})")
+        check(rel <= INT8_GRAD_REL_L2_ALL, f"{name}: int8 stash vs the bf16 stash, all "
+              f"gradients together: relative L2 {rel:.3e}")
+        out["int8_vs_bf16_stash"]["all"] = rel
+    elif stash_form(cfg).every > 1 and cfg.pallas_stash_acts:
+        # K2 reading every k-th layer gives the full stash's bits, which the
+        # stash variant holds against phase_gm: held as the dual path
+        full = grads(dataclasses.replace(cfg, pallas_stash_every=1))
+        out["vs_bf16_stash"] = compare("vs the bf16 stash of every layer", with_kernels, full,
+                                       STASH_GRAD_REL_L2)
     elif cfg.pallas_stash_acts or cfg.pallas_split_dw:
         what = "split_dw" if cfg.pallas_split_dw else "stash and dens_vpu"
         phase_gm = grads(dataclasses.replace(cfg, pallas_stash_acts=False, pallas_dens_vpu=False,
@@ -2812,7 +3057,7 @@ def main() -> int:
     import dataclasses
 
     from gazenerf_tpu_torch.config import ModelConfig
-    from gazenerf_tpu_torch.kernels import build
+    from gazenerf_tpu_torch.kernels import build, checks
 
     # 1. device
     smi = subprocess.run(
@@ -2842,6 +3087,10 @@ def main() -> int:
     for name, flags in (*EMBED_FLAGS.items(), *EAGER_MODES.items()):
         configs[name] = dataclasses.replace(cfg, **flags)
 
+    def lap(phase):  # the run's wall time at the end of a phase
+        print(f"chip_smoke lap: {phase} done at {time.perf_counter() - t_start:.1f} s")
+
+    lap("build")
     # 3. kernels vs plain versions
     k1 = phase_kernels(args.seed, cfg, args.iters)
     k2 = phase_k2(args.seed, max(4, args.iters // 4))
@@ -2853,11 +3102,16 @@ def main() -> int:
     torch.cuda.empty_cache()
     k1["deep"], k2["deep"], k3_deep, k4_deep = phase_deep_kernels(args.seed, args.iters)
     torch.cuda.empty_cache()
+    forms = phase_stash_forms(args.seed, args.iters)
+    k1.update(forms["k1"])
+    k2.update(forms["k2"])
+    torch.cuda.empty_cache()
     points = phase_points_kernels(args.seed, args.iters)
     k1["points"], k2["points"] = points["k1"], points["k2"]
     k2["points_stash_read"] = points["k2_stash"]
     torch.cuda.empty_cache()
 
+    lap("kernels")
     # 4. serving, per variant, on the same weights
     apps, serving = {}, {}
     for name, vcfg in configs.items():
@@ -2909,6 +3163,7 @@ def main() -> int:
     print(json.dumps({"serving": line}))
     del apps, dual_app
 
+    lap("serving")
     # 6. training, per variant, and with the full loss stack (phase_gm, and
     # with split_dw)
     from gazenerf_tpu_torch.config import LossConfig
@@ -2917,12 +3172,17 @@ def main() -> int:
     full_loss = LossConfig(**FULL_LOSS_FLAGS)
     variants = [(name, vcfg, None) for name, vcfg in configs.items()] + [
         (FULL_LOSS, cfg, full_loss),
-        (SPLIT_DW, dataclasses.replace(cfg, **SPLIT_DW_FLAGS), full_loss)]
+        (SPLIT_DW, dataclasses.replace(cfg, **SPLIT_DW_FLAGS), full_loss)] + [
+        (name, dataclasses.replace(configs[STASH], **flags), None)
+        for name, flags in FORM_FLAGS.items()] + [
+        (name, dataclasses.replace(configs[FUSE_EMBED], **flags), None)
+        for name, flags in POINTS_FORM_FLAGS.items()]
     for name, vcfg, loss in variants:
-        # the eager renderer modes: one timed step, a step's device time
-        eager = name in EAGER_MODES
+        # the eager renderer modes: one timed step, a step's device time;
+        # the stash's forms: a step's device time
+        eager, form = name in EAGER_MODES, name in (*FORM_FLAGS, *POINTS_FORM_FLAGS)
         training[name] = phase_training(args.seed, vcfg, 1 if eager else args.steps, name,
-                                        loss=loss, breakdown=not eager)
+                                        loss=loss, breakdown=not (eager or form))
         torch.cuda.empty_cache()
     print(json.dumps({"training": {
         "card": smi,
@@ -2932,11 +3192,14 @@ def main() -> int:
                   "pallas_dens_vpu=True; fused_f32: shuffle_mode=fused, renderer_dtype=float32; "
                   "fuse_embed, embed_bf16: stash's and pallas_fuse_embed=True or "
                   "pallas_embed_bf16=True; phase, naive, unfolded, unfolded_pallas, rgb_nhwc: "
-                  f"{EAGER_MODES}, one timed step), LossConfig() (full_loss and split_dw: "
+                  f"{EAGER_MODES}, one timed step; {', '.join(FORM_FLAGS)}: stash's and "
+                  f"{FORM_FLAGS}; {', '.join(POINTS_FORM_FLAGS)}: fuse_embed's and "
+                  f"{POINTS_FORM_FLAGS}), LossConfig() (full_loss and split_dw: "
                   f"LossConfig({FULL_LOSS_FLAGS}), eye importance of epoch {GRADUAL_EPOCH}), "
                   "TrainConfig(); B=2, 4096 rays x 64 samples, 512x512",
         "modes": training,
     }}))
+    lap("training")
     # the deep march (S = 256) in checkpointed 512-ray chunks: the CLI's
     # --pallas_tuning auto overrides for that shape, recomputing and reading
     # the stash, without the VGG loss (the JAX bench's deep phase)
@@ -2945,27 +3208,33 @@ def main() -> int:
     deep_cfg = dataclasses.replace(cfg, num_sample_coarse=DEEP_SHAPE[1], **tuned_kernel_overrides(
         cfg.featmap_size, DEEP_SHAPE[1]))
     deep_training = {}
-    for name, vcfg in ((DEEP, deep_cfg),
-                       (DEEP_STASH, dataclasses.replace(deep_cfg, pallas_stash_acts=True)),
-                       (DEEP_FUSE_EMBED, dataclasses.replace(deep_cfg, pallas_fuse_embed=True))):
+    deep_stash = dataclasses.replace(deep_cfg, pallas_stash_acts=True)
+    for name, vcfg in ((DEEP, deep_cfg), (DEEP_STASH, deep_stash),
+                       (DEEP_FUSE_EMBED, dataclasses.replace(deep_cfg, pallas_fuse_embed=True)),
+                       *((name, dataclasses.replace(deep_stash, **flags))
+                         for name, flags in DEEP_FORM_FLAGS.items())):
         deep_training[name] = phase_training(args.seed, vcfg, args.steps, name,
-                                             loss=LossConfig(use_vgg_loss=False))
+                                             loss=LossConfig(use_vgg_loss=False),
+                                             breakdown=name not in DEEP_FORM_FLAGS)
         torch.cuda.empty_cache()
     print(json.dumps({"deep_training": {
         "card": smi,
         "config": f"ModelConfig(compute_dtype=bfloat16, renderer_dtype=bfloat16, "
                   f"num_sample_coarse={DEEP_SHAPE[1]}, tuned_kernel_overrides: "
                   f"{tuned_kernel_overrides(cfg.featmap_size, DEEP_SHAPE[1])}; deep_stash: "
-                  f"pallas_stash_acts=True; deep_fuse_embed: pallas_fuse_embed=True), "
+                  f"pallas_stash_acts=True; deep_fuse_embed: pallas_fuse_embed=True; "
+                  f"{', '.join(DEEP_FORM_FLAGS)}: deep_stash's and {DEEP_FORM_FLAGS}), "
                   f"LossConfig(use_vgg_loss=False), TrainConfig(); "
                   f"B=2, 4096 rays x {DEEP_SHAPE[1]} samples, 512x512",
         "modes": deep_training,
     }}))
+    lap("deep training")
     hier = phase_hier(args.seed)
     print(json.dumps({"hier": hier}))
     hier_points = phase_hier(args.seed, fuse_embed=True)
     print(json.dumps({"hier_fuse_embed": hier_points}))
     phase_cli(args.seed)
+    lap("hier, cli")
     # 8. eval: fitting, gaze optimization, protocols, render loops
     per_fit_step = phase_eval(args.seed, args.fit_steps, smi)
     k1["launches_per_fit_step"] = per_fit_step["fused_field_fwd"]
@@ -3006,6 +3275,18 @@ def main() -> int:
     k2["points"]["launches_per_deep_step"] = deep_training[DEEP_FUSE_EMBED][
         "launches_per_step"]["fused_field_bwd"]
     k2["points_stash_read"]["launches"] = training[FUSE_EMBED]["launches"]["fused_field_bwd"]
+    # the stash's forms: their launches in their training variants; every
+    # fourth layer is timed and held, and runs on no variant's path
+    for name in checks.STASH_FORMS:
+        for k, counter in ((k1, "fused_field_fwd"), (k2, "fused_field_bwd")):
+            run = training.get(f"stash_{name}")
+            k[f"stash_{name}"]["launches"] = run["launches"][counter] if run else 0
+            run = deep_training.get(f"deep_stash_{name}")
+            k[f"deep_stash_{name}"]["launches_per_deep_step"] = (
+                run["launches_per_step"][counter] if run else 0)
+            run = training.get(f"fuse_embed_{name}")
+            k[f"stash_{name}"]["launches_given_points"] = (run["launches"][counter] if run
+                                                           else 0)
 
     print(json.dumps({"kernels": [k1, k2, k5, k6, k7, k8, k3, k4]}))
     print(f"chip_smoke wall time: {time.perf_counter() - t_start:.1f} s")

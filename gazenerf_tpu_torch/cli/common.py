@@ -131,7 +131,9 @@ def tuned_kernel_overrides(featmap_size: int, num_sample_coarse: int) -> dict:
 
     ``pallas_bwd_tile_rays`` and ``pallas_vmem_mb`` are the TPU kernels'
     tiling and memory knobs, returned as JAX's; the port's kernels do not
-    read them.
+    read them.  Neither JAX's nor these overrides select a stash form other
+    than the bf16 stash of every layer (``pallas_stash_every``,
+    ``pallas_stash_dtype``).
     """
     deep = num_sample_coarse > 64
     rays = featmap_size * featmap_size

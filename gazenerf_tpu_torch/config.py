@@ -81,6 +81,9 @@ class ModelConfig:
     pallas_dual_branch: bool = False
     pallas_fuse_embed: bool = False
     pallas_stash_acts: bool = False
+    # the stash's form on the single-branch fused path (kernels/fused_field.
+    # StashForm): every k-th trunk layer; "int8" codes for x0..x6 and y0b,
+    # with pallas_stash_every=1 only.  The dual path ignores both
     pallas_stash_every: int = 1
     pallas_stash_dtype: str = "bfloat16"
     pallas_split_dw: bool = False

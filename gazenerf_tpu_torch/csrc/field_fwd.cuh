@@ -9,7 +9,10 @@
 // compositing, and writes the per-ray feature / background alpha / depth
 // and the per-sample weights.
 // With the stash on, it also writes the bf16 activations x0..x7, y0b
-// (rgb_0's output) and y1 (rgb_1's) of every point.  With kPoints (K1's
+// (rgb_0's output) and y1 (rgb_1's) of every point, or (kForm) those of the
+// layers in a mask (K1's stash of every k-th trunk layer), or x0..x6 and y0b
+// as int8 codes with a scale per point, quantized in shared memory
+// (quantize_layer; K1's int8 stash).  With kPoints (K1's
 // embed_in_kernel) the tile takes the sample points and encodes them in
 // place of reading the embedding (csrc/point_encoding.cuh).
 //
@@ -97,6 +100,10 @@ constexpr int kSub = 64;            // columns of a 128-byte-swizzled sub-block
 constexpr int kSubBytes = kRows * kSub * 2;
 constexpr int kSlots = 10;          // stash: x0..x7, y0b, y1
 constexpr int kLayers = kSlots;     // fea_0..7, rgb_0, rgb_1: layer l writes slot l
+constexpr int kQuantTags = 8;       // int8 stash: x0..x6, y0b; x7 and y1 stay bf16
+constexpr float kInv127 = 0x1.020408p-7f;  // 1 / 127 rounded to f32 (0x3c010204)
+// the stash's forms: every slot; the slots in a mask; the int8 stash
+enum { kFormAll = 0, kFormMask = 1, kFormQuant = 2 };
 constexpr int kBlocks = 3;          // activation column blocks
 constexpr int kSliceK = 32;         // weight K-columns per stage: 64-byte rows
 constexpr int kStages = 4;          // stages: two slices ahead, one in flight
@@ -440,8 +447,9 @@ __device__ __forceinline__ void epilogue(const float (&acc)[kAcc], int ncols, co
 // pass 1 of the next layer (the first block of a two-pass layer) or by the
 // layer after it, so thread 0 waits for the stores to have read the first
 // block before the next layer's pass-1 barrier and for all of them before
-// its closing barrier: half a layer and a whole one later.
-template <bool kStash>
+// its closing barrier: half a layer and a whole one later.  kSkip: `map` may
+// be null, and then the layer is not stored (the stash's other forms).
+template <bool kStash, bool kSkip = false>
 __device__ __forceinline__ void layer(Tile& t, int l, const Act& a0, const Act& a1, int N,
                                       const float* bias, bool relu, const CUtensorMap* map,
                                       size_t p0) {
@@ -460,12 +468,64 @@ __device__ __forceinline__ void layer(Tile& t, int l, const Act& a0, const Act& 
   if (issuer) bulk_wait_read<0>();
   fence_proxy_async();  // the layer's output reaches the next layer's wgmma and the stores
   consumer_sync();
-  if (issuer) {
+  if (issuer && (!kSkip || map)) {  // no map: not stashed, or stashed by quantize_layer
     for (int q = 0; q < lnp; ++q) {
       for (int a = 0; a * kSub < pw; ++a)
         tma_store(map, q * pw + a * kSub, (int)p0, out_block(t, l, q) + a * kSubBytes);
       bulk_commit();
     }
+  }
+}
+
+// The int8 stash of layer l (N columns, its rows in the tile's blocks after
+// layer()'s closing barrier): per row the symmetric int8 codes of its bf16
+// values, q = clip(rint(v * (1 / s)), -127, 127) with s = max(amax, 1e-12)
+// / 127 in f32, as XLA computes the TPU kernel's quantizer: the quotient by
+// 127 a product by 127's f32 reciprocal, 1 / s a quotient, the rounding to
+// nearest even (jnp.round); into
+// codes ([P, N] from row p0) and s into column j of scales ([P,
+// kQuantTags]).  Four threads a row, each 16-byte chunk c * 8 .. c * 8 + 7 of
+// it with c % 4 its part; the row's amax by two shuffles.  Reads the blocks
+// only: the next layer overwrites one of them no earlier than after its
+// pass-1 barrier, which every thread reaches after this.
+__device__ inline void quantize_layer(const Tile& t, int l, int N, signed char* codes,
+                                      float* scales, int j, size_t p0) {
+  const int tid = threadIdx.x, r = tid >> 2, part = tid & 3;
+  const int pw = N / (N > kPassCols ? 2 : 1);
+  const unsigned char* blk0 = out_block(t, l, 0);
+  const unsigned char* blk1 = out_block(t, l, 1);
+  auto chunk = [&](int c) {
+    return *reinterpret_cast<const uint4*>(c < pw ? blk0 + swz(r, c) : blk1 + swz(r, c - pw));
+  };
+  float a = 0.f;
+  for (int c = 8 * part; c < N; c += 32) {
+    const uint4 v = chunk(c);
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const float2 f = __bfloat1622float2(h[k]);
+      a = fmaxf(a, fmaxf(fabsf(f.x), fabsf(f.y)));
+    }
+  }
+  a = fmaxf(a, __shfl_xor_sync(0xffffffffu, a, 1));
+  a = fmaxf(a, __shfl_xor_sync(0xffffffffu, a, 2));
+  const float s = __fmul_rn(fmaxf(a, 1e-12f), kInv127), inv = __fdiv_rn(1.f, s);
+  if (part == 0) scales[(p0 + r) * kQuantTags + j] = s;
+  signed char* row = codes + (p0 + r) * N;
+  for (int c = 8 * part; c < N; c += 32) {
+    const uint4 v = chunk(c);
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
+    auto code = [&](float x) {  // the byte of x's code
+      return (uint32_t)(__float2int_rn(fminf(fmaxf(rintf(__fmul_rn(x, inv)), -127.f), 127.f)) &
+                        0xff);
+    };
+    uint32_t w[2] = {0u, 0u};
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const float2 f = __bfloat1622float2(h[k]);
+      w[k >> 1] |= (code(f.x) | code(f.y) << 8) << (16 * (k & 1));
+    }
+    *reinterpret_cast<uint2*>(row + c) = make_uint2(w[0], w[1]);
   }
 }
 
@@ -587,10 +647,15 @@ __device__ inline void composite_span(const Params& p, int tile, size_t pt, cons
 // instantiation, so that the one-tile code carries none of the other's
 // state).  kStash: write the tiles' rows of the ten stash slots through the
 // tensor maps `stash` (x0..x7, y0b: [B R S, H] bf16; y1: [B R S, H/2]),
-// which lie in the kernel's parameters.  kPoints: encode the points p.embed
-// holds into the embedding tile.
-template <bool kStash, bool kSpan, bool kPoints = false>
-__device__ inline void forward_tile(const Params& p, const CUtensorMap* stash, int b, int r0) {
+// which lie in the kernel's parameters; with kForm kFormMask only those in
+// `mask` (bit l: layer l's slot); with kFormQuant x7 and y1, and the int8
+// stash of x0..x6 and y0b, codes[l] ([B R S, H] int8) and their scales ([B
+// R S, kQuantTags] f32, column j for tag j: x0..x6, y0b).  kPoints: encode
+// the points p.embed holds into the embedding tile.
+template <bool kStash, bool kSpan, bool kPoints = false, int kForm = kFormAll>
+__device__ inline void forward_tile(const Params& p, const CUtensorMap* stash, int b, int r0,
+                                    unsigned mask = 0, signed char* const* codes = nullptr,
+                                    float* scales = nullptr) {
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
   const int H = p.H, H2 = p.H / 2, S = p.S, C = p.C, Kp = p.Kp;
@@ -677,17 +742,32 @@ __device__ inline void forward_tile(const Params& p, const CUtensorMap* stash, i
     fence_proxy_async();  // E reaches fea_0's wgmma
     consumer_sync();
 
-    // the trunk, rgb_0 and rgb_1; layer l's rows go to stash slot l
-    auto slot = [&](int l) { return kStash ? stash + l : nullptr; };
+    // the trunk, rgb_0 and rgb_1; layer l's rows go to stash slot l (or,
+    // quantized, to codes[l])
+    auto slot = [&](int l) -> const CUtensorMap* {
+      if (!kStash) return nullptr;
+      if (kForm == kFormMask) return mask >> l & 1 ? stash + l : nullptr;
+      if (kForm == kFormQuant) return l == 7 || l == 9 ? stash + l : nullptr;
+      return stash + l;
+    };
+    auto quant = [&](int l, int N) {
+      if constexpr (kForm == kFormQuant) {
+        if (l != 7 && l != 9) quantize_layer(t, l, N, codes[l], scales, l < 7 ? l : 7, pt);
+      }
+    };
     const Act emb = {{smem_addr(E), smem_addr(E)}, Kp};
     const Act none = {{0, 0}, 0};
-    layer<kStash>(t, 0, emb, none, H, p.cb0 + (size_t)b * H, true, slot(0), pt);
+    constexpr bool kSkip = kForm != kFormAll;
+    layer<kStash, kSkip>(t, 0, emb, none, H, p.cb0 + (size_t)b * H, true, slot(0), pt);
+    quant(0, H);
     for (int l = 1; l < 8; ++l) {
       if (l == 5)
-        layer<kStash>(t, 5, emb, output_of(t, 4), H, p.cb5 + (size_t)b * H, true, slot(5), pt);
+        layer<kStash, kSkip>(t, 5, emb, output_of(t, 4), H, p.cb5 + (size_t)b * H, true,
+                             slot(5), pt);
       else
-        layer<kStash>(t, l, output_of(t, l - 1), none, H,
-                      p.bmid + (size_t)(l < 5 ? l - 1 : l - 2) * H, true, slot(l), pt);
+        layer<kStash, kSkip>(t, l, output_of(t, l - 1), none, H,
+                             p.bmid + (size_t)(l < 5 ? l - 1 : l - 2) * H, true, slot(l), pt);
+      quant(l, H);
     }
     // density head from x7: 4 threads per row, f32 dot product of bf16 values
     {
@@ -702,8 +782,10 @@ __device__ inline void forward_tile(const Params& p, const CUtensorMap* stash, i
       s += __shfl_xor_sync(0xffffffffu, s, 2);
       if (part == 0) sig[r] = fmaxf(s + p.bd[0], 0.f);
     }
-    layer<kStash>(t, 8, output_of(t, 7), none, H, p.br0, false, slot(8), pt);  // rgb_0
-    layer<kStash>(t, 9, output_of(t, 8), none, H2, p.cbr1 + (size_t)b * H2, true, slot(9), pt);
+    layer<kStash, kSkip>(t, 8, output_of(t, 7), none, H, p.br0, false, slot(8), pt);  // rgb_0
+    quant(8, H);
+    layer<kStash, kSkip>(t, 9, output_of(t, 8), none, H2, p.cbr1 + (size_t)b * H2, true,
+                         slot(9), pt);
     const unsigned char* Y = out_block(t, 9, 0);  // y1, swizzled [kRows, H2]
 
     if constexpr (kSpan) {

@@ -8,8 +8,10 @@
 // the weight, bias and conditioning-row gradients summed over all points.
 //
 // Replaces the TPU kernel gazenerf_tpu/kernels/fused_field_bwd.py:_bwd_kernel
-// (launched by pallas_backward) with stash_acts False or True (stash_every=1,
-// bf16), dens_vpu False or True, and embed_in_kernel False or True: given the
+// (launched by pallas_backward) with stash_acts False or True in each form of
+// the stash (the bf16 stash of every layer; stash_every=k, every k-th trunk
+// layer; stash_dtype int8, x0..x6 and y0b as int8 codes), dens_vpu False or
+// True, and embed_in_kernel False or True: given the
 // embedding it writes its f32 cotangent (a bf16 embedding's cotangent is
 // that, rounded by the caller); given the points (embed_in_kernel) it
 // recomputes their encoding wherever it reads the embedding (the tile, the
@@ -59,14 +61,31 @@
 //  * field_dw_kernel: dW (+)= X^T D for the eleven weight blocks over the
 //    chunk's points (csrc/field_dw.cuh);
 //  * field_head_kernel: dWr2 and dbr2 (+)= over the chunk's rays.
+// The stash's other forms run field_bwd_part_kernel, its own instantiation of
+// the tile loop, which fills the
+// chunk buffer's rows of the layers that the stash does not hold in bf16, so
+// that the tile body and the GEMM read every layer from one pointer per
+// slot, the stash's or the chunk buffer's:
+//  * stash_every=k: the missing trunk layers recomputed in forward order,
+//    each from its predecessor (read from the stash into the tile when it is
+//    a stashed one), and y0b, y1 from x7 as the recompute does;
+//  * int8: x0..x6 and y0b dequantized into the chunk buffer, bf16(q * s) in
+//    f32, 8 codes a thread and load (the simple choice: the tile body and the
+//    GEMM stay as they are, at the cost of writing and reading those eight
+//    layers' bf16 rows once more, ~6.1 KB a point, as the recompute does).
 // After the last chunk field_sum_kernel sums the per-CTA buffers in CTA
 // order.  No atomics: the same bits on every run.  Scratch: the chunk
 // buffer, ~14.3 KB per point at hidden 384 (x0..x7, y0b, the embedding and
-// the ten cotangents; ~7.4 KB in stash mode, without x0..x7 and y0b), the
-// GEMM's partial sums (42 MB) and gridDim.x small buffers of ~5 K floats:
-// ~0.53 GB for chunks of 528 tiles (~0.29 GB in stash mode).  The stash
-// equals the recompute to the bit (one forward tile code, the same
-// products), so both modes give the same gradients.
+// the ten cotangents; ~7.4 KB reading the bf16 stash of every layer,
+// without x0..x7 and y0b; the other forms' as the recompute's), the GEMM's
+// partial sums (42 MB) and gridDim.x small buffers of ~5 K floats: ~0.53 GB
+// for chunks of 528 tiles (~0.29 GB reading the bf16 stash of every layer).
+// The stash equals the recompute to the bit (one forward tile code, the
+// same products), so the recompute, the bf16 stash of every layer and of
+// every k-th layer give the same gradients; the int8 stash's dequantized
+// values are its own.
+
+#include <cstdint>
 
 #include "field_bwd.cuh"
 #include "point_encoding.cuh"
@@ -102,6 +121,7 @@ struct Params {
   float* dzvals;        // [B, R, S]
   float* dzdists;       // [B, R, S]
   // the forward's stash (stash mode): x0..x7, y0b [B, R, S, H], y1 [B, R, S, H/2]
+  // (another form: those it holds in bf16, the others null)
   const bf16* stash[kXSlots + 1];
   // scratch
   float* small;             // [G, total - small] per-CTA sums
@@ -114,7 +134,46 @@ struct Params {
   int t0, nt;               // the chunk's first tile and its tiles
   Grads L;
   float* dtile;             // kPoints: per CTA a tile's f32 dembed [kRows, De]
+  // another form of the stash (field_bwd_part_kernel)
+  const bf16* xsrc[kXSlots];        // per slot, rows indexed by the global point: the
+                                    // stash's, or the chunk buffer's less its first point
+  const signed char* codes[kXSlots];  // int8: x0..x6, y0b codes [B, R, S, H] (null elsewhere)
+  const float* scales;              // int8: [B, R, S, 8] f32, column j for x0..x6, y0b
+  unsigned kept;                    // stash_every: bit i set when x_i is stashed
 };
+
+// The kernel's modes of the stash: none (recompute), the bf16 stash of every
+// layer, another form
+enum { kRecompute = 0, kFull = 1, kPart = 2 };
+
+// The int8 stash's rows of the tile at point p0 as bf16 into the chunk
+// buffer's rows from lp0: x_i = bf16(q * s), the product in f32, 8 codes a
+// load.  No barrier: the body reads them after its own.
+__device__ inline void dequantize_tile(const Params& p, size_t p0, size_t lp0) {
+  const int H = p.H, vec = H / 8;
+  for (int j = 0; j < 8; ++j) {
+    const int slot = j < 7 ? j : 8;
+    const signed char* src = p.codes[slot] + p0 * H;
+    bf16* dst = p.xbase[slot] + lp0 * H;
+    for (int i = threadIdx.x; i < kRows * vec; i += kThreads) {
+      const int r = i / vec, v = i - r * vec;
+      const float sc = p.scales[(p0 + r) * 8 + j];
+      const uint2 q = *reinterpret_cast<const uint2*>(src + (size_t)r * H + v * 8);
+      uint32_t out[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const uint32_t w = k < 2 ? q.x : q.y;
+        const int sh = 16 * (k & 1);
+        const float f0 = __fmul_rn((float)(signed char)(w >> sh), sc);
+        const float f1 = __fmul_rn((float)(signed char)(w >> (sh + 8)), sc);
+        const __nv_bfloat162 b = __floats2bfloat162_rn(f0, f1);
+        out[k] = *reinterpret_cast<const uint32_t*>(&b);
+      }
+      *reinterpret_cast<uint4*>(dst + (size_t)r * H + v * 8) =
+          make_uint4(out[0], out[1], out[2], out[3]);
+    }
+  }
+}
 
 // The tile at point p0's points' cotangent from its embedding's f32
 // cotangent in the CTA's scratch `dt` ([kRows, De], which the tile body has
@@ -129,13 +188,13 @@ __device__ inline void store_dpts(const Params& p, const float* dt, size_t p0) {
   __syncthreads();
 }
 
-// kSpan: rays longer than a tile (S > kRows), a separate instantiation so
-// that the tile code of whole rays carries none of the two sweeps' state;
-// kPoints (the points encoded in the tile) likewise, so that the
-// embedding's kernels carry none of it
-template <bool kStash, bool kSpan, bool kPoints>
-__global__ void __launch_bounds__(kThreads, 1)
-    field_bwd_kernel(const __grid_constant__ Params p) {
+// The tile loop of stash mode kMode.  kSpan: rays longer than a tile (S >
+// kRows), a separate instantiation so that the tile code of whole rays
+// carries none of the two sweeps' state; kPoints (the points encoded in the
+// tile) likewise, so that the embedding's kernels carry none of it
+template <int kMode, bool kSpan, bool kPoints>
+__device__ __forceinline__ void tile_loop(const Params& p) {
+  constexpr bool kStash = kMode == kFull;
   extern __shared__ __align__(16) unsigned char smem[];
   const int H = p.H, H2 = p.H / 2, S = p.S, C = p.C, Kp = p.Kp, De = p.De;
   const int TR = tile_rays(S), nb = kSpan ? ray_tiles(S) : 1;
@@ -160,18 +219,38 @@ __global__ void __launch_bounds__(kThreads, 1)
     __syncthreads();
     store_tile(p.e + lp0 * Kp, E, lde, Kp);
 
-    if (kStash) {  // ---- the stash: x7 (its density), then y1 into A ----
+    if (kStash || (kMode == kPart && p.codes[0])) {  // ---- x7 (its density), y1 into A ----
+      if (kMode == kPart) dequantize_tile(p, p0, lp0);  // and x0..x6, y0b to the chunk buffer
       load_tile(A, ld, p.stash[7] + p0 * H, H);
       __syncthreads();
       density_pre(sk, ld, p.w.wd, p.w.bd, H);
       __syncthreads();
       load_tile(A, ld, p.stash[9] + p0 * H2, H2);  // A[:, :H2] = y1
       __syncthreads();
-    } else {  // ---- recompute: x0..x7, y0b into the chunk buffer, y1 in A ----
-      fwd_layer({E, nullptr, lde, p.w0e, Kp}, none, 1, H, p.cb0 + (size_t)b * H, true, A, ld,
-                sh.W, p.xbase[0] + lp0 * H);
+    } else {  // ---- recompute x0..x7 (those not stashed), y0b into the chunk buffer, y1 in A ----
+      // (kPart: A holds x_{i-1} unless that layer is stashed, then read from there)
+      bool in_a = true;
+      auto input = [&](int i) {
+        if (kMode == kPart && !in_a) {
+          __syncthreads();  // every thread is done with A
+          load_tile(A, ld, p.stash[i - 1] + p0 * H, H);
+          __syncthreads();
+        }
+        in_a = true;
+      };
+      if (kMode == kPart && (p.kept & 1)) {
+        in_a = false;
+      } else {
+        fwd_layer({E, nullptr, lde, p.w0e, Kp}, none, 1, H, p.cb0 + (size_t)b * H, true, A, ld,
+                  sh.W, p.xbase[0] + lp0 * H);
+      }
 #pragma unroll 1
       for (int i = 1; i < 8; ++i) {
+        if (kMode == kPart && (p.kept >> i & 1)) {
+          in_a = false;
+          continue;
+        }
+        input(i);
         if (i == 5)
           fwd_layer({E, nullptr, lde, p.w5e, Kp}, {A, nullptr, ld, p.w5x, H}, 2, H,
                     p.cb5 + (size_t)b * H, true, A, ld, sh.W, p.xbase[i] + lp0 * H);
@@ -179,6 +258,7 @@ __global__ void __launch_bounds__(kThreads, 1)
           fwd_layer({A, nullptr, ld, p.wmid + mid_slot(i) * HH, H}, none, 1, H,
                     p.bmid + mid_slot(i) * H, true, A, ld, sh.W, p.xbase[i] + lp0 * H);
       }
+      input(8);  // x7
       density_pre(sk, ld, p.w.wd, p.w.bd, H);
       fwd_layer({A, nullptr, ld, p.wr0, H}, none, 1, H, p.br0, false, A, ld, sh.W,
                 p.xbase[8] + lp0 * H);
@@ -199,6 +279,9 @@ __global__ void __launch_bounds__(kThreads, 1)
     io.gw = p.gw;
     if (kStash) {  // the masks from the stash, rows indexed in 64 bits
       io.x = p.stash;
+      io.xrow = p0;
+    } else if (kMode == kPart) {  // from the stash or the chunk buffer, by the global row
+      io.x = p.xsrc;
       io.xrow = p0;
     } else {
       io.x = p.xbase;
@@ -246,7 +329,8 @@ __global__ void __launch_bounds__(kThreads, 1)
     __syncthreads();
     for (int k = 0; k < nb; ++k) {
       const size_t pk = p0 + k * kRows, lk = lp0 + k * kRows;
-      load_tile(A, ld, kStash ? p.stash[9] + pk * H2 : p.y1 + lk * H2, H2);  // y1
+      const bool y1_stashed = kStash || (kMode == kPart && p.codes[0]);
+      load_tile(A, ld, y1_stashed ? p.stash[9] + pk * H2 : p.y1 + lk * H2, H2);  // y1
       __syncthreads();
       TileIO io = tile_io(pk, lk, b);
       io.aw = p.aw + lp0 / S * (H2 + 1);  // the ray's
@@ -257,10 +341,29 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-// field_bwd_kernel<kStash, kSpan, points>
-template <bool kStash, bool kSpan>
-void (*tile_kernel_for(bool points))(Params) {
-  return points ? field_bwd_kernel<kStash, kSpan, true> : field_bwd_kernel<kStash, kSpan, false>;
+// recomputing (kStash false) or reading the bf16 stash of every layer
+template <bool kStash, bool kSpan, bool kPoints>
+__global__ void __launch_bounds__(kThreads, 1)
+    field_bwd_kernel(const __grid_constant__ Params p) {
+  tile_loop<kStash ? kFull : kRecompute, kSpan, kPoints>(p);
+}
+
+// reading another form of the stash
+template <bool kSpan, bool kPoints>
+__global__ void __launch_bounds__(kThreads, 1)
+    field_bwd_part_kernel(const __grid_constant__ Params p) {
+  tile_loop<kPart, kSpan, kPoints>(p);
+}
+
+// the tile kernel of stash mode `mode`, rays that span tiles or not, given
+// the points or not
+template <bool kSpan>
+void (*tile_kernel_for(int mode, bool points))(Params) {
+  if (mode == kPart)
+    return points ? field_bwd_part_kernel<kSpan, true> : field_bwd_part_kernel<kSpan, false>;
+  if (mode == kFull)
+    return points ? field_bwd_kernel<true, kSpan, true> : field_bwd_kernel<true, kSpan, false>;
+  return points ? field_bwd_kernel<false, kSpan, true> : field_bwd_kernel<false, kSpan, false>;
 }
 
 __global__ void __launch_bounds__(fdw::kThreads)
@@ -289,8 +392,9 @@ extern "C" {
 // The buffers' layout: out[0..14] the offsets (in floats) of W0e, Wmid, bmid,
 // W5e, W5x, Wd, bd, Wr0, br0, Wr1x, Wr2, br2, cb0, cb5, cbr1 in `grads` (each
 // block row-major), out[15] the length of `grads`, out[16] the bytes of
-// scratch for G CTAs and chunks of up to chunk_tiles tiles (in stash mode
-// without the chunk buffer's x0..x7 and y0b; with `points`, with the CTAs'
+// scratch for G CTAs and chunks of up to chunk_tiles tiles in stash mode
+// `stash` (0 recompute, 1 the bf16 stash of every layer: without the chunk
+// buffer's x0..x7 and y0b, 2 another form; with `points`, with the CTAs'
 // tile cotangents).
 void fused_field_bwd_layout(int B, int S, int Kp, int H, int C, int G, int chunk_tiles,
                             int stash, int points, long long* out) {
@@ -298,7 +402,7 @@ void fused_field_bwd_layout(int B, int S, int Kp, int H, int C, int G, int chunk
   const size_t v[16] = {s.w0e, s.wmid, s.bmid, s.w5e, s.w5x, s.wd, s.bd, s.wr0,
                         s.br0, s.wr1x, s.wr2, s.br2, s.cb0, s.cb5, s.cbr1, s.total};
   for (int i = 0; i < 16; ++i) out[i] = (long long)v[i];
-  const Chunk c = chunk_layout((size_t)chunk_tiles * kRows, S, Kp, H, !stash, 1);
+  const Chunk c = chunk_layout((size_t)chunk_tiles * kRows, S, Kp, H, stash != kFull, 1);
   out[16] = (long long)(align256((size_t)G * (s.total - s.small) * sizeof(float)) +
                         align256(c.total) +
                         (points ? (size_t)G * kRows * Kp * sizeof(float) : 0));
@@ -311,8 +415,11 @@ void fused_field_bwd_layout(int B, int S, int Kp, int H, int C, int G, int chunk
 // S divides 64 (R*S a multiple of 64) or is a multiple of 64 up to 256, H
 // is a multiple of 64 and at most 384, Kp a multiple of 32; nt <=
 // chunk_tiles, and a chunk holds whole rays; it allocates `scratch` (the
-// layout's bytes) and `grads`.  `stash` is null (recompute mode) or ten
-// pointers: x0..x7, y0b ([B, R, S, H] bf16 each) and y1 ([B, R, S, H/2]).
+// layout's bytes) and `grads`.  `stash` is null (recompute mode) or eleven
+// pointers: x0..x7, y0b ([B, R, S, H] each) and y1 ([B, R, S, H/2]), null
+// where the stash keeps no such slot (stash_every), then the int8 stash's
+// scales ([B, R, S, 8] f32), null for a bf16 stash; with the scales x0..x6
+// and y0b are int8 codes and x7, y1 bf16.
 // `dens_vpu`: dWd from the unrounded density cotangent.  `points`: `embed`
 // holds the f32 points and `dembed` gets their cotangent (De = 3 + 6
 // n_freqs the encoded width), else the bf16 embedding and its f32
@@ -355,8 +462,20 @@ int fused_field_bwd(const void* embed, const float* zvals, const float* zdists,
   p.w.wr0_t = static_cast<const bf16*>(wr0_t);
   p.w.wr1x_t = static_cast<const bf16*>(wr1x_t);
   p.w.dens_vpu = dens_vpu;
-  for (int k = 0; k <= kXSlots; ++k)
-    p.stash[k] = stash ? static_cast<const bf16*>(stash[k]) : nullptr;
+  // the stash's mode: the bf16 stash of every layer (ten pointers, no
+  // scales), or another form
+  const bool quant = stash && stash[kXSlots + 1];
+  int mode = stash ? kFull : kRecompute;
+  p.kept = 0;
+  for (int k = 0; k <= kXSlots; ++k) {
+    const bool code = quant && k != 7 && k != kXSlots;
+    if (stash && !stash[k]) mode = kPart;
+    p.stash[k] = stash && !code ? static_cast<const bf16*>(stash[k]) : nullptr;
+    if (k < kXSlots) p.codes[k] = code ? static_cast<const signed char*>(stash[k]) : nullptr;
+    if (k < 8 && p.stash[k]) p.kept |= 1u << k;
+  }
+  if (quant) mode = kPart;
+  p.scales = quant ? static_cast<const float*>(stash[kXSlots + 1]) : nullptr;
   p.gfeat = gfeat;
   p.gbga = gbga;
   p.gdepth = gdepth;
@@ -377,10 +496,19 @@ int fused_field_bwd(const void* embed, const float* zvals, const float* zdists,
   p.small = static_cast<float*>(scratch);
   unsigned char* chunk =
       static_cast<unsigned char*>(scratch) + align256((size_t)G * small_len * sizeof(float));
-  const Chunk CL = chunk_layout((size_t)chunk_tiles * kRows, S, Kp, H, !stash, 1);
-  for (int i = 0; i < kXSlots; ++i)
-    p.xbase[i] = stash ? nullptr : reinterpret_cast<bf16*>(chunk + CL.x[i]);
-  p.y1 = stash ? nullptr : reinterpret_cast<bf16*>(chunk + CL.y1);
+  const Chunk CL = chunk_layout((size_t)chunk_tiles * kRows, S, Kp, H, mode != kFull, 1);
+  const size_t pt0 = (size_t)t0 * kRows;  // the chunk's first point
+  for (int i = 0; i < kXSlots; ++i) {
+    p.xbase[i] = mode == kFull ? nullptr : reinterpret_cast<bf16*>(chunk + CL.x[i]);
+    // another form: a slot's rows by the global point, in the stash or,
+    // less the chunk's first point, in the chunk buffer (integer arithmetic:
+    // the row p0 of a tile of the chunk lies in the buffer)
+    const uintptr_t chunk_rows = reinterpret_cast<uintptr_t>(p.xbase[i]) - pt0 * H * sizeof(bf16);
+    p.xsrc[i] = mode != kPart ? nullptr
+                : p.stash[i]  ? p.stash[i]
+                              : reinterpret_cast<const bf16*>(chunk_rows);
+  }
+  p.y1 = mode == kFull ? nullptr : reinterpret_cast<bf16*>(chunk + CL.y1);
   p.e = reinterpret_cast<bf16*>(chunk + CL.e);
   for (int j = 0; j < kDSlots; ++j) p.dbase[j] = reinterpret_cast<bf16*>(chunk + CL.d[0][j]);
   p.aw = reinterpret_cast<float*>(chunk + CL.aw[0]);
@@ -394,10 +522,8 @@ int fused_field_bwd(const void* embed, const float* zvals, const float* zdists,
   }
   const size_t smem = smem_bytes(S, Kp, H, C);
   const bool span = S > kRows;
-  auto tile_kernel = stash ? (span ? tile_kernel_for<true, true>(points)
-                                   : tile_kernel_for<true, false>(points))
-                           : (span ? tile_kernel_for<false, true>(points)
-                                   : tile_kernel_for<false, false>(points));
+  auto tile_kernel = span ? tile_kernel_for<true>(mode, points)
+                          : tile_kernel_for<false>(mode, points);
   err = cudaFuncSetAttribute(tile_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -411,9 +537,9 @@ int fused_field_bwd(const void* embed, const float* zvals, const float* zdists,
   if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
   if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
     return (int)err;
-  const size_t pt0 = (size_t)t0 * kRows;  // the chunk's first point
   const bf16* x[kXSlots];  // the GEMM's X: the chunk's rows of the stash or the chunk buffer
-  for (int k = 0; k < kXSlots; ++k) x[k] = stash ? p.stash[k] + pt0 * H : p.xbase[k];
+  for (int k = 0; k < kXSlots; ++k)
+    x[k] = mode == kFull ? p.stash[k] + pt0 * H : mode == kPart ? p.xsrc[k] + pt0 * H : p.xbase[k];
   const fdw::Jobs js = weight_jobs(x, p.e, p.dbase, grads, p.L, Kp, H, P, !first, sms,
                                    reinterpret_cast<float*>(chunk + CL.part));
   err = cudaFuncSetAttribute(field_dw_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,

@@ -4,13 +4,15 @@
 // sample weights.  The [N, 384] activations and the [N, 258] per-sample
 // features never leave the SM.
 //
-// Under a gradient it also writes the bf16 activation stash (x0..x7, y0b
-// and y1 per point), which the backward (csrc/fused_field_bwd.cu) can read
-// instead of recomputing the trunk.
+// Under a gradient it also writes the activation stash, which the backward
+// (csrc/fused_field_bwd.cu) can read instead of recomputing the trunk: the
+// bf16 x0..x7, y0b and y1 per point, or only the trunk layers i with
+// i % k == k - 1 (stash_every=k), or x0..x6 and y0b as per-point int8 codes
+// with an f32 scale per point and tag, x7 and y1 in bf16 (stash_dtype int8).
 //
 // Replaces the TPU kernel gazenerf_tpu/kernels/fused_field.py:_field_kernel
-// (launched by _pallas_forward), with and without its stash (stash_every=1,
-// bf16), given the bf16 embedding or (embed_in_kernel) the f32 sample points,
+// (launched by _pallas_forward), with and without its stash in each of its
+// forms, given the bf16 embedding or (embed_in_kernel) the f32 sample points,
 // which each tile encodes itself (its _embed_tile; csrc/point_encoding.cuh):
 // 12 bytes a point in place of 126, and the [B, R, S, 63] embedding never
 // reaches device memory.  Its dens_vpu mode computes the same density head:
@@ -27,7 +29,8 @@
 // outputs, 2.7 MB of weights), far above the H100's ~295 FLOP per byte: it
 // is bound by bf16 tensor-core operations.  With the stash at the training
 // shape (B=2) it writes 7,296 bytes per point, ~3.83 GB (~1.1 ms at 3.35
-// TB/s) against ~1.4 ms of products: still bound by operations.
+// TB/s) against ~1.4 ms of products: still bound by operations; the int8
+// stash writes 4,256 bytes per point, stash_every=2 3,072 and 4 1,536.
 //
 // Design: one CTA takes whole rays, 128 points = 128 / S rays or, for rays
 // longer than that (S = 192, 256), the fewest whole rays that fill whole
@@ -39,7 +42,15 @@
 // the products on wgmma, the layers in three rotating column blocks,
 // compositing a warp per ray.  The stash leaves shared memory by tensor stores (TMA) behind the
 // next layer's products, through ten tensor maps over [B R S, N] rows built
-// here and passed in the kernel's parameters, as in the dual-branch forward.
+// here and passed in the kernel's parameters, as in the dual-branch forward;
+// a partial stash skips the stores of the layers it does not keep (a mask in
+// the parameters of a kernel of its own, field_fwd_part_kernel, so that the
+// stash kernel's registers stay as they were).  The int8 stash is a kernel of
+// its own too (field_fwd_quant_kernel): after each quantized layer the consumer threads
+// take each row's amax from the layer's bf16 rows in shared memory, then
+// write its codes and scale to device memory with plain stores (16 bytes of
+// the row in, 8 out, per thread and chunk), in line with the products: the
+// simple design.  x7 and y1 leave by the tensor stores as before.
 
 #include "field_fwd.cuh"
 
@@ -56,7 +67,8 @@ __global__ void __launch_bounds__(ffwd::kThreads, 1) field_fwd_kernel(ffwd::Para
 
 struct StashParams {
   ffwd::Params p;
-  CUtensorMap stash[ffwd::kSlots];  // x0..x7, y0b, y1
+  CUtensorMap stash[ffwd::kSlots];  // x0..x7, y0b, y1 (those in mask)
+  unsigned mask;                    // field_fwd_part_kernel: bit l, layer l's slot is stashed
 };
 
 template <bool kSpan, bool kPoints>
@@ -64,6 +76,31 @@ __global__ void __launch_bounds__(ffwd::kThreads, 1)
     field_fwd_stash_kernel(const __grid_constant__ StashParams sp) {
   ffwd::forward_tile<true, kSpan, kPoints>(sp.p, sp.stash, blockIdx.y,
                                            blockIdx.x * ffwd::rays_per_cta<kSpan>(sp.p.S));
+}
+
+// a partial stash: the slots in the mask
+template <bool kSpan, bool kPoints>
+__global__ void __launch_bounds__(ffwd::kThreads, 1)
+    field_fwd_part_kernel(const __grid_constant__ StashParams sp) {
+  ffwd::forward_tile<true, kSpan, kPoints, ffwd::kFormMask>(
+      sp.p, sp.stash, blockIdx.y, blockIdx.x * ffwd::rays_per_cta<kSpan>(sp.p.S), sp.mask);
+}
+
+struct QuantParams {
+  ffwd::Params p;
+  CUtensorMap stash[ffwd::kSlots];       // x7 and y1 (slots 7 and 9) in bf16
+  signed char* codes[ffwd::kSlots];      // x0..x6, y0b (slots 0..6, 8): [B R S, H] int8
+  float* scales;                         // [B R S, kQuantTags] f32
+};
+
+// the int8 stash: its own instantiation, so that the bf16 stash kernels carry
+// none of the quantizer
+template <bool kSpan, bool kPoints>
+__global__ void __launch_bounds__(ffwd::kThreads, 1)
+    field_fwd_quant_kernel(const __grid_constant__ QuantParams qp) {
+  ffwd::forward_tile<true, kSpan, kPoints, ffwd::kFormQuant>(
+      qp.p, qp.stash, blockIdx.y, blockIdx.x * ffwd::rays_per_cta<kSpan>(qp.p.S), 0, qp.codes,
+      qp.scales);
 }
 
 template <typename Kernel, typename Arg>
@@ -87,8 +124,11 @@ extern "C" {
 // a multiple of 64 up to 192 or of 128 up to 384, and Kp a multiple of 64.
 // `wstream` is scratch for stream_slices(H, Kp) slices, which pack_stream
 // fills first.  `stash` is
-// null (no stash) or ten pointers: x0..x7, y0b ([B, R, S, H] bf16 each) and
-// y1 ([B, R, S, H/2]).  `encode`: `embed` holds the f32 points [B, R, S, 3],
+// null (no stash) or eleven pointers: x0..x7, y0b ([B, R, S, H] each) and y1
+// ([B, R, S, H/2]), null where the stash keeps no such slot, then the int8
+// stash's scales ([B, R, S, 8] f32), null for a bf16 stash; with the scales,
+// x0..x6 and y0b are int8 codes, x7 and y1 bf16, and every slot is given.
+// `encode`: `embed` holds the f32 points [B, R, S, 3],
 // which the tiles encode into De = 3 + 6 n_freqs columns, else the bf16
 // embedding [B, R, S, De].
 int fused_field_fwd(const void* embed, const float* zvals, const float* zdists,
@@ -138,12 +178,43 @@ int fused_field_fwd(const void* embed, const float* zvals, const float* zdists,
                     : (span ? field_fwd_kernel<true, false> : field_fwd_kernel<false, false>);
     return launch(k, p, B, R, S, Kp, H, st);
   }
+  const size_t points = (size_t)B * R * S;
+  auto map = [&](CUtensorMap* m, int k) {
+    return ffwd::stash_map(m, stash[k], points, k + 1 < ffwd::kSlots ? H : H / 2);
+  };
+  if (stash[ffwd::kSlots]) {  // the int8 stash
+    QuantParams qp = {};
+    qp.p = p;
+    for (int k = 0; k < ffwd::kSlots; ++k) {
+      if (!stash[k]) return (int)cudaErrorInvalidValue;
+      if (k == 7 || k == 9) {
+        if (!map(&qp.stash[k], k)) return (int)cudaErrorInvalidValue;
+      } else {
+        qp.codes[k] = static_cast<signed char*>(stash[k]);
+      }
+    }
+    qp.scales = static_cast<float*>(stash[ffwd::kSlots]);
+    auto k = encode ? (span ? field_fwd_quant_kernel<true, true>
+                            : field_fwd_quant_kernel<false, true>)
+                    : (span ? field_fwd_quant_kernel<true, false>
+                            : field_fwd_quant_kernel<false, false>);
+    return launch(k, qp, B, R, S, Kp, H, st);
+  }
   StashParams sp = {};
   sp.p = p;
-  const size_t points = (size_t)B * R * S;
-  for (int k = 0; k < ffwd::kSlots; ++k)
-    if (!ffwd::stash_map(&sp.stash[k], stash[k], points, k + 1 < ffwd::kSlots ? H : H / 2))
-      return (int)cudaErrorInvalidValue;
+  for (int k = 0; k < ffwd::kSlots; ++k) {
+    if (!stash[k]) continue;
+    if (!map(&sp.stash[k], k)) return (int)cudaErrorInvalidValue;
+    sp.mask |= 1u << k;
+  }
+  if (!sp.mask) return (int)cudaErrorInvalidValue;
+  if (sp.mask != (1u << ffwd::kSlots) - 1) {
+    auto k = encode ? (span ? field_fwd_part_kernel<true, true>
+                            : field_fwd_part_kernel<false, true>)
+                    : (span ? field_fwd_part_kernel<true, false>
+                            : field_fwd_part_kernel<false, false>);
+    return launch(k, sp, B, R, S, Kp, H, st);
+  }
   auto k = encode
                ? (span ? field_fwd_stash_kernel<true, true> : field_fwd_stash_kernel<false, true>)
                : (span ? field_fwd_stash_kernel<true, false> : field_fwd_stash_kernel<false, false>);

@@ -428,7 +428,7 @@ DUAL_CASES = {
     "narrow": (64, 8, 64),
     "training": (384, 64, 4096),
 }
-STASH_SLOTS = ("x0", "x1", "x2", "x3", "x4", "x5", "x6", "x7", "y0b", "y1")
+STASH_SLOTS = ff.STASH_TAGS  # x0..x7, y0b, y1
 Stash = collections.namedtuple("Stash", STASH_SLOTS)
 
 Outputs = collections.namedtuple("Outputs", ("feat_int", "bg_alpha", "depth", "weights"))
@@ -1107,3 +1107,187 @@ def f32_truth_failures(got, want, exact) -> Tuple[Dict[str, Tuple[float, ...]], 
     over both ``F32_TRUTH_FLOOR`` and ``F32_TRUTH_RATIO`` times the plain
     version's."""
     return truth_failures(got, want, want, exact, F32_TRUTH_RATIO, floor=F32_TRUTH_FLOOR)
+
+
+# ---------------------------------------------------------------------------
+# the stash's other forms (the JAX stash_every and stash_dtype): K1 writing
+# every k-th trunk layer, or x0..x6 and y0b as int8 codes; K2 reading them
+
+STASH_FORMS = {"every2": ff.StashForm(2), "every4": ff.StashForm(4),
+               "int8": ff.StashForm(1, "int8")}
+# the cases the forms are held in: K2's (narrow, training) and the deep
+# stash cases (deep128, deep256); the plain K2 sums the weight gradients in
+# the kernel's chunks in the deep ones
+STASH_FORM_CASES = ("narrow", "training", "deep256")
+
+
+# K2 reading the int8 stash against its plain version reading the same
+# codes, where it reads more than K2 reading the bf16 stash: per case and
+# output (max |kernel - plain| over max |plain|, relative L2), seed 0, on an
+# NVIDIA H100 80GB HBM3 (700 W).  In the narrow case dW5x, a sum over the
+# dequantized x4 (more of its entries exactly 0 than in bf16) of products
+# with the cotangent, reads 1.4e-4 against the bf16 stash's 5.0e-5.
+_K2_INT8_READINGS = {"narrow": {"dW5x": (1.4e-4, 6.2e-5)}}
+
+
+def form_case_limits(case: str) -> Tuple[Dict, Dict]:
+    """The limits of K2 reading a form against its plain version in
+    ``case``: (recomputing: a partial stash, whose missing layers kernel and
+    plain version recompute, each in its own summation order, so as K2
+    recomputing; reading: the int8 stash, whose dequantized values both
+    read alike, so as K2 reading the bf16 stash but where
+    ``_K2_INT8_READINGS`` gives a reading of its own, twice that)."""
+    own = {name: _limits(r) for name, r in _K2_INT8_READINGS.get(case, {}).items()}
+    if case in DEEP_STASH_CASES:
+        return DEEP_K2_LIMITS[case], {**DEEP_K2_STASH_LIMITS[case], **own}
+    return k2_limits(case), {**K2_STASH_LIMITS[case], **own}
+
+
+@torch.no_grad()
+def k1_form_failures(args, form, full_acts) -> Tuple[Tuple, Dict, List[str]]:
+    """K1 writing the stash in ``form`` on the card, given K1's bf16 stash of
+    every layer on the same inputs (``full_acts``): its outputs against K1's
+    without the stash, to the bit; a kept bf16 slot against the same slot of
+    ``full_acts``, to the bit; the int8 codes and scales against the plain
+    quantizer (:func:`~gazenerf_tpu_torch.kernels.fused_field.quantize_rows`)
+    run on the card over ``full_acts``, to the bit.  Returns the outputs and
+    the stash, a reading per slot (entries that differ), and the failures."""
+    H = args[6].wmid.shape[1]
+    out, acts = ff.fused_field_forward(*args, stash=form)
+    fails = []
+    if not all(torch.equal(a, b) for a, b in zip(out, ff.fused_field_forward(*args))):
+        fails.append("outputs differ from K1's without the stash")
+    full = dict(zip(STASH_SLOTS, full_acts))
+    q = ff.stash_quant_tags(form)
+    slots = acts[:-1] if q else acts
+    layout = ff.stash_layout(H, form)
+    if len(slots) != len(layout):
+        fails.append(f"{len(slots)} slots, expected {len(layout)}")
+    readings = {}
+    for (tag, _), t in zip(layout, slots):
+        if tag in q:
+            codes, s = ff.quantize_rows(full[tag].float())
+            readings[tag] = int((t != codes).sum())
+            readings[f"{tag}_scale"] = int((acts[-1][..., q.index(tag)] != s).sum())
+        else:
+            readings[tag] = int((t != full[tag]).sum())
+    fails += [f"{name}: {n} entries differ" for name, n in readings.items() if n]
+    return (out, acts), readings, fails
+
+
+@torch.no_grad()
+def k2_form_failures(case, args, cot, form, acts, full_grads, dens_vpu: bool, chunks=None,
+                     truth: bool = False) -> Tuple[object, Dict, List[str]]:
+    """K2 reading the stash ``acts`` in ``form`` on the card.  A partial
+    stash: its gradients equal ``full_grads`` (K2 reading the bf16 stash of
+    every layer with the same ``dens_vpu``) to the bit, and lie within K2's
+    recompute limits of the plain version reading the same stash.  The int8
+    stash: within the bf16 stash's limits of the plain version reading the
+    same codes (:func:`form_case_limits`) and, with ``truth``, within
+    ``K2_STASH_TRUTH_RATIO`` of it from the unrounded float64 gradient.
+    Returns the gradients, the readings and the failures."""
+    got = ffb.fused_field_backward(*args, *cot, stash=acts, dens_vpu=dens_vpu, stash_form=form)
+    want = ffb.fused_field_backward_reference(*args, *cot, stash=acts, dens_vpu=dens_vpu,
+                                              stash_form=form, chunks=chunks)
+    recompute_limits, stash_limits = form_case_limits(case)
+    int8 = form.dtype == "int8"
+    line = {}
+    line["readings"], fails = limit_failures(got, want, stash_limits if int8 else recompute_limits)
+    line["max_abs_err"] = float(max((a - b).abs().max() for a, b in zip(got, want)))
+    if int8:
+        if truth:
+            want64 = ffb.fused_field_backward_reference(
+                *args, *cot, stash=acts, dens_vpu=dens_vpu, stash_form=form, chunks=chunks,
+                dtype=torch.float64)
+            exact = ffb.fused_field_backward_unrounded(*args, *cot)
+            line["unrounded_distance"], f = truth_failures(
+                got, want, want64, exact, K2_STASH_TRUTH_RATIO, K2_STASH_TRUTH_EXEMPT)
+            fails += f
+    else:
+        differ = [n for n, a, b in zip(got._fields, got, full_grads) if not torch.equal(a, b)]
+        line["differ_from_full_stash"] = differ
+        if differ:
+            fails.append(f"vs K2 reading the full stash: {differ} differ")
+    return got, line, fails
+
+
+# K2 given the points reading the int8 stash against its plain version
+# reading the same codes, per case and output where it reads more than K2
+# given the points reading the bf16 stash (POINTS_K2_LIMITS["<case>_stash"];
+# at S = 256, where that case was not read, the embedding's deep stash
+# limits and the points' cotangent's own reading): (max |kernel - plain|
+# over max |plain|, relative L2), seed 0, on an NVIDIA H100 80GB HBM3 (700
+# W).  In the narrow case dW0e, a sum of the embedding's products with the
+# cotangent through the dequantized x0, reads 2.94e-4 against the bf16
+# stash's 5.9e-5, as dW5x does given the embedding (_K2_INT8_READINGS).
+_POINTS_INT8_READINGS = {"narrow": {"dW0e": (3.0e-4, 1.1e-4)},
+                         "deep256": {"dembed": (5.2e-6, 5.2e-6)}}
+
+
+def points_form_limits(case: str, form) -> Dict:
+    """The limits of K2 given the points reading the stash ``form`` against
+    its plain version in ``case``: a partial stash's as K2 given the points
+    recomputing (``POINTS_K2_LIMITS``, as :func:`form_case_limits` holds a
+    partial stash), the int8 stash's as K2 given the points reading the
+    bf16 stash, or where ``_POINTS_INT8_READINGS`` gives a reading, twice
+    that."""
+    if form.dtype != "int8":
+        return POINTS_K2_LIMITS[case]
+    limits = dict(POINTS_K2_LIMITS.get(f"{case}_stash") or DEEP_K2_STASH_LIMITS[case])
+    limits.update({name: _limits(r) for name, r in _POINTS_INT8_READINGS.get(case, {}).items()})
+    return limits
+
+
+@torch.no_grad()
+def points_form_failures(case, args, cot, form, chunks=None) -> Tuple[Dict, List[str]]:
+    """The stash ``form`` with the sample points encoded in the tiles
+    (``embed_in_kernel``) on the card, given the points' ``args``
+    (:func:`points_case`).  K1 given the points writing the form equals K1
+    given the plain encoding computed on the card and rounded to bf16
+    writing it: its outputs and every slot, codes and scales, to the bit.
+    K2 given the points reading that stash, with and without ``dens_vpu``:
+    every output but the points' cotangent equals K2's given that encoding
+    reading the same stash, to the bit; a partial stash gives K2 given the
+    points reading their full bf16 stash to the bit, the points' cotangent
+    included; each form lies within the limits of its plain version given
+    the points reading the same stash (:func:`points_form_limits`).  Returns
+    the readings and the failures."""
+    nf = N_FREQS
+    eargs = (ff.encoded(args[0], nf).to(torch.bfloat16), *args[1:])
+    out, acts = ff.fused_field_forward(*args, stash=form, n_freqs=nf)
+    want, wacts = ff.fused_field_forward(*eargs, stash=form)
+    line = {"k1_outputs_differ": [int((a != b).sum()) for a, b in zip(out, want)],
+            "k1_slots_differ": [int((a != b).sum()) for a, b in zip(acts, wacts)]}
+    fails = []
+    if len(acts) != len(wacts) or any(line["k1_outputs_differ"] + line["k1_slots_differ"]):
+        fails.append(f"K1 differs from K1 given the card's encoding: {line}")
+    del out, want, wacts
+    int8 = form.dtype == "int8"
+    full = None if int8 else ff.fused_field_forward(*args, stash=True, n_freqs=nf)[1]
+    limits = points_form_limits(case, form)
+    for dens_vpu in (False, True):
+        mode = dict(stash=acts, dens_vpu=dens_vpu, stash_form=form)
+        got = ffb.fused_field_backward(*args, *cot, n_freqs=nf, **mode)
+        on_enc = ffb.fused_field_backward(*eargs, *cot, **mode)
+        r = {"differ_from_card_encoding": [n for n, a, b in zip(got._fields[1:], got[1:],
+                                                                on_enc[1:])
+                                           if not torch.equal(a, b)]}
+        if r["differ_from_card_encoding"]:
+            fails.append(f"dens_vpu={dens_vpu}: K2 differs from K2 given the card's encoding in "
+                         f"{r['differ_from_card_encoding']}")
+        del on_enc
+        if full is not None:
+            fg = ffb.fused_field_backward(*args, *cot, stash=full, dens_vpu=dens_vpu, n_freqs=nf)
+            r["differ_from_full_stash"] = [n for n, a, b in zip(got._fields, got, fg)
+                                           if not torch.equal(a, b)]
+            if r["differ_from_full_stash"]:
+                fails.append(f"dens_vpu={dens_vpu}: vs K2 reading the full stash: "
+                             f"{r['differ_from_full_stash']} differ")
+            del fg
+        plain = ffb.fused_field_backward_reference(*args, *cot, n_freqs=nf, chunks=chunks, **mode)
+        r["readings"], f = limit_failures(got, plain, limits)
+        r["max_abs_err"] = float(max((a - b).abs().max() for a, b in zip(got, plain)))
+        fails += [f"dens_vpu={dens_vpu}: {x}" for x in f]
+        line[f"k2_dens_vpu_{dens_vpu}"] = r
+        del got, plain
+    return line, fails

@@ -2,8 +2,10 @@
 
 Counterpart of the JAX package's ``kernels/fused_field.py`` (its Pallas
 ``_field_kernel``, launched by ``_pallas_forward``), with and without the
-bf16 activation stash (``stash_acts``, ``stash_every=1``) that the backward
-can read in place of its recompute, and with the sample points encoded in
+activation stash (``stash_acts``) that the backward can read in place of its
+recompute, in each of its forms (:class:`StashForm`: every layer in bf16,
+every k-th trunk layer, or x0..x6 and y0b as int8 codes with a scale per
+point), and with the sample points encoded in
 the kernel's tile (``embed_in_kernel``: the input is the points ``[B, R, S,
 3]`` f32, encoded as :func:`~gazenerf_tpu_torch.ops.embedding.
 positional_encoding_matmul` in f32 and rounded to bf16 once) or the
@@ -25,7 +27,7 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Dict, Mapping, NamedTuple, Tuple
+from typing import Dict, List, Mapping, NamedTuple, Tuple
 
 import torch
 
@@ -147,18 +149,109 @@ def encoded(embed: torch.Tensor, n_freqs) -> torch.Tensor:
                                       n_freqs)
 
 
+class StashForm(NamedTuple):
+    """The form of the activation stash (the JAX ``FieldDims``'
+    ``stash_every`` and ``stash_dtype``): ``every`` 1 stashes x0..x7, y0b
+    and y1, ``every`` k > 1 the trunk layers i with i % k == k - 1 (none for
+    k >= 9); ``dtype`` "int8" stores x0..x6 and y0b as int8 codes, a scale
+    per point and tag, and needs ``every`` 1."""
+
+    every: int = 1
+    dtype: str = "bfloat16"
+
+
+def as_form(stash) -> StashForm:
+    """``stash`` (True or a :class:`StashForm`) as a form."""
+    return stash if isinstance(stash, StashForm) else StashForm()
+
+
+# the stash tensors the backward feeds into the recomputed heads (the
+# density from x7, the features from y1): bf16 in every form, so that no
+# quantization error enters the integration backward
+EXACT_STASH_TAGS = frozenset({"x7", "y1"})
+STASH_TAGS = tuple(f"x{i}" for i in range(8)) + ("y0b", "y1")  # by layer: fea_0..7, rgb_0, rgb_1
+# 1 / 127 rounded to f32 (0x3c010204), the int8 stash's scale per unit of amax
+INV_127 = float.fromhex("0x1.020408p-7")
+
+
+def stash_layout(H: int, form: StashForm = StashForm()) -> List[Tuple[str, int]]:
+    """The stash's ``(tag, width)`` slots, in the order the forward gives
+    them (the JAX ``stash_layout``): every layer with ``every`` 1 (y1 at
+    width ``H/2``), else the trunk layers i with i % k == k - 1."""
+    k = max(1, form.every)
+    if k == 1:
+        return [(t, H // 2 if t == "y1" else H) for t in STASH_TAGS]
+    return [(f"x{i}", H) for i in range(8) if i % k == k - 1]
+
+
+def stash_quant_tags(form: StashForm = StashForm()) -> List[str]:
+    """The tags stored as int8 codes (the JAX ``stash_quant_tags``): x0..x6
+    and y0b under ``dtype`` "int8", which needs ``every`` 1."""
+    if form.dtype != "int8":
+        return []
+    if form.every != 1:
+        raise ValueError(f"the int8 stash needs stash_every=1, not {form.every}")
+    return [t for t, _ in stash_layout(0, form) if t not in EXACT_STASH_TAGS]
+
+
+def stash_shapes(B: int, R: int, S: int, H: int, form: StashForm = StashForm()):
+    """The stash's tensors as ``(shape, dtype)``: the layout's slots
+    ``[B, R, S, width]``, bf16 or int8 codes, then with int8 codes their f32
+    scales ``[B, R, S, n]``, one per point and quantized tag."""
+    q = stash_quant_tags(form)
+    out = [((B, R, S, w), torch.int8 if t in q else torch.bfloat16)
+           for t, w in stash_layout(H, form)]
+    if q:
+        out.append(((B, R, S, len(q)), torch.float32))
+    return out
+
+
+def quantize_rows(v: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric int8 codes of each row of ``v`` (f32 holding bf16 values)
+    and their f32 scales, as the JAX kernel quantizes a stash row, ``s =
+    max(amax, 1e-12) / 127``, ``q = clip(round(v * (1 / s)), -127, 127)``,
+    and XLA computes it: the quotient by 127 as the product by 127's f32
+    reciprocal, ``1 / s`` a quotient, the product by it rounded half to
+    even.  Each operation is tensor by tensor, one rounding each, on any
+    device."""
+    a = torch.clamp(v.abs().amax(-1, keepdim=True), min=1e-12)
+    s = a * torch.full_like(a, INV_127)
+    q = torch.clamp(torch.round(v * (torch.ones_like(s) / s)), -127.0, 127.0)
+    return q.to(torch.int8), s[..., 0]
+
+
+def dequantize_rows(q: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """The bf16 values the backward reads for int8 codes ``q`` with row
+    scales ``s``: ``bf16(q * s)``, the product in f32."""
+    return (q.to(torch.float32) * s[..., None]).to(torch.bfloat16)
+
+
+def stash_values(stash, H: int, form: StashForm = StashForm()) -> Dict[str, torch.Tensor]:
+    """The stash's tensors by tag, as the bf16 values the backward reads
+    (int8 codes dequantized with their scales)."""
+    q = stash_quant_tags(form)
+    slots = stash[:-1] if q else stash
+    out = {}
+    for (tag, _), t in zip(stash_layout(H, form), slots):
+        out[tag] = dequantize_rows(t, stash[-1][..., q.index(tag)]) if tag in q else t
+    return out
+
+
 def fused_field_reference(embed, zvals, zdists, cb0, cb5, cbr1, w: FieldOperands,
-                          stash: bool = False, n_freqs=None):
+                          stash=False, n_freqs=None):
     """Plain PyTorch version of the kernel, with its rounding points.
 
     bf16-in / f32-accumulate products are emulated by rounding each operand
     to bf16 and multiplying in f32.  Returns ``(feat_int [B,R,C], bg_alpha
-    [B,R], depth [B,R], weights [B,R,S])``, all f32.  With ``stash`` it
-    returns ``(outputs, acts)``: ``acts`` the activation stash the JAX
-    kernel writes under a gradient, the bf16 values x0..x7 and y0b
-    (``[B,R,S,H]``) and y1 (``[B,R,S,H/2]``) that its products read.
-    With ``n_freqs`` (``embed_in_kernel``) ``embed`` is the sample points
-    ``[B,R,S,3]``, encoded in f32 (:func:`encoded`).
+    [B,R], depth [B,R], weights [B,R,S])``, all f32.  With ``stash`` (True,
+    or a :class:`StashForm`) it returns ``(outputs, acts)``: ``acts`` the
+    activation stash the JAX kernel writes under a gradient, in the form's
+    layout (:func:`stash_shapes`): of the bf16 values x0..x7 and y0b
+    (``[B,R,S,H]``) and y1 (``[B,R,S,H/2]``) that its products read, those
+    the form keeps, int8 codes and their scales (:func:`quantize_rows`) in
+    place of the quantized tags.  With ``n_freqs`` (``embed_in_kernel``)
+    ``embed`` is the sample points ``[B,R,S,3]``, encoded in f32
+    (:func:`encoded`).
     """
     f32 = torch.float32
     embed = encoded(embed, n_freqs)
@@ -192,11 +285,24 @@ def fused_field_reference(embed, zvals, zdists, cb0, cb5, cbr1, w: FieldOperands
     out = (feat_int, 1.0 - wts.sum(-1), (wts * zvals).sum(-1), wts)
     if not stash:
         return out
-    return out, tuple(a.to(torch.bfloat16).reshape(B, R, S, -1) for a in (*acts, y0, y1))
+    form = as_form(stash)
+    values = dict(zip(STASH_TAGS, (*acts, y0, y1)))
+    q = stash_quant_tags(form)
+    slots, scales = [], []
+    for tag, _ in stash_layout(w.wmid.shape[1], form):
+        v = values[tag].reshape(B, R, S, -1)
+        if tag in q:
+            codes, s = quantize_rows(v)
+            slots.append(codes)
+            scales.append(s)
+        else:
+            slots.append(v.to(torch.bfloat16))
+    if scales:
+        slots.append(torch.stack(scales, -1))
+    return out, tuple(slots)
 
 
 _ARGTYPES = [ctypes.c_void_p] * 24 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
-N_SLOTS = 10  # the stash: x0..x7, y0b, y1
 
 
 def _library() -> ctypes.CDLL:
@@ -286,19 +392,16 @@ def stream_slices(H: int, Kp: int) -> int:
     return passes * (2 * Kp + 8 * H) // SLICE_K + H // SLICE_K
 
 
-def stash_shapes(B: int, R: int, S: int, H: int):
-    """The stash's ten ``[B, R, S, width]`` bf16 slots: x0..x7 and y0b at
-    width ``H``, y1 at ``H/2`` (the JAX ``stash_layout`` with
-    ``stash_every=1``)."""
-    return [(B, R, S, H)] * (N_SLOTS - 1) + [(B, R, S, H // 2)]
+def stash_pointers(stash, H: int, form: StashForm):
+    """The kernels' C array of a stash's pointers: one per layer (x0..x7,
+    y0b, y1; null where the form keeps none), then the int8 codes' scales
+    (null for a bf16 stash)."""
+    ptrs = dict(zip((t for t, _ in stash_layout(H, form)), (t.data_ptr() for t in stash)))
+    scales = stash[-1].data_ptr() if stash_quant_tags(form) else None
+    return (ctypes.c_void_p * (len(STASH_TAGS) + 1))(*(ptrs.get(t) for t in STASH_TAGS), scales)
 
 
-def pointer_array(tensors):
-    """A C array of the tensors' device pointers (a kernel's ``void* const*``)."""
-    return (ctypes.c_void_p * len(tensors))(*(t.data_ptr() for t in tensors))
-
-
-def _launch(embed, zvals, zdists, cb0, cb5, cbr1, w: FieldOperands, stash: bool = False,
+def _launch(embed, zvals, zdists, cb0, cb5, cbr1, w: FieldOperands, stash=False,
             n_freqs=None):
     global launch_count
     B, R, S, Din = embed.shape
@@ -335,8 +438,9 @@ def _launch(embed, zvals, zdists, cb0, cb5, cbr1, w: FieldOperands, stash: bool 
     bga = torch.empty((B, R), dtype=f32, device=dev)
     depth = torch.empty((B, R), dtype=f32, device=dev)
     wts = torch.empty((B, R, S), dtype=f32, device=dev)
-    acts = tuple(torch.empty(s, dtype=bf, device=dev) for s in stash_shapes(B, R, S, H)) \
-        if stash else ()
+    form = as_form(stash)
+    acts = tuple(torch.empty(shape, dtype=dtype, device=dev)
+                 for shape, dtype in stash_shapes(B, R, S, H, form)) if stash else ()
     ins = [t for t, _, _ in expected.values()]
     # scratch for the weight stream, packed by the call (alive only while
     # the kernel runs: the stream repeats the weights)
@@ -344,7 +448,7 @@ def _launch(embed, zvals, zdists, cb0, cb5, cbr1, w: FieldOperands, stash: bool 
     err = lib.fused_field_fwd(
         *(t.data_ptr() for t in ins), stream.data_ptr(),
         *(t.data_ptr() for t in (feat, bga, depth, wts)),
-        pointer_array(acts) if stash else None,
+        stash_pointers(acts, H, form) if acts else None,
         B, R, S, De, Kp, H, C, int(n_freqs is not None),
         torch.cuda.current_stream(dev).cuda_stream,
     )
@@ -356,16 +460,18 @@ def _launch(embed, zvals, zdists, cb0, cb5, cbr1, w: FieldOperands, stash: bool 
 
 
 def fused_field_forward(
-    embed, zvals, zdists, cb0, cb5, cbr1, w: FieldOperands, stash: bool = False, n_freqs=None
+    embed, zvals, zdists, cb0, cb5, cbr1, w: FieldOperands, stash=False, n_freqs=None
 ) -> Tuple[torch.Tensor, ...]:
     """The kernel's wrapper.  CUDA tensors launch the kernel (on the current
     stream, no synchronisation); CPU tensors take
     :func:`fused_field_reference`.  ``embed`` is the bf16 embedding, or
     with ``n_freqs`` (``embed_in_kernel``) the f32 sample points ``[B, R,
-    S, 3]``, which the kernel encodes.  With ``stash`` it returns
-    ``(outputs, acts)``, the ten stash tensors as the plain version gives
-    them.  No autograd: :func:`fused_field_render` wraps it in
-    :class:`FusedField`, whose backward is the backward kernel."""
+    S, 3]``, which the kernel encodes.  With ``stash`` (True: the bf16 stash
+    of every layer, or a :class:`StashForm`) it returns ``(outputs, acts)``,
+    the stash tensors of the form as the plain version gives them (none
+    where the form keeps no layer: the kernel then writes none).  No
+    autograd: :func:`fused_field_render` wraps it in :class:`FusedField`,
+    whose backward is the backward kernel."""
     if embed.device.type == "cpu":
         return fused_field_reference(embed, zvals, zdists, cb0, cb5, cbr1, w, stash=stash,
                                      n_freqs=n_freqs)
@@ -384,21 +490,23 @@ class FusedField(torch.autograd.Function):
     """Field + integration with the backward kernel as its gradient (the
     JAX package's ``custom_vjp`` around the two Pallas kernels).
 
-    Inputs: the bf16 kernel operands (values), whether to stash, whether
+    Inputs: the bf16 kernel operands (values), whether to stash (False;
+    True, the bf16 stash of every layer; or a :class:`StashForm`), whether
     the backward takes the ``dens_vpu`` density head, ``n_freqs`` (None, or
     the octaves of the points the kernels encode: ``embed_in_kernel``), then
     the embedding (or the points), z values, segment lengths, conditioning
     rows and the :data:`WEIGHT_KEYS` blocks (f32 views of the parameters,
     which receive the weight gradients).  The forward launches the forward kernel and saves its
-    inputs and, with the stash, the ten stash tensors, which autograd holds
-    until it frees the graph (a backward with ``retain_graph`` can run again
-    on them) and the backward reads; without the stash the backward
-    recomputes them.  The embedding's
+    inputs and, with the stash, the form's stash tensors, which autograd
+    holds until it frees the graph (a backward with ``retain_graph`` can run
+    again on them) and the backward reads, recomputing the layers the form
+    does not keep; without the stash (or with a form that keeps no layer)
+    the backward recomputes them all.  The embedding's
     cotangent comes back in the embedding's dtype (a bf16 embedding's is its
     f32 cotangent rounded once); the points' in f32."""
 
     @staticmethod
-    def forward(ctx, ops: FieldOperands, stash: bool, dens_vpu: bool, n_freqs, embed, zvals,
+    def forward(ctx, ops: FieldOperands, stash, dens_vpu: bool, n_freqs, embed, zvals,
                 zdists, cb0, cb5, cbr1, *weights):
         if n_freqs is None:
             e = embed.to(torch.bfloat16).contiguous()
@@ -416,6 +524,7 @@ class FusedField(torch.autograd.Function):
         ctx.embed_dtype = embed.dtype
         ctx.dens_vpu = dens_vpu
         ctx.n_freqs = n_freqs
+        ctx.stash_form = as_form(stash)
         return out
 
     @staticmethod
@@ -434,8 +543,9 @@ class FusedField(torch.autograd.Function):
 
         C = ops[-1].shape[0]
         # the modes in use only: a recompute-mode call takes the plain signature
+        form = ctx.stash_form if acts and ctx.stash_form != StashForm() else None
         mode = {k: v for k, v in (("stash", acts), ("dens_vpu", ctx.dens_vpu),
-                                  ("n_freqs", ctx.n_freqs)) if v}
+                                  ("n_freqs", ctx.n_freqs), ("stash_form", form)) if v}
         g = fused_field_bwd.fused_field_backward(
             e, zvals, zdists, cb0, cb5, cbr1, FieldOperands(*ops),
             cot(gfeat, (B, R, C)), cot(gbga, (B, R)), cot(gdepth, (B, R)), cot(gw, (B, R, S)),
@@ -450,7 +560,8 @@ class FusedField(torch.autograd.Function):
 
 
 def fused_field_render(p, ops: FieldOperands, embed, sc, ac, zvals, zdists,
-                       stash_acts: bool = False, dens_vpu: bool = False, n_freqs=None):
+                       stash_acts: bool = False, dens_vpu: bool = False, n_freqs=None,
+                       stash_form: StashForm = StashForm()):
     """Field evaluation + integration for one branch.
 
     ``p``: the field's :func:`split_params` blocks and ``ops`` its
@@ -459,11 +570,12 @@ def fused_field_render(p, ops: FieldOperands, embed, sc, ac, zvals, zdists,
     autograd the gradients reach ``p``'s blocks, the codes and the
     embedding.  With ``stash_acts`` the forward writes the activation stash
     for the backward to read, only where a backward will run (under a
-    gradient, some input requiring one), as the JAX primal call skips it;
-    ``dens_vpu`` selects the backward's ``dens_vpu`` rounding of dWd.  With
-    ``n_freqs`` (``embed_in_kernel``) ``embed`` is the sample points ``[B,
-    R, S, 3]``, which the kernels encode at ``n_freqs`` octaves, and the
-    gradient reaches the points.
+    gradient, some input requiring one), as the JAX primal call skips it,
+    in the form ``stash_form`` (:class:`StashForm`); ``dens_vpu`` selects
+    the backward's ``dens_vpu`` rounding of dWd.  With ``n_freqs``
+    (``embed_in_kernel``) ``embed`` is the sample points ``[B, R, S, 3]``,
+    which the kernels encode at ``n_freqs`` octaves, and the gradient
+    reaches the points.
     Returns ``(feat_int [B,R,C], bg_alpha [B,R], depth [B,R], weights
     [B,R,S])``.
     """
@@ -471,6 +583,10 @@ def fused_field_render(p, ops: FieldOperands, embed, sc, ac, zvals, zdists,
     weights = [p[k] for k in WEIGHT_KEYS]
     stash = stash_acts and torch.is_grad_enabled() and any(
         t.requires_grad for t in (embed, sc, ac, zvals, zdists, *weights))
+    if stash_acts:  # an int8 form needs stash_every 1 (no stash, no form: JAX's [])
+        stash_quant_tags(stash_form)
+    if stash and stash_form != StashForm():
+        stash = stash_form  # else True: the bf16 stash of every layer
     return FusedField.apply(
         ops, stash, dens_vpu, n_freqs, embed, zvals.to(torch.float32).contiguous(),
         zdists.to(torch.float32).contiguous(), cb0, cb5, cbr1, *weights,

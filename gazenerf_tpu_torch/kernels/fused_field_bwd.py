@@ -2,8 +2,11 @@
 
 Counterpart of the JAX package's ``kernels/fused_field_bwd.py`` (its Pallas
 ``_bwd_kernel``, launched by ``pallas_backward``) in recompute mode or
-reading the forward's bf16 activation stash (``stash_acts``,
-``stash_every=1``), with or without ``dens_vpu``, given the embedding (its
+reading the forward's activation stash (``stash_acts``) in any of its forms
+(:class:`~gazenerf_tpu_torch.kernels.fused_field.StashForm`: the bf16 stash
+of every layer; every k-th trunk layer, the others recomputed in forward
+order from the nearest stashed one; x0..x6 and y0b as int8 codes,
+dequantized to bf16), with or without ``dens_vpu``, given the embedding (its
 cotangent in f32) or the sample points that it encodes in its tile as the
 forward does
 (``embed_in_kernel``: the cotangent is the points', ``[B, R, S, 3]`` f32,
@@ -35,7 +38,13 @@ import torch
 from gazenerf_tpu_torch.kernels import build
 from gazenerf_tpu_torch.kernels import field_dw
 from gazenerf_tpu_torch.kernels import fused_field as ff
-from gazenerf_tpu_torch.kernels.fused_field import FieldOperands, check_tensor, encoded
+from gazenerf_tpu_torch.kernels.fused_field import (
+    FieldOperands,
+    StashForm,
+    check_tensor,
+    encoded,
+    stash_values,
+)
 from gazenerf_tpu_torch.ops.embedding import (
     positional_encoding_matmul,
     positional_encoding_matmul_vjp,
@@ -120,6 +129,7 @@ def density_pre(x7: torch.Tensor, wd: torch.Tensor, bd: torch.Tensor) -> torch.T
 def fused_field_backward_reference(
     embed, zvals, zdists, cb0, cb5, cbr1, w: FieldOperands, gfeat, gbga, gdepth, gw,
     dtype=torch.float32, stash=None, chunks=None, dens_vpu=False, n_freqs=None,
+    stash_form: StashForm = StashForm(),
 ) -> FieldGrads:
     """Plain PyTorch version of the kernel, with the Pallas kernel's
     formulas and rounding points: the forward recomputed with K1's bf16
@@ -129,9 +139,11 @@ def fused_field_backward_reference(
     order (:func:`density_pre`).  ``embed`` is bf16 (its values are what the
     kernel reads); every output is f32.  ``dtype=torch.float64`` computes
     between the same rounding points in float64 instead.  ``stash``, the
-    forward's bf16 activations x0..x7, y0b and y1
-    (``fused_field_reference(..., stash=True)``), takes the recompute's
-    place, as the Pallas kernel's stash-read mode does.  ``chunks``, a
+    forward's stash in the form ``stash_form`` (``fused_field_reference(...,
+    stash=stash_form)``), takes the recompute's place, as the Pallas
+    kernel's stash-read mode does: int8 codes dequantized to the bf16 values
+    ``bf16(q * s)``, the layers the form does not keep recomputed in forward
+    order as the recompute computes them.  ``chunks``, a
     :func:`~gazenerf_tpu_torch.kernels.field_dw.plan_chunks` plan, sums every
     weight gradient chunk by chunk in the kernel's order, else over all
     points at once.  ``dens_vpu``: the density head's weight gradient takes
@@ -145,7 +157,7 @@ def fused_field_backward_reference(
     pts = None if n_freqs is None else embed.to(dtype)
     grads, dembed5, dembed0 = fused_field_backward_parts(
         embed if pts is None else encoded(pts, n_freqs), zvals, zdists, cb0, cb5, cbr1, w,
-        gfeat, gbga, gdepth, gw, dtype, stash, chunks, dens_vpu)
+        gfeat, gbga, gdepth, gw, dtype, stash, chunks, dens_vpu, stash_form)
     dembed = dembed5 + dembed0
     if pts is not None:
         return grads._replace(dembed=positional_encoding_matmul_vjp(pts, dembed, n_freqs))
@@ -154,7 +166,7 @@ def fused_field_backward_reference(
 
 def fused_field_backward_parts(embed, zvals, zdists, cb0, cb5, cbr1, w: FieldOperands, gfeat,
                                gbga, gdepth, gw, dtype=torch.float32, stash=None, chunks=None,
-                               dens_vpu=False):
+                               dens_vpu=False, stash_form: StashForm = StashForm()):
     """:func:`fused_field_backward_reference` with the embedding cotangent
     in its two parts, through ``fea_5``'s and through ``fea_0``'s embedding
     rows (``dembed`` is None): the dual-branch backward sums them across
@@ -178,20 +190,27 @@ def fused_field_backward_parts(embed, zvals, zdists, cb0, cb5, cbr1, w: FieldOpe
         return field_dw.chunked_weight_grad_reference(x, g, chunks)
 
     e = rnd(embed.reshape(B, R * S, De))
-    if stash is None:  # ---- recompute ----
-        acts = [rnd(torch.relu(dense(e, w.w0e[:, :De]) + cb0[:, None, :]))]
-        mid = 0
-        for i in range(1, 8):
-            if i == 5:
-                y = dense(e, w.w5e[:, :De]) + dense(acts[4], w.w5x) + cb5[:, None, :]
-            else:
-                y = dense(acts[-1], w.wmid[mid]) + w.bmid[mid]
-                mid += 1
-            acts.append(rnd(torch.relu(y)))
+    # ---- the stash's layers, the others recomputed in forward order ----
+    kept = {} if stash is None else {
+        t: v.reshape(B, R * S, -1).to(f32)
+        for t, v in stash_values(stash, w.wmid.shape[1], stash_form).items()}
+    acts = []
+    for i in range(8):
+        if f"x{i}" in kept:
+            acts.append(kept[f"x{i}"])
+        elif i == 0:
+            acts.append(rnd(torch.relu(dense(e, w.w0e[:, :De]) + cb0[:, None, :])))
+        elif i == 5:
+            acts.append(rnd(torch.relu(dense(e, w.w5e[:, :De]) + dense(acts[4], w.w5x)
+                                       + cb5[:, None, :])))
+        else:
+            m = i - 1 if i < 5 else i - 2
+            acts.append(rnd(torch.relu(dense(acts[-1], w.wmid[m]) + w.bmid[m])))
+    if "y0b" in kept:
+        y0b, y1 = kept["y0b"], kept["y1"]
+    else:
         y0b = rnd(dense(acts[7], w.wr0) + w.br0)
         y1 = rnd(torch.relu(dense(y0b, w.wr1x) + cbr1[:, None, :]))
-    else:  # ---- the stash ----
-        *acts, y0b, y1 = (a.reshape(B, R * S, -1).to(f32) for a in stash)
     x7 = acts[7]
     dens_pre = density_pre(x7, w.wd, w.bd)  # [B, N]
     sigma = torch.relu(dens_pre).reshape(B, R, S)
@@ -338,12 +357,24 @@ def layout(layout_fn, B: int, S: int, Kp: int, H: int, C: int, G: int, chunk_til
            *mode: int):
     """A backward library's buffer layout: the gradient blocks' offsets (in
     floats), the gradient buffer's length and the scratch's bytes.  ``mode``:
-    the library's further arguments (K2's: whether it reads a stash, and
-    whether it takes the points)."""
+    the library's further arguments (K2's: its stash mode, :func:`stash_mode`,
+    and whether it takes the points)."""
     out = (ctypes.c_longlong * (len(_GRAD_BLOCKS) + 2))()
     layout_fn(B, S, Kp, H, C, G, chunk_tiles, *mode, out)
     n = len(_GRAD_BLOCKS)
     return list(out[:n]), out[n], out[n + 1]
+
+
+# K2's stash modes: recomputing, reading the bf16 stash of every layer, and
+# reading another form (the chunk buffer then holds the layers it rebuilds)
+RECOMPUTE, FULL_STASH, OTHER_STASH = 0, 1, 2
+
+
+def stash_mode(stash, form: StashForm) -> int:
+    """K2's mode for ``stash`` (None or the tensors) in ``form``."""
+    if stash is None:
+        return RECOMPUTE
+    return FULL_STASH if form == StashForm() else OTHER_STASH
 
 
 def persistent_ctas(dev, n_tiles: int) -> int:
@@ -353,7 +384,8 @@ def persistent_ctas(dev, n_tiles: int) -> int:
 
 
 def _launch(embed, zvals, zdists, cb0, cb5, cbr1, w: FieldOperands, gfeat, gbga, gdepth, gw,
-            stash=None, dens_vpu=False, n_freqs=None) -> FieldGrads:
+            stash=None, dens_vpu=False, n_freqs=None,
+            stash_form: StashForm = StashForm()) -> FieldGrads:
     global launch_count
     B, R, S, De = embed.shape
     points = n_freqs is not None
@@ -402,23 +434,26 @@ def _launch(embed, zvals, zdists, cb0, cb5, cbr1, w: FieldOperands, gfeat, gbga,
     for name, (t, dtype, shape) in expected.items():
         check_tensor(name, t, dev, dtype, shape)
     if stash is not None:
-        if len(stash) != ff.N_SLOTS:
-            raise ValueError(f"stash: {len(stash)} tensors, expected {ff.N_SLOTS}")
-        for i, (t, shape) in enumerate(zip(stash, ff.stash_shapes(B, R, S, H))):
-            check_tensor(f"stash[{i}]", t, dev, bf, shape)
+        want = ff.stash_shapes(B, R, S, H, stash_form)
+        if not want or len(stash) != len(want):
+            raise ValueError(f"stash: {len(stash)} tensors, expected {len(want)} for "
+                             f"{stash_form} (a form that keeps no layer takes no stash)")
+        for i, (t, (shape, dtype)) in enumerate(zip(stash, want)):
+            check_tensor(f"stash[{i}]", t, dev, dtype, shape)
+    mode = stash_mode(stash, stash_form)
     lib = _library()
     chunks = field_dw.plan_chunks(B, R, S)
     G = persistent_ctas(dev, B * R * S // TILE_POINTS)
     chunk_tiles = chunks[0].tiles
     offsets, total, scratch_bytes = layout(lib.fused_field_bwd_layout, B, S, Kp, H, C, G,
-                                           chunk_tiles, stash is not None, points)
+                                           chunk_tiles, mode, points)
     scratch = torch.empty((scratch_bytes,), dtype=torch.uint8, device=dev)
     grads = torch.empty((total,), dtype=f32, device=dev)
     dembed = torch.empty((B, R, S, 3 if points else De), dtype=f32, device=dev)
     dzvals = torch.empty((B, R, S), dtype=f32, device=dev)
     dzdists = torch.empty((B, R, S), dtype=f32, device=dev)
     ptrs = [t.data_ptr() for t, _, _ in expected.values()]
-    ptrs += [None if stash is None else ff.pointer_array(stash)]
+    ptrs += [None if stash is None else ff.stash_pointers(stash, H, stash_form)]
     ptrs += [t.data_ptr() for t in (dembed, dzvals, dzdists, scratch, grads)]
     stream = torch.cuda.current_stream(dev).cuda_stream
     for i, ch in enumerate(chunks):
@@ -439,17 +474,18 @@ def _launch(embed, zvals, zdists, cb0, cb5, cbr1, w: FieldOperands, gfeat, gbga,
 
 def fused_field_backward(
     embed, zvals, zdists, cb0, cb5, cbr1, w: FieldOperands, gfeat, gbga, gdepth, gw,
-    stash=None, dens_vpu=False, n_freqs=None,
+    stash=None, dens_vpu=False, n_freqs=None, stash_form: StashForm = StashForm(),
 ) -> FieldGrads:
     """The kernel's wrapper.  CUDA tensors launch the kernel (on the current
     stream, no synchronisation); CPU tensors take
     :func:`fused_field_backward_reference`.  ``embed`` is the bf16 embedding
     the forward read, or with ``n_freqs`` the f32 sample points it encoded;
-    the cotangents are f32.  ``stash``, the forward's ten bf16 stash tensors
-    (``fused_field_forward(..., stash=True)``), is read in place of the
-    recompute; ``dens_vpu`` and ``n_freqs`` as the plain version's."""
+    the cotangents are f32.  ``stash``, the forward's stash tensors in the
+    form ``stash_form`` (``fused_field_forward(..., stash=stash_form)``), is
+    read in place of the recompute; ``dens_vpu`` and ``n_freqs`` as the
+    plain version's."""
     args = (embed, zvals, zdists, cb0, cb5, cbr1, w, gfeat, gbga, gdepth, gw)
-    mode = dict(stash=stash, dens_vpu=dens_vpu, n_freqs=n_freqs)
+    mode = dict(stash=stash, dens_vpu=dens_vpu, n_freqs=n_freqs, stash_form=stash_form)
     if embed.device.type == "cpu":
         return fused_field_backward_reference(*args, **mode)
     if embed.device.type != "cuda":

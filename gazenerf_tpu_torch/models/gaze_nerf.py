@@ -9,17 +9,21 @@ shared by both branches.
 With ``compute_dtype="bfloat16"`` and ``use_pallas`` the fields run through
 the fused field kernels (``kernels/fused_field``: the forward kernel, and
 under autograd the backward kernel as its gradient; with
-``pallas_stash_acts`` the backward reads the forward's bf16 activation
-stash, else it recomputes; ``pallas_dens_vpu`` selects its ``dens_vpu``
-density head; ``pallas_split_dw`` runs the backward reading the bf16
+``pallas_stash_acts`` the backward reads the forward's activation stash,
+else it recomputes: the bf16 stash of every layer, of every
+``pallas_stash_every``-th trunk layer, or with ``pallas_stash_dtype="int8"``
+x0..x6 and y0b as int8 codes (which needs ``pallas_stash_every=1``: else
+construction raises ``ValueError``, where JAX asserts); ``pallas_dens_vpu``
+selects its ``dens_vpu`` density head; ``pallas_split_dw`` runs the backward reading the bf16
 stash of every layer without ``dens_vpu``, and no ``pallas_fuse_embed``:
 see :data:`_SPLIT_DW_SETS`; ``pallas_fuse_embed`` gives the kernels the
 sample points to encode in their tile, ``pallas_embed_bf16`` the bf16
 embedding: :meth:`GazeNeRF.encodes_points`), or with ``pallas_dual_branch`` both
 fields in one dual-branch kernel (``kernels/fused_field2``; with
-``pallas_stash_acts`` its backward reads the stash; ``pallas_dens_vpu``,
-``pallas_split_dw``, ``pallas_fuse_embed`` and ``pallas_embed_bf16`` are
-cleared there, as the JAX package does);
+``pallas_stash_acts`` its backward reads the bf16 stash of every layer;
+``pallas_dens_vpu``, ``pallas_split_dw``, ``pallas_fuse_embed``,
+``pallas_embed_bf16``, ``pallas_stash_every`` and ``pallas_stash_dtype`` are
+cleared or ignored there, as the JAX package does);
 otherwise through :class:`NeRFFieldMLP` in the compute
 dtype, then :func:`integrate_rays`.  With ``include_vd`` the fields take
 the view-direction embedding and run eagerly (as in the JAX package).
@@ -30,9 +34,8 @@ samples) in the default configuration, with the stash and ``dens_vpu``
 dual-branch kernels, in checkpointed ray chunks (``ray_chunk``), with the
 hierarchical sampler's fine pass (``hier_sampling``: ``fine_dict``) and
 with the renderer passes stacked along the batch (``batch_renderer_passes``,
-``batch_fg_passes``); the options below raise ``NotImplementedError``,
-naming the ROADMAP item that ports them, and so does a ray shape the fused
-field kernels do not take (ROADMAP Queue 2b, mode 6).  ``pallas_interpret``,
+``batch_fg_passes``); a ray shape the fused field kernels do not take
+raises ``NotImplementedError``, naming ROADMAP Queue 2b, mode 6.  ``pallas_interpret``,
 ``pallas_tile_rays``, ``pallas_bwd_tile_rays`` and ``pallas_vmem_mb`` are
 the TPU kernels' interpreter switch and tiling and memory knobs: accepted,
 and of no effect in the port.
@@ -59,11 +62,6 @@ from gazenerf_tpu_torch.ops.rotation import rotate_feature_planes
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float64": torch.float64}
 
-# settings not ported yet: (field, value the port runs, the ROADMAP item)
-_PORTED = (
-    ("pallas_stash_every", 1, "Queue 2b, mode 1"),
-    ("pallas_stash_dtype", "bfloat16", "Queue 2b, mode 1"),
-)
 # what pallas_split_dw sets, whatever the config says.  The JAX package's
 # _fused_dims: the bf16 stash of every layer, the embedding outside the
 # kernel.  Its backward kernel's split_dw epilogue contracts each weight
@@ -92,8 +90,16 @@ def chunked(cfg: ModelConfig, rays: int) -> bool:
     return bool(rc) and rays > rc and rays % rc == 0 and not cfg.include_vd
 
 
+def stash_form(cfg: ModelConfig) -> ff.StashForm:
+    """The single-branch fields' stash form, as the fused path runs it
+    (:func:`kernel_setting`)."""
+    return ff.StashForm(kernel_setting(cfg, "pallas_stash_every"),
+                        kernel_setting(cfg, "pallas_stash_dtype"))
+
+
 def check_ray_shapes(cfg: ModelConfig) -> None:
-    """Raise, in ``_PORTED``'s form, on a ray shape the fused field kernels
+    """Raise ``NotImplementedError``, naming the setting and the ROADMAP
+    item, on a ray shape the fused field kernels
     do not take yet, in the coarse pass (per chunk when :func:`chunked`) or
     the fine pass of ``hier_sampling``: rays of S samples that neither
     divide the backward's 64-point tile nor are a multiple of it up to
@@ -137,15 +143,12 @@ class GazeNeRF(nn.Module):
 
     def __init__(self, cfg: ModelConfig, device=None, seed: int = 0):
         super().__init__()
-        for name, value, item in _PORTED:
-            if kernel_setting(cfg, name) != value:
-                raise NotImplementedError(
-                    f"{name}={getattr(cfg, name)!r} is not ported yet "
-                    f"(the port runs {name}={value!r}; ROADMAP {item})"
-                )
         check_ray_shapes(cfg)
         device = resolve_device(device)
         self.cfg = cfg
+        if (self.fused and not self.dual and not cfg.include_vd
+                and kernel_setting(cfg, "pallas_stash_acts")):
+            ff.stash_quant_tags(stash_form(cfg))  # int8 needs pallas_stash_every=1
         dtype = _DTYPES[cfg.compute_dtype]
 
         def field():
@@ -316,7 +319,7 @@ class GazeNeRF(nn.Module):
             feat_int, bg_alpha, depth, w = field.fused_render(
                 x_in, shape_ext_code, appea_code, zvals, z_dists,
                 stash_acts=stash_acts, dens_vpu=kernel_setting(cfg, "pallas_dens_vpu"),
-                n_freqs=n_freqs,
+                n_freqs=n_freqs, stash_form=stash_form(cfg),
             )
             return Integrated(features=feat_int, bg_alpha=bg_alpha, depth=depth, weights=w)
         feat, density = field(embed, shape_ext_code, appea_code, embed_vd)

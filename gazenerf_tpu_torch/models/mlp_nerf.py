@@ -26,6 +26,7 @@ from torch import nn
 
 from gazenerf_tpu_torch.kernels.fused_field import (
     FieldOperands,
+    StashForm,
     fused_field_render,
     prepare_operands,
     split_params,
@@ -121,10 +122,11 @@ class NeRFFieldMLP(nn.Module):
         return p, ops
 
     def fused_render(self, embed_vp, shape_cond, appea_cond, zvals, zdists,
-                     stash_acts: bool = False, dens_vpu: bool = False, n_freqs=None):
+                     stash_acts: bool = False, dens_vpu: bool = False, n_freqs=None,
+                     stash_form: StashForm = StashForm()):
         """Field + integration through the fused field kernels (bf16); with
-        ``stash_acts`` the backward reads the forward's activation stash,
-        with ``dens_vpu`` it takes the ``dens_vpu`` density head; with
+        ``stash_acts`` the backward reads the forward's activation stash (in
+        the form ``stash_form``), with ``dens_vpu`` it takes the ``dens_vpu`` density head; with
         ``n_freqs`` (``embed_in_kernel``) ``embed_vp`` is the sample points,
         which the kernels encode at ``n_freqs`` octaves
         (``fused_field_render``).
@@ -133,7 +135,8 @@ class NeRFFieldMLP(nn.Module):
         """
         p, ops = self.kernel_blocks()
         return fused_field_render(p, ops, embed_vp, shape_cond, appea_cond, zvals, zdists,
-                                  stash_acts=stash_acts, dens_vpu=dens_vpu, n_freqs=n_freqs)
+                                  stash_acts=stash_acts, dens_vpu=dens_vpu, n_freqs=n_freqs,
+                                  stash_form=stash_form)
 
     def forward(
         self,

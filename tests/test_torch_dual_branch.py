@@ -138,17 +138,41 @@ def test_dual_step_takes_the_dual_kernels(setup, monkeypatch):
 
 
 def test_stash_without_dual_branch_raises():
-    """The single-branch bf16 stash (K1's stash write, K2's stash-read mode)
-    is ported and runs without the dual branch; its variants that are not
-    (a stash of every k-th layer, the int8 stash) raise, naming the ROADMAP
-    item."""
+    """The single-branch stash (K1's stash write, K2's stash-read mode) runs
+    without the dual branch in each of its forms (every k-th trunk layer,
+    the int8 stash), and none raises any longer; the int8 stash of every
+    other layer raises ``ValueError``, where JAX asserts.  With the dual
+    branch the forms are ignored, as JAX's dual path ignores them: the model
+    takes the dual path and renders the same bits as without them."""
     cfg = ModelConfig(compute_dtype="bfloat16", use_pallas=True, pallas_stash_acts=True)
     model = GazeNeRF(cfg, device="cpu")
     assert model.fused and not model.dual
     for option in (dict(pallas_stash_every=2), dict(pallas_stash_dtype="int8")):
-        with pytest.raises(NotImplementedError, match=f"{next(iter(option))}.*ROADMAP"):
-            GazeNeRF(dataclasses.replace(cfg, **option), device="cpu")
-    assert GazeNeRF(dataclasses.replace(cfg, pallas_dual_branch=True), device="cpu").dual
+        single = GazeNeRF(dataclasses.replace(cfg, **option), device="cpu")
+        assert single.fused and not single.dual
+    with pytest.raises(ValueError, match="stash_every=1"):
+        GazeNeRF(dataclasses.replace(cfg, pallas_stash_every=2, pallas_stash_dtype="int8"),
+                 device="cpu")
+    dual = dataclasses.replace(cfg, pallas_dual_branch=True, featmap_size=8, pred_img_size=32,
+                               num_sample_coarse=8, mlp_hidden=64)
+    flagged = GazeNeRF(dataclasses.replace(dual, pallas_stash_every=2, pallas_stash_dtype="int8"),
+                       device="cpu")
+    assert flagged.dual
+    assert torch.equal(_render_small(flagged), _render_small(GazeNeRF(dual, device="cpu")))
+
+
+def _render_small(model):
+    """The merged image of a small model's render, one camera, fixed codes."""
+    c = model.cfg
+    B, Fs = 1, c.featmap_size
+    R = torch.diag(torch.tensor([1.0, -1.0, -1.0]))[None]
+    K = torch.tensor([[[Fs * 2.0, 0, Fs / 2], [0, Fs * 2.0, Fs / 2], [0, 0, 1]]]).inverse()
+    args = (torch.stack(torch.meshgrid(torch.arange(Fs) + 0.5, torch.arange(Fs) + 0.5,
+                                       indexing="xy"), -1).reshape(1, -1, 2),
+            0.1 * torch.ones(B, c.shape_code_dims), 0.1 * torch.ones(B, c.appea_code_dims),
+            torch.zeros(B, 2), R, torch.tensor([[[0.0], [0.0], [12.0]]]), K)
+    with torch.no_grad():
+        return model(*args)["coarse_dict"]["merge_img"]
 
 
 @pytest.mark.parametrize("option", [
@@ -160,34 +184,22 @@ def test_stash_without_dual_branch_raises():
 ])
 def test_probe_flags_raise_with_the_dual_branch(option):
     """The dual path accepts the stash (and ``pallas_dens_vpu`` and
-    ``pallas_split_dw``, which it clears) and the ray chunks.  The stash
-    settings of ROADMAP Queue 2b mode 1 raise, naming themselves and the
-    item; ``pallas_fuse_embed`` and ``pallas_embed_bf16`` (with or without
-    ``split_dw``) are ignored there, as JAX's ``_render_both_impl`` passes
-    the embedding: the model takes the dual path and renders the same bits
-    as without the flag."""
+    ``pallas_split_dw``, which it clears) and the ray chunks.  The stash's
+    forms (every k-th trunk layer, the int8 stash), ``pallas_fuse_embed`` and
+    ``pallas_embed_bf16`` (with or without ``split_dw``) are ignored there,
+    as JAX's ``_render_both_impl`` passes the embedding and its dual kernels
+    write the bf16 stash of every layer: the model takes the dual path and
+    renders the same bits as without the flag."""
     cfg = ModelConfig(compute_dtype="bfloat16", use_pallas=True, pallas_dual_branch=True,
                       pallas_stash_acts=True, **option)
-    if not {"pallas_fuse_embed", "pallas_embed_bf16"} & set(option):
-        with pytest.raises(NotImplementedError, match=f"{next(iter(option))}.*ROADMAP"):
-            GazeNeRF(cfg, device="cpu")
-        return
     small = dict(featmap_size=8, pred_img_size=32, num_sample_coarse=8, mlp_hidden=64)
     flagged = GazeNeRF(dataclasses.replace(cfg, **small), device="cpu")
     base = dataclasses.replace(cfg, pallas_fuse_embed=False, pallas_embed_bf16=False,
-                               pallas_split_dw=False, **small)
+                               pallas_split_dw=False, pallas_stash_every=1,
+                               pallas_stash_dtype="bfloat16", **small)
     plain = GazeNeRF(base, device="cpu")
     assert flagged.dual
-    B, Fs = 1, base.featmap_size
-    R = torch.diag(torch.tensor([1.0, -1.0, -1.0]))[None]
-    K = torch.tensor([[[Fs * 2.0, 0, Fs / 2], [0, Fs * 2.0, Fs / 2], [0, 0, 1]]]).inverse()
-    args = (torch.stack(torch.meshgrid(torch.arange(Fs) + 0.5, torch.arange(Fs) + 0.5,
-                                       indexing="xy"), -1).reshape(1, -1, 2),
-            0.1 * torch.ones(B, base.shape_code_dims), 0.1 * torch.ones(B, base.appea_code_dims),
-            torch.zeros(B, 2), R, torch.tensor([[[0.0], [0.0], [12.0]]]), K)
-    with torch.no_grad():
-        got, want = (m(*args)["coarse_dict"]["merge_img"] for m in (flagged, plain))
-    assert torch.equal(got, want)
+    assert torch.equal(_render_small(flagged), _render_small(plain))
 
 
 def test_dual_branch_is_ignored_without_the_fused_path(jax_setup, monkeypatch):

@@ -989,6 +989,85 @@ def test_deep_stash_modes(card, case):
     assert not fails, fails
 
 
+@pytest.mark.parametrize("form", list(checks.STASH_FORMS))
+@pytest.mark.parametrize("case", ["narrow", "deep256"])
+def test_stash_forms_match_plain_version(card, case, form):
+    """The stash's other forms (``checks.STASH_FORMS``: every second and
+    every fourth trunk layer, the int8 stash) in the narrow case and at S =
+    256.  K1 writing the form: its outputs K1's without the stash, a kept
+    bf16 slot the same slot of K1's bf16 stash of every layer, the int8
+    codes and scales the plain quantizer's over that stash, each to the bit.
+    K2 reading it, with and without ``dens_vpu``: a partial stash gives K2
+    reading the full stash to the bit and lies within K2's recompute limits
+    of its plain version; the int8 stash lies within the bf16 stash's limits
+    of its plain version reading the same codes and, in the narrow case,
+    within ``checks.K2_STASH_TRUTH_RATIO`` of it from the unrounded float64
+    gradient (``checks.k1_form_failures``, ``checks.k2_form_failures``)."""
+    shape = checks.DEEP_CASES[case] if case in checks.DEEP_CASES else checks.K2_CASES[case]
+    args, cot = checks.field_case(*shape, card)
+    chunks = checks.deep_chunks(args) if case in checks.DEEP_CASES else None
+    f = checks.STASH_FORMS[form]
+    out = {}
+    with torch.no_grad():
+        _, full = ff.fused_field_forward(*args, stash=True)
+        before = ff.launch_count
+        (_, acts), out["k1"], fails = checks.k1_form_failures(args, f, full)
+        assert ff.launch_count == before + 2  # the form's launch and K1 without the stash
+        for dens_vpu in (False, True):
+            full_grads = ffb.fused_field_backward(*args, *cot, stash=full, dens_vpu=dens_vpu)
+            before = ffb.launch_count
+            _, line, f2 = checks.k2_form_failures(case, args, cot, f, acts, full_grads, dens_vpu,
+                                                  chunks=chunks, truth=case == "narrow")
+            assert ffb.launch_count == before + 1
+            out[f"k2 dens_vpu={dens_vpu}"] = line
+            fails += [f"K2 dens_vpu={dens_vpu}: {x}" for x in f2]
+    print(json.dumps({"stash_form": form, "case": case, "readings": out}))
+    assert not fails, fails
+
+
+@pytest.mark.parametrize("form", list(checks.STASH_FORMS))
+@pytest.mark.parametrize("case", ["narrow", "deep256"])
+def test_stash_forms_given_the_points_match(card, case, form):
+    """The stash's forms with the sample points encoded in the tiles
+    (``embed_in_kernel``), in the narrow case and at S = 256: K1 given the
+    points writing the form equals K1 given the card's encoding writing it,
+    outputs and slots to the bit; K2 given the points reading it, with and
+    without ``dens_vpu``, equals K2 given that encoding in every output but
+    the points' cotangent, a partial stash gives K2 reading the full stash
+    to the bit, and each lies within its limits of its plain version
+    (``checks.points_form_failures``)."""
+    shape = checks.DEEP_CASES[case] if case in checks.DEEP_CASES else checks.K2_CASES[case]
+    args, cot = checks.points_case(*shape, card)
+    chunks = checks.deep_chunks(args) if case in checks.DEEP_CASES else None
+    before = ff.launch_count, ffb.launch_count
+    line, fails = checks.points_form_failures(case, args, cot, checks.STASH_FORMS[form],
+                                              chunks=chunks)
+    int8 = checks.STASH_FORMS[form].dtype == "int8"
+    # K1: the form given the points and given the encoding, and the full stash
+    assert ff.launch_count - before[0] == (2 if int8 else 3)
+    # K2: given the points and the encoding, and reading the full stash, per dens_vpu
+    assert ffb.launch_count - before[1] == (4 if int8 else 6)
+    print(json.dumps({"stash_form_points": form, "case": case, "readings": line}))
+    assert not fails, fails
+
+
+def test_stash_form_that_keeps_no_layer(card):
+    """A stash of every k-th trunk layer with k >= 9 keeps none (the JAX
+    ``stash_layout`` is empty): K1 writes no stash, its outputs K1's, and
+    ``FusedField`` takes the recompute, as JAX's custom VJP does with an
+    empty stash; K2 refuses an empty stash.  The int8 stash of every other
+    layer raises."""
+    args, cot = checks.field_case(*checks.K2_CASES["narrow"], card)
+    with torch.no_grad():
+        out, acts = ff.fused_field_forward(*args, stash=ff.StashForm(9))
+        assert acts == ()
+        assert all(torch.equal(a, b) for a, b in zip(out, ff.fused_field_forward(*args)))
+        with pytest.raises(ValueError, match="keeps no layer"):
+            ffb.fused_field_backward(*args, *cot, stash=(), stash_form=ff.StashForm(9))
+        with pytest.raises(ValueError, match="stash_every=1"):
+            ff.fused_field_forward(*args, stash=ff.StashForm(2, "int8"))
+
+
 def test_deep_dual_kernels(card):
     """K3 and K4 at S = 256: K3 with and without the stash K1 on each branch
     to the bit, within ``checks.DEEP_K3_LIMITS`` of its plain version per

@@ -281,17 +281,12 @@ def test_viewer_serves_render_over_http(jax_setup):
     ],
 )
 def test_unported_options_raise(option):
-    """``pallas_stash_every`` (ROADMAP Queue 2b, mode 1) still raises, naming
-    itself.  The settings once refused with it run now: the small model on
-    the bf16 fused field path renders with each on the CPU, the image within
-    f32 rounding of the render without it on the same weights (the field
-    settings to the bit: the plain versions encode the points, or take the
-    bf16 embedding, as the kernels do; the renderer modes differ from
-    ``phase_gm`` in their f32 summation order)."""
-    if "pallas_stash_every" in option:
-        with pytest.raises(NotImplementedError, match=next(iter(option))):
-            GazeNeRF(dataclasses.replace(ModelConfig(), **option), device="cpu")
-        return
+    """The settings once refused run now: the small model on the bf16 fused
+    field path renders with each on the CPU, the image within f32 rounding
+    of the render without it on the same weights (the field settings to the
+    bit: a render writes no stash, whatever its form; the plain versions
+    encode the points, or take the bf16 embedding, as the kernels do; the
+    renderer modes differ from ``phase_gm`` in their f32 summation order)."""
     cfg = dataclasses.replace(small_test_config(), compute_dtype="bfloat16", use_pallas=True)
     R, T, K = (torch.from_numpy(a) for a in lookat_camera(10, -5, 12.0, cfg.featmap_size))
     args = (pixel_grid(cfg.featmap_size)[None], 0.1 * torch.ones(1, cfg.shape_code_dims),

@@ -192,20 +192,21 @@ def test_split_dw_step_takes_the_stash_and_the_mode(split_step):
 ])
 def test_split_dw_sets_what_jax_sets(option):
     """As JAX's ``_fused_dims``: ``split_dw`` runs the bf16 stash of every
-    layer with the embedding outside the kernel, whatever these flags say
-    (without it the stash settings still raise, naming their ROADMAP item,
-    and ``pallas_fuse_embed`` gives the kernels the points); it is no longer
-    among the refused settings."""
-    assert "pallas_split_dw" not in {name for name, _, _ in gaze_nerf._PORTED}
-    cfg = ModelConfig(compute_dtype="bfloat16", use_pallas=True, **option)
+    layer with the embedding outside the kernel, whatever these flags say;
+    without it the stash's forms run as the config says (every second trunk
+    layer, the int8 stash) and ``pallas_fuse_embed`` gives the kernels the
+    points."""
+    cfg = ModelConfig(compute_dtype="bfloat16", use_pallas=True, pallas_stash_acts=True, **option)
+    model = GazeNeRF(cfg, device="cpu")
     if "pallas_fuse_embed" in option:
-        assert GazeNeRF(cfg, device="cpu").encodes_points
+        assert model.encodes_points
     else:
-        with pytest.raises(NotImplementedError, match=f"{next(iter(option))}.*ROADMAP"):
-            GazeNeRF(cfg, device="cpu")
+        assert gaze_nerf.stash_form(model.cfg) != ff.StashForm()
     model = GazeNeRF(dataclasses.replace(cfg, pallas_split_dw=True), device="cpu")
     assert model.fused and not model.dual and not model.encodes_points
-    for name, value in (*((n, v) for n, v, _ in gaze_nerf._PORTED), ("pallas_fuse_embed", False)):
+    assert gaze_nerf.stash_form(model.cfg) == ff.StashForm()
+    for name, value in (("pallas_stash_every", 1), ("pallas_stash_dtype", "bfloat16"),
+                        ("pallas_fuse_embed", False)):
         assert gaze_nerf.kernel_setting(model.cfg, name) == value, name
 
 
