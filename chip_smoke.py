@@ -999,10 +999,12 @@ def phase_renderer_kernels(seed, iters):
               lambda: fu.fused_upsample_backward(*args, dy, use_bf16=False),
               lambda: fu.fused_upsample_backward_reference(*args, dy, use_bf16=False),
               k8_f32_bound(args, dy, got))
+        # device time by CUDA kernel: K7's three products and stencil; K8's
+        # stencil adjoint, five products, three contractions and their sums
         f32_profile[block] = {
-            "k7": device_profile(lambda: fu.fused_upsample_forward(*args, use_bf16=False), top=3),
+            "k7": device_profile(lambda: fu.fused_upsample_forward(*args, use_bf16=False), top=4),
             "k8": device_profile(lambda: fu.fused_upsample_backward(*args, dy, use_bf16=False),
-                                 top=6)}
+                                 top=10)}
     print(json.dumps({"f32_block_profile": f32_profile}))
     check(not fails, "\n".join(fails))
 
@@ -1855,8 +1857,8 @@ UPSAMPLER_FWD = ("chain_fwd_kernel",)
 UPSAMPLER_BWD = ("dz3_kernel", "block_bwd_kernel", "upsampler_dw_kernel",
                  "upsampler_dwsum_kernel", "upsampler_sum_kernel")
 # and of K7 and K8 at f32
-UPSAMPLER_F32_FWD = ("chain_fwd<",)
-UPSAMPLER_F32_BWD = ("chain_bwd<", "atb_slices", "sum_slices")
+UPSAMPLER_F32_FWD = ("fwd_product<",)
+UPSAMPLER_F32_BWD = ("bwd_product<", "wgrad_slices<", "sum_slices")
 
 
 def renderer_mode(cfg):

@@ -24,8 +24,9 @@ their headers state the bound and the design) for the bf16 configuration
 or 256 pixels (:func:`group_rows`, :func:`plan_chunks`) and its weight
 gradients as a GEMM over each chunk's pixels, chunk after chunk.  The f32
 configuration (``use_bf16=False``, the f32 renderer) is
-``csrc/fused_upsampler_f32.cu``: both directions in f32 fused multiply-adds
-on the CUDA cores, its own counts (``launch_count_fwd_f32``,
+``csrc/fused_upsampler_f32.cu``: both directions as register-tiled f32
+products on the CUDA cores (:func:`f32_product`, :func:`f32_contract`: the
+tile alone), its own counts (``launch_count_fwd_f32``,
 ``launch_count_bwd_f32``).
 
 * :func:`fused_upsample_reference` / :func:`fused_upsample_backward_reference`:
@@ -74,8 +75,8 @@ SMEM_LIMIT = 232448
 launch_count_fwd = 0
 launch_count_bwd = 0
 # the same for the f32 kernels (use_bf16=False): one per block, forward and
-# backward (each several CUDA launches: the chain, the stencil or its
-# adjoint, the weight gradients' contractions)
+# backward (each several CUDA launches: the products, the stencil or its
+# adjoint, the weight gradients' contractions and their sums)
 launch_count_fwd_f32 = 0
 launch_count_bwd_f32 = 0
 
@@ -340,26 +341,17 @@ def _is_cuda(t: torch.Tensor, what: str) -> bool:
     return True
 
 
-def _f32_rows(lib, F: int, F3: int, bwd: bool) -> int:
-    """Rows of the f32 kernels' tiles; raises where not even 8 fit."""
-    rows = lib.fused_upsampler_f32_rows(F, F3, int(bwd))
-    if not rows:
-        raise ValueError(f"widths F={F}, F3={F3}: the f32 kernel's tile of 8 pixels needs more "
-                         f"than {SMEM_LIMIT} bytes of shared memory")
-    return rows
-
-
 def _forward_f32(x, W1, b1, W2g, b2g, W3, b3):
     """K7 at f32: every operand and product in f32, the output in x's dtype."""
     global launch_count_fwd_f32
     B, H, W, F, F3 = _check_block(x, W1, b1, W2g, b2g, W3, b3)
     lib = _library(KERNEL_F32)
-    _f32_rows(lib, F, F3, False)
     ins = [t.to(torch.float32).contiguous() for t in (x, W1, b1, W2g, b2g, W3, b3)]
-    z3 = torch.empty((B * H * W, 4 * F3), dtype=torch.float32, device=x.device)
+    scratch = torch.empty((lib.fused_upsampler_f32_scratch(B * H * W, F, F3, 0),),
+                          dtype=torch.float32, device=x.device)
     y = torch.empty((B, 2 * H, 2 * W, F3), dtype=x.dtype, device=x.device)
     err = lib.fused_upsampler_f32_fwd(
-        *(t.data_ptr() for t in ins), z3.data_ptr(), y.data_ptr(), B, H, W, F, F3,
+        *(t.data_ptr() for t in ins), scratch.data_ptr(), y.data_ptr(), B, H, W, F, F3,
         int(x.dtype == torch.bfloat16), torch.cuda.current_stream(x.device).cuda_stream,
     )
     if err:
@@ -375,11 +367,10 @@ def _backward_f32(x, W1, b1, W2g, b2g, W3, b3, dy) -> UpsampleGrads:
     B, H, W, F, F3 = _check_block(x, W1, b1, W2g, b2g, W3, b3)
     dev, P, f32 = x.device, B * H * W, torch.float32
     lib = _library(KERNEL_F32)
-    _f32_rows(lib, F, F3, True)
     xf, w1, b1, w2, b2g = (t.to(f32).contiguous() for t in (x, W1, b1, W2g, b2g))
     w3t, w2t, w1t = (t.t().contiguous() for t in (W3, W2g, W1))
     dyf = dy.to(f32).contiguous()
-    scratch = torch.empty((lib.fused_upsampler_f32_scratch(P, F, F3),), dtype=f32, device=dev)
+    scratch = torch.empty((lib.fused_upsampler_f32_scratch(P, F, F3, 1),), dtype=f32, device=dev)
     g = UpsampleGrads(
         dx=torch.empty((B, H, W, F), dtype=f32, device=dev),
         dW1=torch.empty((F, 2 * F), dtype=f32, device=dev),
@@ -397,6 +388,66 @@ def _backward_f32(x, W1, b1, W2g, b2g, W3, b3, dy) -> UpsampleGrads:
         raise RuntimeError(f"{KERNEL_F32} backward launch failed with CUDA error {err}")
     launch_count_bwd_f32 += 1
     return g._replace(dx=g.dx.to(x.dtype))
+
+
+def f32_shapes(contract: bool) -> int:
+    """The number of tile shapes of the f32 kernels' products (``contract``
+    False) or of their weight gradients' contractions (True)."""
+    return _library(KERNEL_F32).fused_upsampler_f32_shapes(int(contract))
+
+
+def _f32_matrix(name: str, t: torch.Tensor, rows=None) -> None:
+    if t.dim() != 2 or t.dtype != torch.float32 or not t.is_contiguous():
+        raise ValueError(f"{name}: {t.dtype} {tuple(t.shape)}, expected a contiguous float32 matrix")
+    if rows is not None and t.shape[0] != rows:
+        raise ValueError(f"{name}: {t.shape[0]} rows, expected {rows}")
+
+
+def f32_product(a: torch.Tensor, w: torch.Tensor, shape: int = -1) -> torch.Tensor:
+    """``a @ w`` of f32 matrices ``[M, K] x [K, N]`` in the f32 kernels'
+    product tile (``csrc/fused_upsampler_f32.cu``), every output a chain of
+    fused multiply-adds in increasing k from zero (K over 1,040: chunks of
+    128 k, each such a chain, added in order), in tile shape ``shape`` (< 0:
+    the one K7 and K8 pick; :func:`f32_shapes`).  The tile alone, for its
+    checks; a CPU tensor takes ``a @ w``."""
+    _f32_matrix("a", a)
+    _f32_matrix("w", w, a.shape[1])
+    if not _is_cuda(a, "product"):
+        return a @ w
+    M, K = a.shape
+    N = w.shape[1]
+    out = torch.empty((M, N), dtype=torch.float32, device=a.device)
+    err = _library(KERNEL_F32).fused_upsampler_f32_product(
+        a.data_ptr(), K, w.data_ptr(), N, out.data_ptr(), M, N, K, shape,
+        torch.cuda.current_stream(a.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"{KERNEL_F32} product launch failed with CUDA error {err}")
+    return out
+
+
+def f32_contract(a: torch.Tensor, b: torch.Tensor, shape: int = -1):
+    """``(a^T b, b.sum(0))`` of f32 matrices ``[rows, M]`` and ``[rows, N]``
+    in K8's weight-gradient contraction at f32: slices of 1,024 rows, each in
+    stages of 16 summed from zero, the slices pairwise; in tile shape
+    ``shape`` (< 0: the one K8 picks).  The contraction alone, for its
+    checks; CPU tensors take ``a.t() @ b`` and ``b.sum(0)``."""
+    _f32_matrix("a", a)
+    _f32_matrix("b", b, a.shape[0])
+    if not _is_cuda(a, "contraction"):
+        return a.t() @ b, b.sum(0)
+    rows, M = a.shape
+    N = b.shape[1]
+    lib = _library(KERNEL_F32)
+    part = torch.empty((lib.fused_upsampler_f32_part(rows, M, N),), dtype=torch.float32,
+                       device=a.device)
+    dw = torch.empty((M, N), dtype=torch.float32, device=a.device)
+    db = torch.empty((N,), dtype=torch.float32, device=a.device)
+    err = lib.fused_upsampler_f32_contract(
+        a.data_ptr(), b.data_ptr(), rows, M, N, part.data_ptr(), dw.data_ptr(), db.data_ptr(),
+        shape, torch.cuda.current_stream(a.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"{KERNEL_F32} contraction launch failed with CUDA error {err}")
+    return dw, db
 
 
 def fused_upsample_forward(x, W1, b1, W2g, b2g, W3, b3, use_bf16: bool = True):
@@ -430,10 +481,19 @@ def fused_upsample_forward(x, W1, b1, W2g, b2g, W3, b3, use_bf16: bool = True):
 def _library(name: str) -> ctypes.CDLL:
     lib = build.load(name, DEFINES)
     if name == KERNEL_F32:
-        lib.fused_upsampler_f32_rows.argtypes = [ctypes.c_int] * 3
-        lib.fused_upsampler_f32_rows.restype = ctypes.c_int
-        lib.fused_upsampler_f32_scratch.argtypes = [ctypes.c_longlong, ctypes.c_int, ctypes.c_int]
-        lib.fused_upsampler_f32_scratch.restype = ctypes.c_longlong
+        ll, i = ctypes.c_longlong, ctypes.c_int
+        lib.fused_upsampler_f32_scratch.argtypes = [ll, i, i, i]
+        lib.fused_upsampler_f32_scratch.restype = ll
+        lib.fused_upsampler_f32_shapes.argtypes = [i]
+        lib.fused_upsampler_f32_shapes.restype = i
+        lib.fused_upsampler_f32_product.argtypes = [ctypes.c_void_p, i, ctypes.c_void_p, i,
+                                                    ctypes.c_void_p, ll, i, i, i, ctypes.c_void_p]
+        lib.fused_upsampler_f32_product.restype = i
+        lib.fused_upsampler_f32_part.argtypes = [ll, i, i]
+        lib.fused_upsampler_f32_part.restype = ll
+        lib.fused_upsampler_f32_contract.argtypes = [ctypes.c_void_p] * 2 + [ll, i, i] + [
+            ctypes.c_void_p] * 3 + [i, ctypes.c_void_p]
+        lib.fused_upsampler_f32_contract.restype = i
         lib.fused_upsampler_f32_fwd.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [
             ctypes.c_void_p]
         lib.fused_upsampler_f32_fwd.restype = ctypes.c_int

@@ -276,3 +276,27 @@ def test_f32_autograd_op_matches_pallas_kernel(jax_results, shape):
     for name, a, b in zip(NAMES, got, want_g):
         assert a.dtype == torch.float32, name
         np.testing.assert_allclose(a.numpy(), b, atol=1e-3, rtol=0, err_msg=name)
+
+
+@pytest.mark.parametrize("contract", (False, True))
+def test_f32_tile_on_cpu_takes_plain_version(contract):
+    """The f32 kernels' tile alone (``f32_product``, ``f32_contract``) on
+    CPU tensors: the plain products, ``a @ w`` and ``(a^T b, b.sum(0))``;
+    a matrix the tile does not take (not f32, not contiguous, rows that do
+    not match) raises."""
+    gen = torch.Generator().manual_seed(3)
+    a = torch.randn(37, 9, generator=gen)
+    if contract:
+        b = torch.randn(37, 5, generator=gen)
+        dw, db = fu.f32_contract(a, b)
+        assert torch.equal(dw, a.t() @ b) and torch.equal(db, b.sum(0))
+        bad = [(a.double(), b), (a, b[:-1]), (a, b.t().contiguous().t())]
+        fn = fu.f32_contract
+    else:
+        w = torch.randn(9, 5, generator=gen)
+        assert torch.equal(fu.f32_product(a, w), a @ w)
+        bad = [(a.double(), w), (a, w[:-1]), (a.t(), w)]
+        fn = fu.f32_product
+    for args in bad:
+        with pytest.raises(ValueError):
+            fn(*args)

@@ -597,6 +597,165 @@ def test_f32_upsampler_matches_plain_version(card, case):
         assert torch.equal(a, c), f"{n}: two launches differ"
 
 
+def _round32(s, e):
+    """f32 round-to-nearest-even of the exact value ``s + e`` (float64
+    tensors, ``s`` that value rounded to float64, ``e`` the rest): the f32
+    rounding of ``s``, except where ``s`` lies halfway between two f32 values
+    and ``e`` says on which side the exact value lies."""
+    r = s.float()
+    rd = r.double()
+    inf = torch.full_like(r, float("inf"))
+    o = torch.nextafter(r, torch.where(s > rd, inf, -inf))  # r's neighbour on s's side
+    mid = (s != rd) & ((s - rd).abs() * 2 == (o.double() - rd).abs())
+    return torch.where(mid & (e > 0), torch.maximum(r, o),
+                       torch.where(mid & (e < 0), torch.minimum(r, o), r))
+
+
+def _add32(p, c):
+    """f32 rounding of ``p + c``, float64 ``p`` (an f32 value or an exact
+    product of two) and f32 ``c``: one rounding, as an f32 add or a fused
+    multiply-add makes (the sum's rest by Knuth's TwoSum)."""
+    p, c = p.double(), c.double()
+    s = p + c
+    bb = s - p
+    return _round32(s, (p - (s - bb)) + (c - bb))
+
+
+def _fma32(a, b, c):
+    return _add32(a.double() * b.double(), c)  # f32 x f32 is exact in float64
+
+
+def _sequential_product(a, w):
+    """``a @ w`` as the f32 tile orders it: every output ``fma`` after
+    ``fma`` in increasing k from zero; K over 1,040 in chunks of 128 k,
+    each such a chain, added in order."""
+    K = a.shape[1]
+    chunk = 128 if K > 1040 else K
+    total = None
+    for k0 in range(0, K, chunk):
+        acc = torch.zeros(a.shape[0], w.shape[1], dtype=torch.float32, device=a.device)
+        for k in range(k0, min(K, k0 + chunk)):
+            acc = _fma32(a[:, k : k + 1], w[k : k + 1], acc)
+        total = acc if total is None else _add32(total, acc)
+    return total
+
+
+def _sliced_contraction(a, b):
+    """``(a^T b, b.sum(0))`` in K8's f32 order: slices of 1,024 rows, each
+    in stages of 16 rows summed from zero and added to the slice's sum
+    (rows past the end zero), the slices joined pairwise as in a binary
+    counter."""
+    rows, M = a.shape
+    S = -(-rows // 1024)
+    ones = torch.ones(rows, 1, dtype=torch.float32, device=a.device)
+    a3 = torch.zeros(S * 1024, M + 1, dtype=torch.float32, device=a.device)
+    b3 = torch.zeros(S * 1024, b.shape[1], dtype=torch.float32, device=a.device)
+    a3[:rows] = torch.cat([a, ones], 1)
+    b3[:rows] = b
+    a3, b3 = a3.view(S, 1024, M + 1), b3.view(S, 1024, -1)
+    acc = torch.zeros(S, M + 1, b.shape[1], dtype=torch.float32, device=a.device)
+    for r0 in range(0, 1024, 16):
+        stage = torch.zeros_like(acc)
+        for r in range(r0, r0 + 16):
+            stage = _fma32(a3[:, r, :, None], b3[:, r, None, :], stage)
+        acc = _add32(acc, stage)
+    stack = []
+    for s in range(S):
+        v, t = acc[s], s
+        while t & 1:
+            v, t = _add32(stack.pop(), v), t >> 1
+        stack.append(v)
+    v = stack.pop()
+    while stack:
+        v = _add32(stack.pop(), v)
+    return v[:M], v[M]
+
+
+def _gamma(n):
+    """Higham's gamma_n for f32: the relative bound of n roundings."""
+    u = 2.0**-24
+    return n * u / (1 - n * u)
+
+
+# (M, N, K): ragged rows and columns, a K tail, 4-byte and 16-byte weight
+# copies, K in chunks (over 1,040)
+F32_PRODUCT_CASES = {"ragged_tail": (300, 129, 37), "wide_tail": (200, 516, 258),
+                     "exact": (1000, 64, 16), "one_k": (5, 3, 1), "chunked": (70, 40, 1300)}
+# (rows, M, N): slices, a short last slice and stage, 4-byte and 16-byte copies
+F32_CONTRACT_CASES = {"ragged": (2500, 129, 33), "aligned": (3000, 64, 128),
+                      "short": (17, 4, 8)}
+
+
+@pytest.mark.parametrize("case", F32_PRODUCT_CASES)
+def test_f32_product_tile(card, case):
+    """The f32 kernels' product tile alone, in every tile shape: each output
+    the bits of fused multiply-adds in increasing k from zero (K over 1,040
+    in chunks of 128 added in order; emulated exactly in float64), and
+    within gamma_K sum_k |a_k w_k| of the float64 product (at most K
+    roundings of f32)."""
+    M, N, K = F32_PRODUCT_CASES[case]
+    gen = torch.Generator().manual_seed(M + N + K)
+    a = torch.randn(M, K, generator=gen).to(card)
+    w = torch.randn(K, N, generator=gen).to(card)
+    want = _sequential_product(a, w)
+    exact = a.double() @ w.double()
+    scale = a.double().abs() @ w.double().abs()
+    for shape in range(-1, fu.f32_shapes(False)):
+        got = fu.f32_product(a, w, shape)
+        torch.cuda.synchronize()
+        err = float(((got.double() - exact).abs() / scale).max())
+        print(json.dumps({"f32_product": case, "shape": shape, "err_over_abs_sum": err}))
+        assert torch.equal(got, want), f"shape {shape}: not the sequential order's bits"
+        assert err <= _gamma(K), (shape, err)
+
+
+@pytest.mark.parametrize("case", F32_CONTRACT_CASES)
+def test_f32_contraction_tile(card, case):
+    """K8's f32 weight-gradient contraction alone, in every tile shape: the
+    bits of its slice, stage and pairwise order (emulated exactly in
+    float64), and within gamma_n of the float64 sums, n the most roundings
+    a term meets (16 in a stage, 64 stages, the slices' pairwise sums)."""
+    rows, M, N = F32_CONTRACT_CASES[case]
+    gen = torch.Generator().manual_seed(rows + M + N)
+    a = torch.randn(rows, M, generator=gen).to(card)
+    b = torch.randn(rows, N, generator=gen).to(card)
+    want_w, want_b = _sliced_contraction(a, b)
+    n = 16 + 64 + (-(-rows // 1024)).bit_length() + 1
+    for shape in range(-1, fu.f32_shapes(True)):
+        dw, db = fu.f32_contract(a, b, shape)
+        torch.cuda.synchronize()
+        errs = [float(((got.double() - x).abs() / s).max()) for got, x, s in (
+            (dw, a.double().t() @ b.double(), a.double().abs().t() @ b.double().abs()),
+            (db, b.double().sum(0), b.double().abs().sum(0)))]
+        print(json.dumps({"f32_contraction": case, "shape": shape, "err_over_abs_sum": errs}))
+        assert torch.equal(dw, want_w) and torch.equal(db, want_b), f"shape {shape}: other bits"
+        assert max(errs) <= _gamma(n), (shape, errs)
+
+
+def test_f32_upsampler_wide_block(card):
+    """K7 and K8 at f32 at wide widths (F = 776, F3 = 388: a tile that held
+    8 pixels' whole backward chain in shared memory would need 248 KB), at
+    small P: each output's distance from the unrounded float64 result at
+    most ``F32_TRUTH_RATIO`` times the f32 plain version's, or under
+    ``F32_TRUTH_FLOOR``; one launch each; two launches the same bits."""
+    args, dy = checks.f32_block_case((1, 4, 6, 776, 388), card)
+    before = (fu.launch_count_fwd_f32, fu.launch_count_bwd_f32)
+    got = fu.fused_upsample_forward(*args, use_bf16=False)
+    g = fu.fused_upsample_backward(*args, dy, use_bf16=False)
+    torch.cuda.synchronize()
+    assert (fu.launch_count_fwd_f32, fu.launch_count_bwd_f32) == (before[0] + 1, before[1] + 1)
+    again = fu.fused_upsample_backward(*args, dy, use_bf16=False)
+    want = fu.fused_upsample_reference(*args, use_bf16=False)
+    gw = fu.fused_upsample_backward_reference(*args, dy, use_bf16=False)
+    exact = fu.fused_upsample_reference(*(a.double() for a in args), use_bf16=False)
+    t7, ft7 = checks.f32_truth_failures(checks.Image(got), checks.Image(want), checks.Image(exact))
+    t8, ft8 = checks.f32_truth_failures(g, gw, fu.fused_upsample_backward_unrounded(*args, dy))
+    print(json.dumps({"f32_wide_block": [1, 4, 6, 776, 388], "k7_truth": t7, "k8_truth": t8}))
+    assert got.shape == want.shape and not ft7 + ft8, ft7 + ft8
+    for n, a, c in zip(fu.UpsampleGrads._fields, g, again):
+        assert torch.equal(a, c), f"{n}: two launches differ"
+
+
 @pytest.mark.parametrize("mode", ["phase", "naive", "unfolded", "unfolded_pallas", "rgb_nhwc",
                                   "fused_f32"])
 def test_renderer_modes_on_card(card, mode):

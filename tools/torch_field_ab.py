@@ -211,7 +211,7 @@ def step_profiles(cs, variants: dict, top: int = 0) -> dict:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         # every kernel's row where the indexing kernels are summed
-        prof = cs.device_profile(lambda: trainer.train_step(batch), mode=mcfg.shuffle_mode,
+        prof = cs.device_profile(lambda: trainer.train_step(batch), mode=cs.renderer_mode(mcfg),
                                  top=100000 if top else 0)
         out[name] = {"device_ms": prof["device_ms"], "wall_ms": prof["wall_ms"],
                      "kernels_ms": prof.get("kernels_ms"),

@@ -7,16 +7,24 @@ training step in several source trees on one CUDA card, in turns.
 SPEC is ``LABEL=TREE`` or ``LABEL=TREE+VARIANT``, as for
 ``tools/torch_field_ab.py`` (whose tree preparation and turn order this tool
 shares), VARIANT one of :data:`VARIANTS`.  Per child it prints one JSON
-line: the card, ``-Xptxas -v`` of the two kernels, K7 and K8 (ms per launch,
-CUDA events) at each of the renderer's three upsample blocks at B=2
-(``kernels/checks.py`` ``block0..2``) and K7 at the serving shape (B=1), the
-device ms per CUDA kernel of one call of each (``torch.profiler``), and
-with ``--steps``, for the trees without a variant, the device time, device
-ms per kernel and peak memory of one full-width training step in each
-variant (``phase_gm``, ``pallas``, ``fused``, ``dual``); ``digest``: a hash of
-each output of K7 and K8 (bf16) in every case of ``kernels/checks.py``
-``BLOCK_CASES``.  The last line, ``digests_equal``, says per output whether
-every tree gave the same bits.  Imports nothing of JAX.
+line: the card, ``-Xptxas -v`` of the three libraries (K7 and K8 in bf16,
+and both at f32), K7 and K8 (ms per launch, CUDA events) at each of the
+renderer's three upsample blocks at B=2 (``kernels/checks.py``
+``block0..2``) and K7 at the serving shape (B=1), in bf16 and at f32
+(``use_bf16=False``, the f32 renderer: keys ``K7 f32 ...``), the sums over
+the blocks (``... pass``), the device ms per CUDA kernel of one call of each
+(``torch.profiler``), and with ``--steps``, for the trees without a variant,
+the device time, device ms per kernel and peak memory of one full-width
+training step in each variant (``phase_gm``, ``pallas``, ``fused``, ``dual``,
+``fused_f32``); ``digest``: a hash of each output of K7 and K8 in bf16 in
+every case of ``kernels/checks.py`` ``BLOCK_CASES`` and at f32 in every case
+of ``F32_BLOCK_CASES``.  The last line, ``digests_equal``, says per output
+whether every tree gave the same bits.  Imports nothing of JAX.
+
+For the f32 block against the parent commit, with the parent unpacked by
+``git archive`` into ``build/parent``:
+
+    python tools/torch_upsampler_ab.py --turns 2 parent=build/parent change=.
 """
 
 from __future__ import annotations
@@ -99,7 +107,8 @@ def child(args) -> dict:
     torch.backends.cudnn.allow_tf32 = False
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
-    logs = build.build({fu.KERNEL_FWD: fu.DEFINES, fu.KERNEL_BWD: fu.DEFINES})
+    logs = build.build({fu.KERNEL_FWD: fu.DEFINES, fu.KERNEL_BWD: fu.DEFINES,
+                        fu.KERNEL_F32: fu.DEFINES})
     ptxas = [line.strip() for log in logs.values() for line in log.splitlines()
              if "Compiling entry" in line or "registers" in line or "spill" in line]
     dev = torch.device("cuda")
@@ -124,9 +133,25 @@ def child(args) -> dict:
             out["ms"][f"K7 {block} B=1"] = cs.cuda_ms(lambda: fu.fused_upsample_forward(*a1),
                                                       args.iters)
             del a, dy, a1
-        for k in ("K7", "K8"):
+        for block in BLOCKS:
+            a, dy = checks.f32_block_case(checks.BLOCK_CASES[block], dev)
+            fwd = lambda: fu.fused_upsample_forward(*a, use_bf16=False)  # noqa: E731
+            bwd = lambda: fu.fused_upsample_backward(*a, dy, use_bf16=False)  # noqa: E731
+            out["ms"][f"K7 f32 {block}"] = cs.cuda_ms(fwd, args.iters)
+            out["ms"][f"K8 f32 {block}"] = cs.cuda_ms(bwd, args.iters)
+            for k, fn in (("K7 f32", fwd), ("K8 f32", bwd)):
+                prof = cs.device_profile(fn, top=12)
+                out["profile"][f"{k} {block}"] = {
+                    "wall_ms": prof["wall_ms"], "device_ms": prof["device_ms"],
+                    "kernels": {r["kernel"]: r["ms"] for r in prof.get("top", [])}}
+            a1 = (a[0][:1].contiguous(), *a[1:])
+            out["ms"][f"K7 f32 {block} B=1"] = cs.cuda_ms(
+                lambda: fu.fused_upsample_forward(*a1, use_bf16=False), args.iters)
+            del a, dy, a1, fwd, bwd
+        for k in ("K7", "K8", "K7 f32", "K8 f32"):
             out["ms"][f"{k} pass"] = sum(out["ms"][f"{k} {b}"] for b in BLOCKS)
-        out["ms"]["K7 pass B=1"] = sum(out["ms"][f"K7 {b} B=1"] for b in BLOCKS)
+        for k in ("K7", "K7 f32"):
+            out["ms"][f"{k} pass B=1"] = sum(out["ms"][f"{k} {b} B=1"] for b in BLOCKS)
         out["digest"] = {}
         for case in checks.BLOCK_CASES:
             a, dy = checks.block_case(checks.BLOCK_CASES[case], dev)
@@ -135,10 +160,19 @@ def child(args) -> dict:
             for n, t in zip(g._fields, g):
                 out["digest"][f"K8 {case} {n}"] = digest(t)
             del a, dy, g
+        for case in checks.F32_BLOCK_CASES:
+            a, dy = checks.f32_block_case(checks.BLOCK_CASES[case], dev)
+            out["digest"][f"K7 f32 {case} out"] = digest(
+                fu.fused_upsample_forward(*a, use_bf16=False))
+            g = fu.fused_upsample_backward(*a, dy, use_bf16=False)
+            for n, t in zip(g._fields, g):
+                out["digest"][f"K8 f32 {case} {n}"] = digest(t)
+            del a, dy, g
     if args.steps:
         out["step"] = step_profiles(cs, {"phase_gm": {}, "pallas": {"shuffle_mode": "pallas"},
                                          "fused": {"shuffle_mode": "fused"},
-                                         "dual": cs.DUAL_FLAGS})
+                                         "dual": cs.DUAL_FLAGS,
+                                         cs.FUSED_F32: cs.FUSED_F32_FLAGS})
     return out
 
 
