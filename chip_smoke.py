@@ -133,8 +133,12 @@ Phases (each raises on failure, so any failed phase exits non-zero):
    a gaze override against the forward (to the bit), a 30-step gaze
    optimization (its start gradient against the plain versions'), the
    input-target, consistency and gaze-transfer protocols with a seeded
-   estimator and LPIPS, and the demo render loops written and parsed as
-   GIFs (``phase_eval``).
+   estimator and LPIPS, the input-target protocol again with exact FID
+   (InceptionV3) and the FaceX-Zoo identity pipeline (RetinaFace, PFLD,
+   MobileFaceNet) loaded from seeded checkpoints through the CLI's
+   loaders, each net's output on the card against the CPU's and their
+   times (``phase_metric_nets``), and the demo render loops written and
+   parsed as GIFs (``phase_eval``).
 
 Prints ``k2_profile``, ``dw``, ``k8_profile``, ``f32_block_profile``,
 ``k4_profile``, ``k2_stash_profile``, ``deep_case``, ``deep_dual_case``,
@@ -351,6 +355,13 @@ EAGER_IMAGE_ATOL = 6e-3
 # dcb5) and the eye planes' rotation; reading 6.6e-4 on an NVIDIA H100 80GB
 # HBM3 (700 W), the limit twice that
 EVAL_DGAZE_REL_L2 = 1.4e-3
+# the evaluation's metric nets (InceptionV3, RetinaFace, PFLD,
+# MobileFaceNet) on the card against the same module on the CPU, f32 with
+# TF32 off (--eval_precision highest): relative L2 of each output (PFLD's
+# less its regression bias, which the seeded weights make most of it).
+# First readings 6.6e-7, 1.8e-6, 9.6e-6 and 1.4e-6 on an NVIDIA H100 80GB
+# HBM3 (700 W); the limits about five times each
+METRIC_NET_REL_L2 = {"inception": 3e-6, "retinaface": 1e-5, "pfld": 5e-5, "mobilefacenet": 7e-6}
 
 
 def check(cond, msg):
@@ -2791,14 +2802,16 @@ def phase_eval(seed, fit_steps, card):
        gaze transfer; personal calibration where h5py is installed) with a
        seeded GazeResNet and LPIPS on a seeded VGG16: every metric finite,
        under the JAX package's keys; ms per pair, the estimator's and
-       LPIPS's ms per image;
+       LPIPS's ms per image; then input-target again with exact FID and
+       the identity pipeline (:func:`phase_metric_nets`);
     7. the render loops (5 orbit views, the 44-frame gaze sweep) to GIFs:
        each parses as GIF89a with one image per frame; render and encode
        ms per frame.
 
     Then where a fit step's time goes (``phase_step_breakdown`` at B=1).
     Prints the ``eval`` line and returns K1's and K2's launches per fit
-    step."""
+    step and in the input-target protocol with the metric nets
+    (:func:`phase_metric_nets`)."""
     import os
     import statistics
     import tempfile
@@ -2981,6 +2994,7 @@ def phase_eval(seed, fit_steps, card):
     numbers += [res_gt["opt_loss"], *res_gt["gaze"].tolist()]
     check(all(np.isfinite(numbers)), f"eval: protocol metrics {res_it} {res_cons} {res_gt}")
     check(bool(np.isfinite(res_gt["transferred_image"]).all()), "eval: gaze transfer image")
+    out["metric_nets"] = phase_metric_nets(seed, ctx, pairs, dev)
     out["protocols"] = {
         "input_target": {**res_it, "ms_per_pair": it_ms / len(pairs)},
         "consistency": {**res_cons, "ms": cons_ms, "frames": 2},
@@ -3036,7 +3050,180 @@ def phase_eval(seed, fit_steps, card):
     print(json.dumps({"eval": out}))
     del trainer, base, fitted, ctx
     torch.cuda.empty_cache()
-    return out["fit"]["launches_per_step"]
+    return out["fit"]["launches_per_step"], out["metric_nets"]["input_target_exact"]["launches"]
+
+
+def phase_metric_nets(seed, ctx, pairs, dev):
+    """Exact FID and the FaceX-Zoo identity pipeline in the evaluation's
+    input-target protocol.  Seeded state dicts in the upstream layouts
+    (``models/seeding.py``; RetinaFace's class head decisive, PFLD's
+    landmarks inside the crop) go through ``torch.save`` and the CLI's
+    loaders (``build_fid_features``, ``build_identity_pipeline``) onto the
+    card.  Checks, each raising: every net's output on the card within
+    ``METRIC_NET_REL_L2`` of the same module's on the CPU on the same input;
+    the detector's best face score and every other anchor's clear of the
+    0.7 threshold; the pipeline called once outside the protocol; the
+    protocol on ``pairs`` with both hooks: ``fid`` from the exact backend,
+    ``identity_similarity``, every number finite.  Times: InceptionV3's ms
+    an image at B=8 (512 -> 299), the pipeline's ms a pair by stage, the
+    protocol's ms a pair.  Returns the ``metric_nets`` part of the ``eval``
+    line."""
+    import dataclasses
+    import os
+    import statistics
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from gazenerf_tpu_torch.cli.evaluate_metrics import (
+        build_fid_features,
+        build_identity_pipeline,
+        set_eval_precision,
+    )
+    from gazenerf_tpu_torch.eval import protocols as P
+    from gazenerf_tpu_torch.models.face_alignment import PFLDAligner
+    from gazenerf_tpu_torch.models.face_detection import DET_CFG, RetinaFaceDetector
+    from gazenerf_tpu_torch.models.face_recognition import arcface_crop, make_identity_embed_fn
+    from gazenerf_tpu_torch.models.inception import InceptionV3FID, make_fid_features_fn
+    from gazenerf_tpu_torch.models.seeding import seed_frozen_net_, seeded_identity_state_dicts
+
+    set_eval_precision("highest")
+    inc = seed_frozen_net_(InceptionV3FID(), torch.Generator().manual_seed(seed + 13)).state_dict()
+    ids = seeded_identity_state_dicts(torch.Generator().manual_seed(seed + 14))
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = {k: os.path.join(tmp, f"{k}.pth") for k in ("inception", *ids)}
+        torch.save(inc, paths["inception"])
+        for k, sd in ids.items():
+            torch.save(sd, paths[k])
+        fid_fn = build_fid_features(paths["inception"], dev)
+        pipe = build_identity_pipeline(paths["embed"], paths["detector"], paths["aligner"], dev)
+    det, al = pipe.detector, pipe.aligner
+    cpu = {"fid": make_fid_features_fn(inc, "cpu"),
+           "detector": RetinaFaceDetector(ids["detector"], "cpu"),
+           "aligner": PFLDAligner(ids["aligner"], "cpu"),
+           "embed": make_identity_embed_fn(ids["embed"], "cpu")}
+
+    def sync_ms(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        return r, (time.perf_counter() - t0) * 1e3
+
+    def rel(card, host):
+        card = torch.cat([t.reshape(-1) for t in card]).double().cpu()
+        host = torch.cat([t.reshape(-1) for t in host]).double()
+        return float((card - host).norm() / host.norm())
+
+    # each net on the card against the CPU, on the protocol's first pair
+    pair0 = pairs[0]
+    tgt0 = P._single(pair0["target"])
+    gt0 = P._whiten_nonhead(tgt0, dev)
+    pred0 = torch.nan_to_num(ctx.predict(ctx.base_state, tgt0), nan=1.0)
+    img = P._resize224_u8(pred0)
+    x_det = img.float() - torch.tensor((104.0, 117.0, 123.0), device=dev)
+    with torch.no_grad():
+        heads = det.net(x_det.permute(2, 0, 1)[None])
+        heads_cpu = cpu["detector"].net(x_det.cpu().permute(2, 0, 1)[None])
+    dets = det(img)
+    check(len(dets) > 0, "metric nets: the detector found no face on the protocol's image")
+    scores = heads[1][0, :, 1].float().cpu()
+    face = torch.zeros_like(scores, dtype=torch.bool)
+    face.view(-1, 2)[:, 0] = True  # the first anchor of each position ...
+    level1 = slice(2 * 28 * 28, 2 * (28 * 28 + 14 * 14))  # ... of the stride-16 level (224^2)
+    mask = torch.zeros_like(face)
+    mask[level1] = face[level1]
+    best, others = float(scores[mask].max()), float(scores[~mask].max())
+    thr = DET_CFG["confidence_threshold"]
+    check(best >= thr + 0.1 and others <= thr - 0.1,
+          f"metric nets: face score {best:.4f}, other anchors' best {others:.4f} against {thr}")
+    crop, _, _ = al.crop(img, dets[0])
+    inp = (crop.float() / 255.0).permute(2, 0, 1)[None]
+    with torch.no_grad():
+        lm, lm_cpu = al.net(inp), cpu["aligner"].net(inp.cpu())
+    lms = lm.cpu().numpy().reshape(-1, 2)
+    face112 = (arcface_crop(img, al(img, dets[0])).float() / 255.0)[None]
+    x8 = torch.rand((8, 512, 512, 3), generator=torch.Generator(device=dev).manual_seed(seed),
+                    device=dev)
+    readings = {
+        "inception": rel([fid_fn(x8[:2])], [cpu["fid"](x8[:2].cpu())]),
+        "retinaface": rel(heads, heads_cpu),
+        "pfld": rel([lm - al.net.fc.bias], [lm_cpu - cpu["aligner"].net.fc.bias]),
+        "mobilefacenet": rel([pipe.embed_fn(face112)], [cpu["embed"](face112.cpu())]),
+    }
+    print(f"metric nets, card vs CPU, relative L2: {readings} (limits {METRIC_NET_REL_L2})")
+    bad = {k: v for k, v in readings.items() if not v <= METRIC_NET_REL_L2[k]}
+    check(not bad, f"metric nets: card vs CPU over the limits {METRIC_NET_REL_L2}: {bad}")
+    check(bool(np.isfinite(lms).all()), "metric nets: PFLD landmarks")
+
+    # the pipeline once outside the protocol's catch
+    direct = pipe(P._resize224_u8(gt0), img)
+    check(np.isfinite(direct) and -1.0 <= direct <= 1.0, f"metric nets: pipeline gave {direct}")
+
+    # times: InceptionV3 at B=8, the pipeline's stages on one pair
+    fid_fn(x8)
+    inc_ms = statistics.median(sync_ms(lambda: fid_fn(x8))[1] for _ in range(5)) / 8
+    a, b = P._resize224_u8(gt0), img
+    stage_ms = {"detect": [], "align": [], "crop": [], "embed": [], "pair": []}
+    for _ in range(5):
+        parts = dict.fromkeys(stage_ms, 0.0)
+        for im in (a, b):
+            d, ms = sync_ms(lambda: det(im))
+            parts["detect"] += ms
+            lm_i, ms = sync_ms(lambda: al(im, d[0]))
+            parts["align"] += ms
+            c, ms = sync_ms(lambda: arcface_crop(im, lm_i))
+            parts["crop"] += ms
+            _, ms = sync_ms(lambda: pipe.embed_fn((c.float() / 255.0)[None]))
+            parts["embed"] += ms
+        parts["pair"] = sync_ms(lambda: pipe(a, b))[1]
+        for k, v in parts.items():
+            stage_ms[k].append(v)
+    stage_ms = {k: statistics.median(v) for k, v in stage_ms.items()}
+
+    # the protocol with both hooks
+    log = []
+
+    def recording(x, y):
+        try:
+            score = pipe(x, y)
+        except (ValueError, np.linalg.LinAlgError):
+            log.append({"stages": "failed", "score": -0.1})
+            raise
+        log.append({"stages": list(pipe.last_stages), "score": score})
+        return score
+
+    ctx2 = dataclasses.replace(ctx, fid_feats_fn=fid_fn, identity_pipeline=recording,
+                               identity_valid=True)
+    reset_launch_counts()  # this slice's main path: the protocol with both hooks
+    res, it_ms = sync_ms(lambda: P.evaluate_input_target_images(ctx2, pairs))
+    launches = launch_counts()
+    m = ctx.cfg.model
+    want = expected_launches(m, 5 * len(pairs), train=True)  # each pair's 5-step fit ...
+    want["fused_field_fwd"] += 2 * len(pairs)  # ... and its prediction's two K1
+    check(launches == want, f"metric nets: input_target launched {launches} (expected {want})")
+    res["identity_similarity_valid"] = ctx2.identity_valid  # as the CLI reports it
+    check(res.get("fid_backend") == "exact" and "fid" in res and "identity_similarity" in res,
+          f"metric nets: input_target gave {sorted(res)}")
+    numbers = [v for v in res.values() if not isinstance(v, (str, bool))]
+    check(all(np.isfinite(numbers)), f"metric nets: input_target {res}")
+    failed = sum(r["score"] == -0.1 for r in log)
+    print(f"metric nets: input_target with exact FID {res['fid']:.4f} and identity "
+          f"{res['identity_similarity']:.6f}, {it_ms / len(pairs):.1f} ms a pair; stages per "
+          f"pair {[r['stages'] for r in log]}, {failed} pairs at -0.1; InceptionV3 "
+          f"{inc_ms:.2f} ms an image (B=8, 512 -> 299); identity pipeline ms a pair {stage_ms}")
+    return {
+        "card_vs_cpu_rel_l2": readings, "limit": METRIC_NET_REL_L2,
+        "detector_scores": {"face_best": best, "other_anchors_best": others, "threshold": thr},
+        "input_target_exact": {**res, "ms_per_pair": it_ms / len(pairs), "pairs": log,
+                               "pairs_at_minus_0_1": failed,
+                               "launches": {k: v for k, v in launches.items() if v}},
+        "inception_ms_per_image_b8": inc_ms,
+        "identity_ms_per_pair": stage_ms,
+        "pipeline_direct": direct,
+    }
+
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -3238,9 +3425,12 @@ def main() -> int:
     phase_cli(args.seed)
     lap("hier, cli")
     # 8. eval: fitting, gaze optimization, protocols, render loops
-    per_fit_step = phase_eval(args.seed, args.fit_steps, smi)
+    per_fit_step, exact_eval = phase_eval(args.seed, args.fit_steps, smi)
     k1["launches_per_fit_step"] = per_fit_step["fused_field_fwd"]
     k2["launches_per_fit_step"] = per_fit_step["fused_field_bwd"]
+    # the input-target protocol with exact FID and the identity pipeline (2 pairs)
+    k1["launches_input_target_exact"] = exact_eval["fused_field_fwd"]
+    k2["launches_input_target_exact"] = exact_eval["fused_field_bwd"]
     k2["launches"] = training["phase_gm"]["launches"]["fused_field_bwd"]
     k6["launches"] = training["pallas"]["launches"]["shuffle_blur_bwd"]
     k8["launches"] = training["fused"]["launches"]["fused_upsampler_bwd"]

@@ -6,17 +6,21 @@ The port's counterpart of ``python -m gazenerf_tpu.cli.evaluate_metrics``
 checkpoint (``--resume``), the frozen ResNet-50 gaze estimator
 (``--estimator_ckpt``; without it the angular metrics are left out), LPIPS
 (``--vgg_ckpt`` and ``--lpips_lin_ckpt``; without them the uniform-weight
-VGG distance of the loss stack's VGG), the face normalizer, and one of the
+VGG distance of the loss stack's VGG), FID's InceptionV3 features
+(``--inception_ckpt``; without it the VGG features' Frechet distance,
+labelled ``vgg_gap_fallback``), the FaceX-Zoo identity pipeline
+(``--identity_embed_ckpt``, ``--identity_detector_ckpt``,
+``--identity_aligner_ckpt``: MobileFaceNet, RetinaFace, PFLD; without the
+embedder the score is left out and the result says
+``identity_similarity_valid: false``), the face normalizer, and one of the
 four protocols swept over the split's subjects of one or several
 datasets.  Prints the result as JSON.
 
 ``--eval_precision`` sets the card's f32 arithmetic for the metric nets:
 ``highest`` (the default) turns TF32 off for matrix products and cuDNN
 convolutions, ``high`` allows it, ``default`` leaves PyTorch's settings
-(TF32 convolutions on Hopper).  FID's InceptionV3 features
-(``--inception_ckpt``) and the FaceX-Zoo identity pipeline
-(``--identity_*_ckpt``) are not ported yet and raise.  Runs on the CUDA
-card unless given ``--device cpu``.
+(TF32 convolutions on Hopper).  Runs on the CUDA card unless given
+``--device cpu``.
 """
 
 from __future__ import annotations
@@ -28,14 +32,6 @@ import logging
 import numpy as np
 
 from gazenerf_tpu_torch.cli.common import add_common_args, config_from_args
-
-# flags of modules not ported yet: (flag, what it loads, the ROADMAP item)
-_NOT_PORTED = (
-    ("inception_ckpt", "FID's InceptionV3 features", "Queue 1 item 3"),
-    ("identity_embed_ckpt", "the FaceX-Zoo identity pipeline", "Queue 1 item 3"),
-    ("identity_detector_ckpt", "the FaceX-Zoo identity pipeline", "Queue 1 item 3"),
-    ("identity_aligner_ckpt", "the FaceX-Zoo identity pipeline", "Queue 1 item 3"),
-)
 
 
 def build_estimator(ckpt_path: str, device=None):
@@ -74,6 +70,44 @@ def build_lpips(vgg_ckpt: str, lin_ckpt: str, device=None):
         lin = lpips_lin_from_torch([w.numpy() for w in lw] if isinstance(lw, (list, tuple))
                                    else {k: v.numpy() for k, v in lw.items()})
     return make_lpips_fn(vgg_features_from_torch(sd), lin_weights=lin, device=device)
+
+
+def build_fid_features(inception_ckpt: str, device=None):
+    """Exact FID's features (upstream ``piq.FID``: InceptionV3's pool3) from
+    a pytorch-fid or torchvision checkpoint: ``fn(imgs [B, H, W, 3]) -> [B,
+    2048]``; None without a checkpoint (the protocols then take the VGG
+    features' Frechet distance)."""
+    if not inception_ckpt:
+        return None
+    from gazenerf_tpu_torch.models.inception import make_fid_features_fn
+    from gazenerf_tpu_torch.train.trainer import torch_state_dict
+
+    return make_fid_features_fn(torch_state_dict(inception_ckpt), device=device)
+
+
+def build_identity_pipeline(embed_ckpt: str, detector_ckpt: str, aligner_ckpt: str,
+                            device=None):
+    """The FaceX-Zoo identity pipeline (upstream
+    ``evaluation_similarity.py``) from its checkpoints: MobileFaceNet,
+    RetinaFace, PFLD.  A stage without a checkpoint falls back
+    (``models/face_recognition.IdentitySimilarityPipeline``); without the
+    embedder's, its weights are drawn from seed 0 and the score means
+    nothing (the CLI then leaves it out)."""
+    import torch
+
+    from gazenerf_tpu_torch.models.face_alignment import PFLDAligner
+    from gazenerf_tpu_torch.models.face_detection import RetinaFaceDetector
+    from gazenerf_tpu_torch.models.face_recognition import IdentitySimilarityPipeline
+    from gazenerf_tpu_torch.train.trainer import torch_state_dict
+
+    detector = aligner = None
+    if detector_ckpt:
+        detector = RetinaFaceDetector(torch_state_dict(detector_ckpt), device)
+    if aligner_ckpt:
+        aligner = PFLDAligner(torch_state_dict(aligner_ckpt), device)
+    return IdentitySimilarityPipeline(
+        torch_state_dict(embed_ckpt) if embed_ckpt else None, detector, aligner, device,
+        generator=None if embed_ckpt else torch.Generator().manual_seed(0))
 
 
 def set_eval_precision(precision: str) -> None:
@@ -118,14 +152,14 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--estimator_ckpt", type=str, default="",
                    help="ResNet-50 gaze estimator checkpoint (torch)")
     p.add_argument("--identity_embed_ckpt", type=str, default="",
-                   help="MobileFaceNet checkpoint (not ported yet)")
+                   help="MobileFaceNet checkpoint (FaceX-Zoo)")
     p.add_argument("--identity_detector_ckpt", type=str, default="",
-                   help="RetinaFace checkpoint (not ported yet)")
+                   help="RetinaFace checkpoint (FaceX-Zoo)")
     p.add_argument("--identity_aligner_ckpt", type=str, default="",
-                   help="PFLD checkpoint (not ported yet)")
+                   help="PFLD checkpoint (FaceX-Zoo)")
     p.add_argument("--lpips_lin_ckpt", type=str, default="", help="LPIPS linear-head weights")
     p.add_argument("--inception_ckpt", type=str, default="",
-                   help="pytorch-fid InceptionV3 checkpoint (not ported yet)")
+                   help="pytorch-fid InceptionV3 checkpoint (exact FID)")
     p.add_argument("--cam_dir", type=str, default="",
                    help="per-camera calibration dir (camNN.xml / CameraNN.mat)")
     p.add_argument("--eval_precision", type=str, default="highest",
@@ -138,9 +172,6 @@ def _parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> int:
     args = _parser().parse_args(argv)
-    for flag, what, item in _NOT_PORTED:
-        if getattr(args, flag):
-            raise NotImplementedError(f"--{flag}: {what} is not ported yet (ROADMAP {item})")
     set_eval_precision(args.eval_precision)
     cfg = config_from_args(args)
     logging.basicConfig(level=logging.INFO)
@@ -168,6 +199,15 @@ def main(argv=None) -> int:
     base = FitState.of(trainer)
     estimator_fn = build_estimator(args.estimator_ckpt, trainer.device)
     lpips_fn = build_lpips(args.vgg_ckpt, args.lpips_lin_ckpt, trainer.device)
+    fid_feats_fn = build_fid_features(args.inception_ckpt, trainer.device)
+    identity_pipeline, identity_valid = None, True
+    if args.identity_embed_ckpt or args.identity_detector_ckpt or args.identity_aligner_ckpt:
+        identity_pipeline = build_identity_pipeline(
+            args.identity_embed_ckpt, args.identity_detector_ckpt, args.identity_aligner_ckpt,
+            trainer.device)
+        # without the embedder's weights the score means nothing: the
+        # protocols leave it out and the result carries the flag
+        identity_valid = bool(args.identity_embed_ckpt)
 
     def make_ctx(dataset_kind: str, subject: str) -> P.EvalContext:
         cam_lookup = None
@@ -178,7 +218,8 @@ def main(argv=None) -> int:
             cam_lookup = make_cam_lookup(dataset_kind, cams, subject=subject)
         return P.EvalContext.build(
             cfg, base, trainer.frozen, trainer.expr_fix, fit_steps=args.fit_steps,
-            estimator_fn=estimator_fn, lpips_fn=lpips_fn,
+            estimator_fn=estimator_fn, lpips_fn=lpips_fn, fid_feats_fn=fid_feats_fn,
+            identity_pipeline=identity_pipeline, identity_valid=identity_valid,
             normalizer=P.make_eval_normalizer(), cam_lookup=cam_lookup,
         )
 
@@ -262,6 +303,8 @@ def main(argv=None) -> int:
                         num_iterations=args.num_iterations, rng=cal_rng,
                         out_dir=args.calib_out_dir or None, subject=s)
             res = {"per_subject": per_subject}
+        if identity_pipeline is not None:
+            res["identity_similarity_valid"] = identity_valid
         per_dataset[kind] = res
 
     if wandb is not None and len(per_dataset) > 1 and use_target:

@@ -7,7 +7,8 @@ sweeps:
 * :func:`evaluate_input_target_images` — per (input, target) pair: fit on
   the input image, re-render with the target's camera and gaze, score gaze
   and head angular error, SSIM, PSNR, LPIPS, L1 and identity similarity,
-  and FID across the collected sets;
+  and FID across the collected sets (identity similarity through the
+  FaceX-Zoo pipeline, ``models/face_recognition.py``, where one is given);
 * :func:`evaluate_personal_calibration` — fit on some images of a subject
   and synthesize the others, normalized to 224x224 for fine-tuning an
   estimator (an h5 file, where ``h5py`` is installed);
@@ -93,12 +94,19 @@ class EvalContext:
     estimator_fn: Optional[Callable] = None  # img -> (gaze, head) pitch-yaw
     feats_fn: Optional[Callable] = None  # img -> list of feature maps
     embed_fn: Optional[Callable] = None  # img -> identity embedding (real weights only)
+    # the FaceX-Zoo pipeline (detect, align, crop, embed: models/
+    # face_recognition.IdentitySimilarityPipeline), taken before embed_fn:
+    # (uint8 a, uint8 b) -> similarity
+    identity_pipeline: Optional[Callable] = None
     lpips_fn: Optional[Callable] = None  # (a, b) -> [B] distances
     fid_feats_fn: Optional[Callable] = None  # imgs -> [B, D] features
     # estimator-input normalization (make_eval_normalizer) and the
     # per-camera calibration: cam_index -> (camera_matrix, distortion)
     normalizer: Optional[Callable] = None
     cam_lookup: Optional[Callable] = None
+    # False where the embedder has no real weights: identity_similarity is
+    # then left out of the results rather than averaged in
+    identity_valid: bool = True
 
     @classmethod
     def build(cls, cfg: Config, base_state: FitState, frozen, expr_fix: np.ndarray,
@@ -113,6 +121,14 @@ class EvalContext:
             optimize_gaze=make_optimize_gaze(cfg, frozen, expr_fix),
             feats_fn=frozen.vgg_capture_fn(), **hooks,
         )
+
+
+def _resize224_u8(img01: torch.Tensor) -> torch.Tensor:
+    """``[1, H, W, 3]`` in [0, 1] -> ``[224, 224, 3]`` uint8 on its device:
+    a bilinear resize (no antialiasing), clipped, times 255, truncated
+    (upstream's ``trans_resize`` and uint8 cast)."""
+    r = resize_bilinear(img01.to(torch.float32), (224, 224))[0]
+    return (r.clamp(0.0, 1.0) * 255).to(torch.uint8)
 
 
 def _warp224(ctx: EvalContext, img: torch.Tensor, batch) -> torch.Tensor:
@@ -165,7 +181,18 @@ def _pair_metrics(ctx: EvalContext, pred_img, target_img, tgt) -> Dict[str, floa
         v = M.pitchyaw_to_vector
         out["gaze_angular_deg"] = float(M.angular_error_deg(v(g_gt), v(g_pr)).mean())
         out["head_angular_deg"] = float(M.angular_error_deg(v(h_gt), v(h_pr)).mean())
-    if ctx.embed_fn is not None:
+    if not ctx.identity_valid:
+        pass  # no real embedder weights: the score would mean nothing
+    elif ctx.identity_pipeline is not None:
+        # upstream scores a pair its pipeline fails on as -0.1; here only
+        # the pipeline's own host-side failures (a degenerate box or fit),
+        # never an error of the card
+        try:
+            out["identity_similarity"] = float(ctx.identity_pipeline(
+                _resize224_u8(target_img), _resize224_u8(pred_img)))
+        except (ValueError, np.linalg.LinAlgError):
+            out["identity_similarity"] = -0.1
+    elif ctx.embed_fn is not None:
         with torch.no_grad():
             out["identity_similarity"] = float(
                 M.identity_similarity(ctx.embed_fn, pred_img, target_img)[0])
@@ -248,7 +275,8 @@ def evaluate_input_target_images(ctx: EvalContext, pairs: List[Dict[str, Dict]])
 
 def evaluate_input_target_sweep(ctx: EvalContext, subject_pairs: Dict[str, List]) -> Dict[str, object]:
     """Every subject's pairs: per-subject metrics and FID, and the
-    dataset's over the pooled pairs and image sets."""
+    dataset's over the pooled pairs and image sets (one subject's pooled
+    sets are its own: its summary)."""
     per_subject: Dict[str, Dict] = {}
     all_pairs, all_gt, all_pred = [], [], []
     for subj, pairs in subject_pairs.items():
@@ -259,7 +287,12 @@ def evaluate_input_target_sweep(ctx: EvalContext, subject_pairs: Dict[str, List]
         all_pairs += pp
         all_gt += gt_imgs
         all_pred += pred_imgs
-    overall = _summary(ctx, all_pairs, all_gt, all_pred)
+    if len(per_subject) == 1:
+        # the pooled pairs and image sets are that subject's: the same
+        # summary, without a second FID (a 2048-wide sqrtm on the host)
+        overall = dict(next(iter(per_subject.values())))
+    else:
+        overall = _summary(ctx, all_pairs, all_gt, all_pred)
     overall["num_subjects"] = len(per_subject)
     return {"per_subject": per_subject, "overall": overall}
 

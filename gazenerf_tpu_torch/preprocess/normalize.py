@@ -19,7 +19,19 @@ gives the evaluation protocols (``eval/protocols.make_eval_normalizer``):
   bilinearly in f32 (neighbours outside the image read 0) and the sum is
   rounded.  That is OpenCV 5's arithmetic; OpenCV 4 rounds the source
   position to 1/32 pixel and weights in 15-bit fixed point, up to a few
-  levels apart on sharp edges.
+  levels apart on sharp edges;
+* the affine warp (:func:`warp_affine`) is ``cv2.warpAffine``'s on uint8
+  images in OpenCV 5's order of operations: the inverse map in float64
+  rounded to f32, each source coordinate one fused multiply-add on the f32
+  row term, the taps lerped with fused multiply-adds, rounded half to even
+  (equal to cv2's pixels in every case the tests meet, exact half-pixel
+  positions included, where :func:`warp_perspective`'s order rounds some
+  sums the other way);
+* the resize (:func:`resize_linear_u8`) is ``cv2.resize``'s INTER_LINEAR on
+  uint8 images, its fixed point emulated in integer tensor ops: 11-bit
+  weights and the two-pass sum of OpenCV's ``HResizeLinear`` and
+  ``VResizeLinear`` (equal to cv2's pixels at every size the tests meet,
+  the exact halving included, where OpenCV averages 2x2 blocks).
 
 The pose is host work in numpy (a few dozen 6x6 solves); the warp runs
 where the image lies.
@@ -245,6 +257,54 @@ def warp_perspective(img: torch.Tensor, M: np.ndarray, dsize: Tuple[int, int]) -
     return torch.round(v).clamp(0, 255).to(torch.uint8)
 
 
+def _fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """``a * b + c`` for f32 tensors with one rounding to f32, as a fused
+    multiply-add gives it: the product is exact in float64 and the sum is
+    rounded there first (a second rounding only where the float64 sum falls
+    exactly between two f32 values)."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def warp_affine(img: torch.Tensor, M: np.ndarray, dsize: Tuple[int, int]) -> torch.Tensor:
+    """``cv2.warpAffine(img, M, dsize)`` for a uint8 ``[H, W, C]`` tensor
+    (bilinear, border 0), on the tensor's device: the inverse of the ``[2,
+    3]`` map as ``cv2.invertAffineTransform`` computes it in float64, then
+    f32; destination pixel ``(x, y)`` reads the source at ``fma(m00, x, m01 y
+    + m02)``, ``fma(m10, x, m11 y + m12)``; the four neighbours (0 outside
+    the image) are lerped along x, then y, each step ``fma(p1 - p0, a,
+    p0)``; the result rounded half to even.  ``dsize`` is ``(width,
+    height)``."""
+    if img.dtype != torch.uint8 or img.dim() != 3:
+        raise ValueError(f"warp_affine takes a uint8 [H, W, C] image, got {img.dtype} "
+                         f"{tuple(img.shape)}")
+    H, W, _ = img.shape
+    w_out, h_out = dsize
+    f32, dev = torch.float32, img.device
+    A = np.asarray(M, np.float64)
+    det = A[0, 0] * A[1, 1] - A[0, 1] * A[1, 0]
+    det = 1.0 / det if det != 0.0 else 0.0
+    a11, a22, a12, a21 = A[1, 1] * det, A[0, 0] * det, -A[0, 1] * det, -A[1, 0] * det
+    m = torch.tensor([[a11, a12, -a11 * A[0, 2] - a12 * A[1, 2]],
+                      [a21, a22, -a21 * A[0, 2] - a22 * A[1, 2]]], dtype=f32, device=dev)
+    xs = torch.arange(w_out, dtype=f32, device=dev)[None, :]
+    ys = torch.arange(h_out, dtype=f32, device=dev)[:, None]
+    X = _fma_f32(m[0, 0], xs, m[0, 1] * ys + m[0, 2])
+    Y = _fma_f32(m[1, 0], xs, m[1, 1] * ys + m[1, 2])
+    x0, y0 = torch.floor(X), torch.floor(Y)
+    ax, ay = (X - x0)[..., None], (Y - y0)[..., None]
+    x0, y0 = x0.to(torch.int64), y0.to(torch.int64)
+
+    def tap(dy, dx):
+        xx, yy = x0 + dx, y0 + dy
+        inside = (xx >= 0) & (xx < W) & (yy >= 0) & (yy < H)
+        return img[yy.clamp(0, H - 1), xx.clamp(0, W - 1)].to(f32) * inside[..., None]
+
+    p00, p01, p10, p11 = tap(0, 0), tap(0, 1), tap(1, 0), tap(1, 1)
+    t0 = _fma_f32(p01 - p00, ax, p00)
+    t1 = _fma_f32(p11 - p10, ax, p10)
+    return torch.round(_fma_f32(t1 - t0, ay, t0)).clamp(0, 255).to(torch.uint8)
+
+
 def normalize_face(
     img: torch.Tensor,
     face_model_3d: np.ndarray,
@@ -275,3 +335,48 @@ def normalize_face(
     R = np.stack([right, down, forward], axis=0)
     W = cam_norm @ S @ (R @ np.linalg.inv(np.asarray(camera_matrix, np.float64)))
     return warp_perspective(img, W, (img_dim, img_dim)), R, W
+
+
+def _linear_taps(n_src: int, n_dst: int):
+    """cv2's source index and fraction per destination pixel of one axis:
+    ``f = (d + 0.5) * scale - 0.5`` rounded to f32, its floor and the rest."""
+    scale = 1.0 / (n_dst / n_src)
+    f = ((np.arange(n_dst) + 0.5) * scale - 0.5).astype(np.float32)
+    s = np.floor(f).astype(np.int64)
+    return s, f - s.astype(np.float32)
+
+
+def _coefs(f: np.ndarray) -> np.ndarray:
+    """The two 11-bit weights ``(1 - f, f) * 2048``, rounded half to even as
+    ``saturate_cast<short>`` rounds, ``[2, n]``."""
+    return np.rint(np.stack([np.float32(1) - f, f]) * np.float32(2048)).astype(np.int32)
+
+
+def resize_linear_u8(img: torch.Tensor, dsize: Tuple[int, int]) -> torch.Tensor:
+    """``cv2.resize(img, dsize)`` (INTER_LINEAR) for a uint8 ``[H, W, C]``
+    tensor, on its device.  ``dsize`` is ``(width, height)``.  Columns: the
+    source index clamped to the image with its weight moved to the edge
+    pixel; a pass in integers with weights ``round(2048 (1 - f))`` and
+    ``round(2048 f)``.  Rows: both source rows clamped, the weights kept,
+    and each product taken as ``(b * (r >> 4)) >> 16`` before ``(sum + 2) >>
+    2``."""
+    if img.dtype != torch.uint8 or img.dim() != 3:
+        raise ValueError(f"resize_linear_u8 takes a uint8 [H, W, C] image, got {img.dtype} "
+                         f"{tuple(img.shape)}")
+    H, W, _ = img.shape
+    w_out, h_out = dsize
+    dev = img.device
+    sx, fx = _linear_taps(W, w_out)
+    edge = (sx < 0) | (sx >= W - 1)
+    fx[edge] = 0
+    sx = np.clip(sx, 0, W - 1)
+    a = torch.as_tensor(_coefs(fx), device=dev)[:, None, :, None]
+    src = img.to(torch.int32)
+    rows = (src[:, torch.as_tensor(sx, device=dev)] * a[0]
+            + src[:, torch.as_tensor(np.minimum(sx + 1, W - 1), device=dev)] * a[1])
+    sy, fy = _linear_taps(H, h_out)
+    b = torch.as_tensor(_coefs(fy), device=dev)[:, :, None, None]
+    r0 = rows[torch.as_tensor(np.clip(sy, 0, H - 1), device=dev)] >> 4
+    r1 = rows[torch.as_tensor(np.clip(sy + 1, 0, H - 1), device=dev)] >> 4
+    out = (((b[0] * r0) >> 16) + ((b[1] * r1) >> 16) + 2) >> 2
+    return out.clamp(0, 255).to(torch.uint8)

@@ -10,7 +10,11 @@ the loss stack's VGG16, gaze-VGG and PatchGAN across (convolution kernels
 HWIO -> OIHW, dense kernels transposed, BatchNorm ``scale`` / ``bias`` /
 ``mean`` / ``var`` -> ``weight`` / ``bias`` / ``running_mean`` /
 ``running_var``), :func:`load_train_state_from_jax` a JAX training state's
-parameters and offset tables.
+parameters and offset tables.  :func:`inception_params_from_jax`,
+:func:`retinaface_params_from_jax`, :func:`pfld_params_from_jax` and
+:func:`mobilefacenet_params_from_jax` carry the metric nets across (the
+inverses of the JAX package's ``*_from_torch``), into the upstream layouts
+the port's modules load strictly.
 
 The numpy converters are a copy of the JAX package's ``utils/transplant``
 (the port imports nothing from that package); flax stores a Dense kernel
@@ -216,6 +220,122 @@ def patchgan_params_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
         out[f"norm{i}.bias"] = _f32(p["bias"])
         out[f"norm{i}.running_mean"] = _f32(st["mean"])
         out[f"norm{i}.running_var"] = _f32(st["var"])
+    return out
+
+
+def _bn_from_jax(p: Mapping, st: Mapping, prefix: str) -> Dict[str, torch.Tensor]:
+    """A flax BatchNorm's ``scale`` / ``bias`` and ``mean`` / ``var`` -> a
+    torch BatchNorm's five state entries under ``prefix``."""
+    return {f"{prefix}.weight": _f32(p["scale"]), f"{prefix}.bias": _f32(p["bias"]),
+            f"{prefix}.running_mean": _f32(st["mean"]), f"{prefix}.running_var": _f32(st["var"]),
+            f"{prefix}.num_batches_tracked": torch.tensor(0)}
+
+
+def inception_params_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX ``InceptionV3FID`` variables -> the port's ``InceptionV3FID``
+    ``state_dict``: flax's module paths are torchvision's names
+    (``Mixed_5b/branch5x5_1/conv``)."""
+    out: Dict[str, torch.Tensor] = {}
+
+    def walk(p, st, path):
+        if "conv" in p:
+            out[".".join(path + ["conv", "weight"])] = _conv_from_jax(p["conv"]["kernel"])
+            out.update(_bn_from_jax(p["bn"], st["bn"], ".".join(path + ["bn"])))
+            return
+        for k in p:
+            walk(p[k], st[k], path + [k])
+
+    walk(variables["params"], variables["batch_stats"], [])
+    return out
+
+
+def retinaface_params_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX ``RetinaFace`` variables -> the port's ``RetinaFace``
+    ``state_dict`` (FaceX-Zoo's names: ``body.stage1.{i}`` sequentials of
+    conv 0, BatchNorm 1 and, in a depthwise block, conv 3 and BatchNorm 4;
+    ``{Class,Bbox,Landmark}Head.{i}.conv1x1``)."""
+    params, stats = variables["params"], variables["batch_stats"]
+    out: Dict[str, torch.Tensor] = {}
+
+    def conv_bn(p, st, t):
+        out[f"{t}.0.weight"] = _conv_from_jax(p["conv"]["kernel"])
+        out.update(_bn_from_jax(p["bn"], st["bn"], f"{t}.1"))
+
+    body_p, body_s = params["body"], stats["body"]
+    for name in body_p:
+        stage, i = name.rsplit("_", 1)
+        t, p, st = f"body.{stage}.{i}", body_p[name], body_s[name]
+        if "dw" in p:
+            out[f"{t}.0.weight"] = _conv_from_jax(p["dw"]["kernel"])
+            out.update(_bn_from_jax(p["bn1"], st["bn1"], f"{t}.1"))
+            out[f"{t}.3.weight"] = _conv_from_jax(p["pw"]["kernel"])
+            out.update(_bn_from_jax(p["bn2"], st["bn2"], f"{t}.4"))
+        else:
+            conv_bn(p, st, t)
+    for group in ("fpn", "ssh1", "ssh2", "ssh3"):
+        for name in params[group]:
+            conv_bn(params[group][name], stats[group][name], f"{group}.{name}")
+    for head in ("ClassHead", "BboxHead", "LandmarkHead"):
+        for i in range(3):
+            p = params[f"{head}_{i}"]
+            out[f"{head}.{i}.conv1x1.weight"] = _conv_from_jax(p["kernel"])
+            out[f"{head}.{i}.conv1x1.bias"] = _f32(p["bias"])
+    return out
+
+
+def pfld_params_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX ``PFLD`` variables -> the port's ``PFLD`` ``state_dict``
+    (FaceX-Zoo's names: a bottleneck's ``conv`` sequential holds pw 0,
+    BatchNorm 1, dw 3, BatchNorm 4, the SE 5 (``fc.0``, ``fc.2``), pwl 7,
+    BatchNorm 8)."""
+    params, stats = variables["params"], variables["batch_stats"]
+    out = {"conv_bn1.0.weight": _conv_from_jax(params["conv_bn1"]["kernel"])}
+    out.update(_bn_from_jax(params["bn1"], stats["bn1"], "conv_bn1.1"))
+    for b, st in stats.items():
+        if b == "bn1":
+            continue
+        p = params[b]
+        for conv, idx in (("pw", 0), ("dw", 3), ("pwl", 7)):
+            out[f"{b}.conv.{idx}.weight"] = _conv_from_jax(p[conv]["kernel"])
+        for bn, idx in (("bn1", 1), ("bn2", 4), ("bn3", 8)):
+            out.update(_bn_from_jax(p[bn], st[bn], f"{b}.conv.{idx}"))
+        if "se" in p:
+            out[f"{b}.conv.5.fc.0.weight"] = _f32(np.asarray(p["se"]["fc0"]["kernel"]).T)
+            out[f"{b}.conv.5.fc.2.weight"] = _f32(np.asarray(p["se"]["fc1"]["kernel"]).T)
+    for name in ("conv7", "conv8"):
+        out[f"{name}.weight"] = _conv_from_jax(params[name]["kernel"])
+        out[f"{name}.bias"] = _f32(params[name]["bias"])
+    out["fc.weight"] = _f32(np.asarray(params["fc"]["kernel"]).T)
+    out["fc.bias"] = _f32(params["fc"]["bias"])
+    return out
+
+
+def mobilefacenet_params_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX ``MobileFaceNet`` variables -> the port's ``MobileFaceNet``
+    ``state_dict`` (FaceX-Zoo's names: the residual stacks
+    ``conv_{3,4,5}.model.{i}``, each block's ``conv``, ``conv_dw`` and
+    ``project``, PReLU slopes ``prelu.weight``)."""
+    params, stats = variables["params"], variables["batch_stats"]
+    out: Dict[str, torch.Tensor] = {}
+
+    def block(p, st, t):  # ConvBlock or LinearBlock
+        out[f"{t}.conv.weight"] = _conv_from_jax(p["conv"]["kernel"])
+        out.update(_bn_from_jax(p["bn"], st["bn"], f"{t}.bn"))
+        if "prelu" in p:
+            out[f"{t}.prelu.weight"] = _f32(p["prelu"])
+
+    for name, p in params.items():
+        if name in ("linear", "bn"):
+            continue
+        stack, _, i = name.rpartition("_")
+        t = f"{stack}.model.{i}" if stack in ("conv_3", "conv_4", "conv_5") else name
+        if "project" in p:
+            for sub in ("conv", "conv_dw", "project"):
+                block(p[sub], stats[name][sub], f"{t}.{sub}")
+        else:
+            block(p, stats[name], t)
+    out["linear.weight"] = _f32(np.asarray(params["linear"]["kernel"]).T)
+    out.update(_bn_from_jax(params["bn"], stats["bn"], "bn"))
     return out
 
 

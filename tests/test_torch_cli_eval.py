@@ -1,9 +1,14 @@
 """The port's evaluation entry points on the CPU from synthetic h5
 subjects: ``python -m gazenerf_tpu_torch.cli.evaluate`` and ``cli.visualize``
 (the JAX package's GIF names per subject key), ``cli.evaluate_metrics``
-(the JAX CLI's JSON keys; personal calibration's h5 files), the flags of
-modules not ported yet, the precision switch, and no fall-back to the
-CPU."""
+(the JAX CLI's JSON keys; personal calibration's h5 files; exact FID and
+the identity pipeline from seeded checkpoints), the precision switch, and
+no fall-back to the CPU.
+
+The JAX CLI cannot load an embedder checkpoint (it imports
+``mobilefacenet_from_torch`` from ``gazenerf_tpu.utils.transplant``, which
+lacks it), so the port's FID is held against the JAX package's ``fid``
+through its own InceptionV3 on the images the port's protocol scored."""
 
 import json
 import os
@@ -12,7 +17,15 @@ import numpy as np
 import pytest
 import torch
 
+import jax.numpy as jnp
+
+from gazenerf_tpu.eval import metrics as JM
+from gazenerf_tpu.models.inception import inception_from_torch
+from gazenerf_tpu.models.inception import make_fid_features_fn as jax_make_fid_features_fn
 from gazenerf_tpu_torch.cli import evaluate_metrics
+from gazenerf_tpu_torch.eval import metrics as M
+from gazenerf_tpu_torch.models.inception import InceptionV3FID
+from gazenerf_tpu_torch.models.seeding import seed_frozen_net_, seeded_identity_state_dicts
 from gazenerf_tpu_torch.cli.evaluate import main as evaluate_main
 from gazenerf_tpu_torch.cli.visualize import main as visualize_main
 from gazenerf_tpu_torch.data.synthetic import write_synthetic_subject
@@ -101,11 +114,62 @@ def test_evaluate_metrics_personal_calibration(data, tmp_path, capsys):
             assert f["face_patch"].shape == (3, 224, 224, 3) and f["face_patch"].dtype == np.uint8
 
 
-@pytest.mark.parametrize("flag", ["--inception_ckpt", "--identity_embed_ckpt",
-                                  "--identity_detector_ckpt", "--identity_aligner_ckpt"])
-def test_flags_of_modules_not_ported_raise(flag):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 3"):
-        evaluate_metrics.main(["--img_dir", "unused", flag, "weights.pth"] + PORT)
+# InceptionV3's bound in the JAX package's tests (tests/test_metrics_backends.py)
+FID_RTOL = 1e-3
+
+
+@pytest.fixture(scope="module")
+def ckpts(tmp_path_factory):
+    """Seeded checkpoints in the upstream layouts: pytorch-fid's InceptionV3
+    (with its ``fc`` head), FaceX-Zoo's MobileFaceNet (``state_dict`` of a
+    ``DataParallel``, ``module.`` keys), RetinaFace and PFLD."""
+    d = tmp_path_factory.mktemp("ckpts")
+    inc = seed_frozen_net_(InceptionV3FID(), torch.Generator().manual_seed(1)).state_dict()
+    torch.save(dict(inc, **{"fc.weight": torch.zeros(1008, 2048), "fc.bias": torch.zeros(1008)}),
+               d / "inception.pth")
+    ids = seeded_identity_state_dicts(torch.Generator().manual_seed(5))
+    torch.save({"state_dict": {f"module.{k}": v for k, v in ids["embed"].items()}}, d / "embed.pth")
+    torch.save(ids["detector"], d / "detector.pth")
+    torch.save(ids["aligner"], d / "aligner.pth")
+    flags = {"inception": ["--inception_ckpt", str(d / "inception.pth")],
+             "identity": ["--identity_embed_ckpt", str(d / "embed.pth"),
+                          "--identity_detector_ckpt", str(d / "detector.pth"),
+                          "--identity_aligner_ckpt", str(d / "aligner.pth")]}
+    return flags, inc
+
+
+def test_exact_fid_and_identity_pipeline(data, ckpts, capsys, monkeypatch):
+    """``--inception_ckpt`` and the three identity flags: FID from the
+    exact backend, equal to the JAX package's ``fid`` through its
+    InceptionV3 on the same images; the identity score, valid."""
+    flags, inc = ckpts
+    seen = []
+    fid = M.fid
+    monkeypatch.setattr(M, "fid", lambda fn, a, b: seen.append((a, b)) or fid(fn, a, b))
+    argv = ["--img_dir", str(data), "--fit_steps", "2", "--max_pairs", "2"]
+    assert evaluate_metrics.main(argv + flags["inception"] + flags["identity"] + PORT) == 0
+    got = json.loads(capsys.readouterr().out)
+    overall = got["overall"]
+    assert overall["fid_backend"] == got["per_subject"]["subject0001.h5"]["fid_backend"] == "exact"
+    assert got["identity_similarity_valid"] is True
+    assert overall["num_pairs"] == 2 and -1.0 <= overall["identity_similarity"] <= 1.0
+    assert all(np.isfinite(v) for v in overall.values() if not isinstance(v, str))
+    (gt, pred), = seen  # one subject: the overall FID is the subject's
+    jax_feats = jax_make_fid_features_fn(inception_from_torch({k: v.numpy() for k, v in inc.items()}))
+    want = JM.fid(lambda x: jax_feats(jnp.asarray(x)), [np.asarray(i) for i in gt],
+                  [np.asarray(i) for i in pred])
+    assert overall["fid"] == pytest.approx(want, rel=FID_RTOL)
+
+
+def test_identity_without_the_embedder_is_not_valid(data, ckpts, capsys):
+    """The detector's flag alone: the pipeline runs on a seeded embedder,
+    the score is left out and the result says so."""
+    flags, _ = ckpts
+    argv = ["--img_dir", str(data), "--fit_steps", "1", "--max_pairs", "1"]
+    assert evaluate_metrics.main(argv + flags["identity"][2:4] + PORT) == 0
+    got = json.loads(capsys.readouterr().out)
+    assert got["identity_similarity_valid"] is False
+    assert "identity_similarity" not in got["overall"]
 
 
 @pytest.mark.parametrize("precision, tf32", [("highest", False), ("high", True), ("default", None)])
@@ -122,6 +186,20 @@ def test_eval_precision_sets_tf32(precision, tf32):
     finally:
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
         torch.set_float32_matmul_precision(saved_mm)
+
+
+@pytest.mark.parametrize("build", ["fid_features", "identity_pipeline"])
+def test_metric_nets_default_to_the_card(ckpts, monkeypatch, build):
+    """``--device`` defaults to ``cuda``, and the metric nets' loaders given
+    no device look for the card: without one they raise."""
+    flags, _ = ckpts
+    assert evaluate_metrics._parser().parse_args(["--img_dir", "unused"]).device == "cuda"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        if build == "fid_features":
+            evaluate_metrics.build_fid_features(flags["inception"][1])
+        else:
+            evaluate_metrics.build_identity_pipeline(*flags["identity"][1::2])
 
 
 @pytest.mark.parametrize("entry", ["evaluate", "evaluate_metrics"])

@@ -35,7 +35,7 @@ print(len(names), bad, missing)
 
 # the modules of the slices: the render, the training step, the renderer's
 # kernel modes, the dual-branch field path, the training CLI from files, and
-# fitting and evaluation with their CLIs
+# fitting and evaluation with their CLIs and metric nets
 EXPECTED = [
     "gazenerf_tpu_torch.cli.common",
     "gazenerf_tpu_torch.cli.evaluate",
@@ -58,7 +58,12 @@ EXPECTED = [
     "gazenerf_tpu_torch.kernels.fused_upsampler",
     "gazenerf_tpu_torch.kernels.shuffle_blur",
     "gazenerf_tpu_torch.losses.gazenerf_loss",
+    "gazenerf_tpu_torch.models.face_alignment",
+    "gazenerf_tpu_torch.models.face_detection",
+    "gazenerf_tpu_torch.models.face_recognition",
+    "gazenerf_tpu_torch.models.inception",
     "gazenerf_tpu_torch.models.resnet",
+    "gazenerf_tpu_torch.models.seeding",
     "gazenerf_tpu_torch.models.vgg",
     "gazenerf_tpu_torch.preprocess.normalize",
     "gazenerf_tpu_torch.train.checkpoint",

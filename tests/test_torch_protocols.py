@@ -12,7 +12,13 @@ mean colours): the fit's and the optimization's own parity is
 and here each protocol's own work (which frames are fitted, rendered,
 whitened, warped and scored, in which order) is held to f32 rounding.
 The real fit runs in the base-state test.
+
+The identity branch (the FaceX-Zoo pipeline, ``identity_valid``, the -0.1
+of a failed pair) runs with a stand-in pipeline; the protocol with the
+real metric nets is ``tests/test_torch_eval_slice.py``.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -52,6 +58,9 @@ WARPED_RTOL = 1e-3
 # pixels; held as tests/test_torch_normalize.py holds the warp
 FRAME_MAX_LEVELS = 1
 FRAME_MAX_SHARE = 1e-3
+# _resize224_u8 against JAX's: one level where the two f32 resizes round a
+# value on a level apart (reading: 1 value of 150,528)
+U8_MAX_LEVELS, U8_MAX_SHARE = 1, 1e-4
 
 
 def _pool(x, lib):
@@ -220,3 +229,88 @@ def test_protocol_leaves_the_base_state_unchanged(contexts):
         assert torch.equal(v, model_before[k]), k
     for k, v in tr.offsets.items():
         assert torch.equal(v.detach(), offsets_before[k]), k
+
+
+def _u8_mean(x) -> float:
+    return float(np.asarray(x.cpu() if isinstance(x, torch.Tensor) else x, np.float64).mean())
+
+
+def _pipeline(a, b) -> float:
+    """A stand-in identity pipeline on the two uint8 images."""
+    return 1.0 - abs(_u8_mean(a) - _u8_mean(b)) / 255.0
+
+
+def _raising(exc):
+    def pipeline(a, b):
+        raise exc("a stage failed")
+
+    return pipeline
+
+
+def _pair_metrics_both(contexts, **hooks):
+    """One pair's metrics from both packages' ``_pair_metrics`` with the
+    identity hooks given, the estimator and feature stand-ins off."""
+    jctx, pctx, _, b = contexts
+    rng = np.random.default_rng(40)
+    pred, target = (rng.random((1, 64, 64, 3), np.float32) for _ in range(2))
+    jhooks = {k: (v[0] if isinstance(v, tuple) else v) for k, v in hooks.items()}
+    phooks = {k: (v[1] if isinstance(v, tuple) else v) for k, v in hooks.items()}
+    j = dataclasses.replace(jctx, estimator_fn=None, feats_fn=None, **jhooks)
+    p = dataclasses.replace(pctx, estimator_fn=None, feats_fn=None, **phooks)
+    want = JP._pair_metrics(j, jnp.asarray(pred), jnp.asarray(target), b[0])
+    got = P._pair_metrics(p, torch.from_numpy(pred), torch.from_numpy(target), b[0])
+    return got, want
+
+
+EMBED = ((lambda x: _embed(x, jnp)), (lambda x: _embed(x, torch)))
+
+
+@pytest.mark.parametrize("case", ["not_valid", "pipeline_first", "embed_fn", "value_error"])
+def test_identity_branch_matches_jax(contexts, case):
+    """``identity_valid=False`` leaves the score out whatever the hooks; the
+    pipeline takes precedence over ``embed_fn``; a pipeline that raises
+    ``ValueError`` scores -0.1 in both packages."""
+    hooks = {"not_valid": dict(identity_pipeline=_pipeline, embed_fn=EMBED, identity_valid=False),
+             "pipeline_first": dict(identity_pipeline=_pipeline, embed_fn=EMBED),
+             "embed_fn": dict(identity_pipeline=None, embed_fn=EMBED),
+             "value_error": dict(identity_pipeline=_raising(ValueError), embed_fn=EMBED)}[case]
+    got, want = _pair_metrics_both(contexts, **hooks)
+    assert set(got) == set(want)
+    if case == "not_valid":
+        assert "identity_similarity" not in got
+        return
+    assert got["identity_similarity"] == pytest.approx(want["identity_similarity"], rel=METRIC_RTOL)
+    if case == "pipeline_first":
+        embed_only, _ = _pair_metrics_both(contexts, identity_pipeline=None, embed_fn=EMBED)
+        assert got["identity_similarity"] != embed_only["identity_similarity"]
+    if case == "value_error":
+        assert got["identity_similarity"] == want["identity_similarity"] == -0.1
+
+
+def test_pipeline_runtime_error_propagates_in_the_port(contexts):
+    """JAX scores any failure -0.1; the port lets a ``RuntimeError`` (a CUDA
+    error, running out of device memory) through."""
+    jctx, pctx, _, b = contexts
+    rng = np.random.default_rng(41)
+    img = rng.random((1, 64, 64, 3), np.float32)
+    j = dataclasses.replace(jctx, estimator_fn=None, feats_fn=None,
+                            identity_pipeline=_raising(RuntimeError))
+    want = JP._pair_metrics(j, jnp.asarray(img), jnp.asarray(img), b[0])
+    assert want["identity_similarity"] == -0.1
+    p = dataclasses.replace(pctx, estimator_fn=None, feats_fn=None,
+                            identity_pipeline=_raising(RuntimeError))
+    with pytest.raises(RuntimeError, match="a stage failed"):
+        P._pair_metrics(p, torch.from_numpy(img), torch.from_numpy(img), b[0])
+
+
+def test_resize224_u8_matches_jax():
+    """The pipeline's input: bilinear to 224, clipped, times 255, truncated,
+    on a 64x64 image with values past both ends.  The f32 resizes (XLA's
+    weight-matrix contraction, PyTorch's bilinear kernel) round some values
+    one step apart, and where such a value lies on a level the truncation
+    moves it by one."""
+    img = np.random.default_rng(42).uniform(-0.1, 1.1, (1, 64, 64, 3)).astype(np.float32)
+    got = P._resize224_u8(torch.from_numpy(img))
+    assert got.dtype == torch.uint8 and got.shape == (224, 224, 3)
+    d = np.abs(got.numpy().astype(int) - JP._resize224_u8(jnp.asarray(img)).astype(int))
+    assert d.max() <= U8_MAX_LEVELS and (d > 0).mean() <= U8_MAX_SHARE, (d.max(), (d > 0).mean())
