@@ -126,7 +126,18 @@ Phases (each raises on failure, so any failed phase exits non-zero):
    saved one, K1 and K2 twice a step in the overrides' mode, ``summary.csv``
    with every epoch.  It needs h5py; without it the phase says so on a
    line of its own and does not run;
-8. eval: in the configuration the evaluation CLIs build (the ``stash``
+8. distributed: the training step on more than one process, on the one
+   card: four ranks over gloo on ``cuda:0`` (``dp 2 x rp 2``: one row and
+   2048 rays a rank) and one rank over NCCL, each a process of this script,
+   against the one-process step (B=2, the default loss stack with VGG,
+   bf16, phase_gm, K1 and K2 recomputing) from the same seeded state,
+   batch (the rows' masks differ) and jitter draws: the loss, each
+   parameter group's reduced gradient (``GRAD_REL_L2``), the updated
+   parameters, K1 and K2 twice per rank and step, each rank's step time
+   and the gather's and the reduction's bytes and ms; again with the
+   PatchGAN, with its parameters and BatchNorm statistics (the
+   ``distributed`` line);
+9. eval: in the configuration the evaluation CLIs build (the ``stash``
    variant's kernels at B=1), a single-image fit of ``--fit_steps`` steps
    with launch counts, its gradients against the plain versions, K2 at
    B=1 against its plain version and the unrounded gradient, predict with
@@ -145,7 +156,7 @@ Prints ``k2_profile``, ``dw``, ``k8_profile``, ``f32_block_profile``,
 ``k2_deep_profile``, ``stash_form_case``, ``stash_form_points_case``,
 ``stash_forms``, ``points_case``, ``k2_points_profile``, ``serving``,
 ``training``, ``deep_training``, ``hier``, ``hier_fuse_embed``, ``cli``,
-``k2_fit_case``, ``eval`` and ``kernels`` JSON lines, the run's wall time,
+``distributed``, ``k2_fit_case``, ``eval`` and ``kernels`` JSON lines, the run's wall time,
 the ``nvidia-smi`` line and, last, the device JSON line.  Exits non-zero without
 a result when no CUDA card is present.  Imports nothing of JAX.
 """
@@ -2540,6 +2551,300 @@ def phase_step_breakdown(trainer, batch):
     return {"stages_ms": ms, "step_profile": profile}
 
 
+# the distributed phase: four ranks over gloo on one card (dp 2 x rp 2) and
+# one NCCL rank, each through the training step on a mesh, against the
+# one-process step of the same seeded state, batch and jitter draws
+DIST_LAYOUTS = {"gloo_2x2": ("gloo", 2, 2), "nccl_1x1": ("nccl", 1, 1)}
+# the passes: the default loss stack (VGG on), and with the PatchGAN
+DIST_PASSES = {"default": {}, "gan": {"use_patch_gan_loss": True}}
+# the loss of the dp x rp step against the one-process step's, relative
+DIST_LOSS_RTOL = 1e-4
+# a worker process that runs longer fails the phase; a collective that
+# waits longer raises in the worker (the process group's timeout)
+DIST_PROCESS_TIMEOUT_S = 300
+DIST_COLLECTIVE_TIMEOUT_S = 120
+DIST_TIMED_STEPS = 3
+
+
+def dist_batch(seed):
+    """The distributed phase's global batch (B=2, 512x512): the synthetic
+    batch with the second row's head and eye masks smaller, so that the
+    data ranks' masked-mean denominators differ from the whole batch's."""
+    import numpy as np
+
+    b = synthetic_batch(seed, 2, 512, 64)
+    yy, xx = np.mgrid[:512, :512] / 512
+    b["head_mask"][1] = (((yy - 0.55) / 0.3) ** 2 + ((xx - 0.5) / 0.2) ** 2 < 1)
+    b["left_eye_mask"][1] = (((yy - 0.5) / 0.03) ** 2 + ((xx - 0.42) / 0.05) ** 2 < 1)
+    b["right_eye_mask"][1] = (((yy - 0.5) / 0.03) ** 2 + ((xx - 0.58) / 0.04) ** 2 < 1)
+    return b
+
+
+def dist_pass(seed, loss_flags, mesh=None):
+    """One pass of the distributed phase in this process: a full-width bf16
+    trainer (phase_gm, K1 and K2 recomputing) from ``seed`` on ``mesh``
+    (None: the one-process step), one step without the update on the
+    global batch's rows of this rank and the global jitter draws, its
+    losses, K1/K2 launches, gradients per parameter group and, with the
+    GAN, the discriminator's reduced gradient and its state after the
+    update; then the update and the
+    updated parameters; then ``DIST_TIMED_STEPS`` timed steps (the jitter
+    drawn by the step), the last with the collectives timed."""
+    import statistics
+
+    import torch
+
+    from gazenerf_tpu_torch import Config, LossConfig, ModelConfig, Trainer
+    from gazenerf_tpu_torch.parallel import sharding
+    from gazenerf_tpu_torch.train import trainer as trainer_mod
+
+    cfg = Config(model=ModelConfig(compute_dtype="bfloat16", renderer_dtype="bfloat16"),
+                 loss=LossConfig(**loss_flags))
+    tr = Trainer(cfg, train_len=2, steps_per_epoch=1000, seed=seed, mesh=mesh)
+    random_biases_(tr.model, torch.Generator().manual_seed(seed))
+    batch = dist_batch(seed)
+    if mesh is not None:
+        batch = {k: v[sharding.row_slice(mesh, 2)] for k, v in batch.items()}
+    t_rand = jitter_draws(tr, seed)  # the global batch's
+    disc_grads, fakes = [], []
+    disc_step = trainer_mod.discriminator_step
+    if tr.disc is not None:  # the reduced gradient that the discriminator's Adam takes
+        disc_grads = capture_disc_grads(tr.disc, tr.disc_optimizer)
+        trainer_mod.discriminator_step = lambda d, o, img, *a: (  # the image it is given
+            fakes.append(img.detach().cpu()), disc_step(d, o, img, *a))[1]
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    try:
+        losses = tr.train_step(batch, t_rand=t_rand, update=False)
+        torch.cuda.synchronize()
+    finally:
+        trainer_mod.discriminator_step = disc_step
+    launches = launch_counts()
+    out = {"losses": {k: float(v) for k, v in losses.items()},
+           "launches": {k: v for k, v in launches.items() if v},
+           "grads": {g["name"]: torch.cat([p.grad.reshape(-1).float() for p in g["params"]]).cpu()
+                     for g in tr.optimizer.param_groups}}
+    if tr.disc is not None:
+        out["disc"] = {k: v.float().cpu() for k, v in tr.disc.state_dict().items()}
+        out["disc_grad"], out["fake"] = disc_grads[0], fakes[0]
+        del tr.disc_optimizer.step  # the bound method again
+    tr.optimizer.step()
+    tr.scheduler.step()
+    out["params"] = {g["name"]: torch.cat([p.detach().reshape(-1).float() for p in g["params"]])
+                     .cpu() for g in tr.optimizer.param_groups}
+    times = []
+    for i in range(DIST_TIMED_STEPS):
+        if mesh is not None and i == DIST_TIMED_STEPS - 1:
+            mesh.reset_traffic()
+            mesh.timed = True
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tr.train_step(batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    out["step_ms"] = {"median": statistics.median(times[:-1]), "samples": times[:-1],
+                      "with_timed_collectives": times[-1]}
+    if mesh is not None:
+        out["traffic"] = {k: {"calls": v["calls"], "bytes": v["bytes"],
+                              "ms": v["seconds"] * 1e3} for k, v in mesh.traffic.items()}
+        mesh.timed = False
+    return out
+
+
+def capture_disc_grads(disc, disc_optimizer):
+    """The discriminator's gradients, flattened, appended to the returned
+    list at each step of its Adam (which runs on)."""
+    import torch
+
+    grads = []
+    opt_step = disc_optimizer.step
+    disc_optimizer.step = lambda *a: (grads.append(torch.cat(
+        [p.grad.reshape(-1) for p in disc.parameters()]).cpu()), opt_step(*a))[1]
+    return grads
+
+
+def disc_grad_given(seed, fake, like):
+    """The one-process discriminator update's gradient from the trainer's
+    seeded discriminator, on the distributed phase's batch with ``fake``
+    (the rendered images) in place of the step's own render ``like``, laid
+    out as it is (the resize before the discriminator reads a render's
+    strides: on a contiguous copy the update moves by ~6e-4 relative L2)."""
+    import torch
+
+    from gazenerf_tpu_torch import TrainConfig
+    from gazenerf_tpu_torch.models.discriminator import PatchGAN
+    from gazenerf_tpu_torch.train.state import make_disc_optimizer
+    from gazenerf_tpu_torch.train.trainer import discriminator_step
+
+    disc = PatchGAN()
+    disc.reset_parameters(torch.Generator().manual_seed(seed + 2))  # as Trainer seeds it
+    disc.to("cuda").requires_grad_(False)
+    opt = make_disc_optimizer(TrainConfig(), disc.parameters())
+    grads = capture_disc_grads(disc, opt)
+    b = dist_batch(seed)
+    gt = torch.from_numpy(b["image"]).cuda()
+    hm = torch.from_numpy(b["head_mask"]).cuda()[..., None]
+    x = torch.empty_strided(like.shape, like.stride(), dtype=like.dtype, device="cuda")
+    discriminator_step(disc, opt, x.copy_(fake), gt, hm)
+    return grads[0]
+
+
+def distributed_worker(args):
+    """A rank of the distributed phase (``--distributed_rank``): joins the
+    group, builds the mesh on the card, runs every pass, writes its
+    readings for the phase to read."""
+    import os
+
+    import torch
+
+    from gazenerf_tpu_torch.parallel.mesh import init_distributed, make_mesh
+
+    backend, dp, rp = DIST_LAYOUTS[args.distributed_layout]
+    init_distributed(f"localhost:{args.distributed_port}", dp * rp, args.distributed_rank,
+                     backend=backend, device="cuda", timeout_s=DIST_COLLECTIVE_TIMEOUT_S)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = make_mesh(dp, rp, device="cuda")
+    out = {name: dist_pass(args.seed, flags, mesh) for name, flags in DIST_PASSES.items()}
+    torch.save(out, os.path.join(args.distributed_dir, f"rank{args.distributed_rank}.pt"))
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def rel_l2(a, b):
+    return float((a - b).norm() / max(float(b.norm()), 1e-30))
+
+
+def phase_distributed(seed, smi):
+    """Training on more than one device, on one card: the step on a
+    ``dp 2 x rp 2`` mesh of four ranks over gloo on ``cuda:0`` (NCCL takes
+    one rank per device), and on a one-rank NCCL mesh, each pass against
+    the one-process step from the same seeded state, batch and jitter
+    draws: the loss (``DIST_LOSS_RTOL``), each parameter group's reduced
+    gradient (``GRAD_REL_L2``), the updated parameters, K1/K2 twice per
+    rank and step, each rank's step time and the collectives' bytes and
+    ms; with the PatchGAN also the discriminator's parameters and
+    BatchNorm statistics after its update and the gradient it took, and
+    that gradient against the one-process update given the ranks' own
+    renders (``GRAD_REL_L2["net"]``): the discriminator's gradient moves by
+    1.5e-2 relative L2 for renders 1.5e-3 apart (a rank renders one row,
+    the one process two), and Adam's first step moves a parameter by the
+    learning rate times its gradient's sign, so a near-zero gradient whose
+    sign flips parts the updates by twice the rate (the zero-initialised
+    BatchNorm biases read up to 0.18 relative L2).  Each rank is a process of this
+    script with ``DIST_PROCESS_TIMEOUT_S`` to finish; its collectives time
+    out after ``DIST_COLLECTIVE_TIMEOUT_S``.  Returns the phase's line."""
+    import os
+    import socket
+    import tempfile
+
+    import torch
+
+    t_start = time.perf_counter()
+    ref = {name: dist_pass(seed, flags) for name, flags in DIST_PASSES.items()}
+    torch.cuda.empty_cache()
+    line = {"card": smi, "config": "ModelConfig(compute_dtype=bfloat16, renderer_dtype=bfloat16)"
+            " (phase_gm, K1/K2 recomputing), LossConfig() and LossConfig(use_patch_gan_loss="
+            "True), TrainConfig(); global B=2, 4096 rays x 64 samples, 512x512",
+            "one_process": {name: {"losses": r["losses"], "step_ms": r["step_ms"],
+                                   "launches": r["launches"]} for name, r in ref.items()},
+            "layouts": {}}
+    # the standalone update's own distance from the step's, on the same render
+    own = rel_l2(ref["gan"]["disc_grad"],
+                 disc_grad_given(seed, ref["gan"]["fake"], ref["gan"]["fake"]))
+    line["one_process"]["gan"]["disc_grad_given_own_render_rel_l2"] = own
+    print(f"distributed: the one-process discriminator gradient against the update given its "
+          f"own render, relative L2 {own:.3e}")
+    fails = []
+    for layout, (backend, dp, rp) in DIST_LAYOUTS.items():
+        t0 = time.perf_counter()
+        with socket.socket() as s:
+            s.bind(("localhost", 0))
+            port = s.getsockname()[1]
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_dist_") as work:
+            procs = [subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--seed", str(seed),
+                 "--distributed_layout", layout, "--distributed_rank", str(r),
+                 "--distributed_port", str(port), "--distributed_dir", work],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                for r in range(dp * rp)]
+            outs = []
+            try:
+                for p in procs:
+                    outs.append(p.communicate(timeout=DIST_PROCESS_TIMEOUT_S)[0])
+            except subprocess.TimeoutExpired:
+                fails.append(f"{layout}: a rank ran past {DIST_PROCESS_TIMEOUT_S} s")
+            finally:
+                for p in procs:
+                    if p.poll() is None:
+                        p.kill()
+                        p.wait()
+            bad = [(r, p.returncode, out[-3000:]) for r, (p, out) in enumerate(zip(procs, outs))
+                   if p.returncode != 0]
+            check(not fails and not bad, f"{layout}: {fails} {bad}")
+            ranks = [torch.load(os.path.join(work, f"rank{r}.pt"), weights_only=False)
+                     for r in range(dp * rp)]
+        res = {"backend": backend, "dp": dp, "rp": rp, "passes": {},
+               "seconds": time.perf_counter() - t0}
+        for name, want in ref.items():
+            got = ranks[0][name]
+            rd = {}
+            rel = abs(got["losses"]["total_loss"] - want["losses"]["total_loss"]) / abs(
+                want["losses"]["total_loss"])
+            rd["loss_rel_diff"] = rel
+            print(f"distributed {layout} {name}: loss {got['losses']['total_loss']:.6f} vs "
+                  f"{want['losses']['total_loss']:.6f}, relative {rel:.3e} "
+                  f"(limit {DIST_LOSS_RTOL})")
+            if not rel <= DIST_LOSS_RTOL:
+                fails.append(f"{layout} {name}: loss relative difference {rel:.3e}")
+            rd["grad_rel_l2"] = compare_grads(f"distributed {layout} {name}",
+                                              "reduced vs one process", got["grads"],
+                                              want["grads"], GRAD_REL_L2)
+            rd["params_rel_l2_after_update"] = {g: rel_l2(got["params"][g], want["params"][g])
+                                                for g in want["params"]}
+            for r, rk in enumerate(ranks):  # every rank holds the same update
+                for g, v in rk[name]["params"].items():
+                    if not torch.equal(v, got["params"][g]):
+                        fails.append(f"{layout} {name}: rank {r}'s {g} differs from rank 0's")
+            if "disc" in want:
+                rd["disc_grad_rel_l2"] = rel_l2(got["disc_grad"], want["disc_grad"])
+                # the same update on one process given the ranks' renders:
+                # the rendered rows (B=1 per rank against B=2) part the two
+                fake = torch.cat([ranks[d * rp][name]["fake"] for d in range(dp)])
+                rd["fake_max_abs_diff"] = float((fake.float() - want["fake"].float()).abs().max())
+                given = rel_l2(got["disc_grad"], disc_grad_given(seed, fake, want["fake"]))
+                rd["disc_grad_given_ranks_render_rel_l2"] = given
+                print(f"distributed {layout} {name}: the ranks' renders against the one "
+                      f"process's, max abs {rd['fake_max_abs_diff']:.3e}; the reduced "
+                      f"discriminator gradient against the one-process update given the "
+                      f"ranks' renders, relative L2 {given:.3e} (limit {GRAD_REL_L2['net']})")
+                if not given <= GRAD_REL_L2["net"]:
+                    fails.append(f"{layout} {name}: the discriminator's reduced gradient, "
+                                 f"given the ranks' renders: relative L2 {given:.3e}")
+                rd["disc_rel_l2"] = {k: rel_l2(got["disc"][k], v) for k, v in want["disc"].items()}
+                print(f"distributed {layout} {name}: the discriminator's reduced gradient, "
+                      f"relative L2 {rd['disc_grad_rel_l2']:.3e}; after its update, relative "
+                      f"L2 per tensor {rd['disc_rel_l2']}")
+                if not all(torch.isfinite(v).all() for v in got["disc"].values()):
+                    fails.append(f"{layout} {name}: the discriminator is not finite")
+            rd["launches_per_rank"] = [rk[name]["launches"] for rk in ranks]
+            for r, rk in enumerate(ranks):
+                k = rk[name]["launches"]
+                if (k.get("fused_field_fwd"), k.get("fused_field_bwd")) != (2, 2):
+                    fails.append(f"{layout} {name}: rank {r} launched {k} (K1 and K2 twice)")
+            rd["step_ms_per_rank"] = [rk[name]["step_ms"] for rk in ranks]
+            rd["traffic_per_rank"] = [rk[name].get("traffic") for rk in ranks]
+            print(f"distributed {layout} {name}: params after the update, relative L2 "
+                  f"{rd['params_rel_l2_after_update']}; step ms per rank "
+                  f"{[round(s['median'], 3) for s in rd['step_ms_per_rank']]}; collectives "
+                  f"{rd['traffic_per_rank'][0]}")
+            res["passes"][name] = rd
+        line["layouts"][layout] = res
+    check(not fails, "\n".join(fails))
+    line["seconds"] = time.perf_counter() - t_start
+    return line
+
+
 def phase_cli(seed):
     """The training entry point from files: one synthetic subject of 8
     frames at 512x512 (``data/synthetic``) in a temporary directory;
@@ -3232,6 +3537,11 @@ def main() -> int:
     ap.add_argument("--iters", type=int, default=20, help="timed kernel launches")
     ap.add_argument("--steps", type=int, default=5, help="timed training steps")
     ap.add_argument("--fit_steps", type=int, default=10, help="timed single-image fit steps")
+    # a rank of the distributed phase: the phase starts this script with these
+    ap.add_argument("--distributed_rank", type=int, default=-1, help=argparse.SUPPRESS)
+    ap.add_argument("--distributed_layout", default="", help=argparse.SUPPRESS)
+    ap.add_argument("--distributed_port", type=int, default=0, help=argparse.SUPPRESS)
+    ap.add_argument("--distributed_dir", default="", help=argparse.SUPPRESS)
     args = ap.parse_args()
     t_start = time.perf_counter()
 
@@ -3240,6 +3550,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    if args.distributed_rank >= 0:
+        return distributed_worker(args)
     check(args.requests >= 1, "--requests must be at least 1")
     check(args.steps >= 5, "--steps must be at least 5")
     check(args.fit_steps >= 2, "--fit_steps must be at least 2")
@@ -3424,7 +3736,11 @@ def main() -> int:
     print(json.dumps({"hier_fuse_embed": hier_points}))
     phase_cli(args.seed)
     lap("hier, cli")
-    # 8. eval: fitting, gaze optimization, protocols, render loops
+    # 8. more than one device on one card: four gloo ranks, one NCCL rank
+    distributed = phase_distributed(args.seed, smi)
+    print(json.dumps({"distributed": distributed}))
+    lap("distributed")
+    # 9. eval: fitting, gaze optimization, protocols, render loops
     per_fit_step, exact_eval = phase_eval(args.seed, args.fit_steps, smi)
     k1["launches_per_fit_step"] = per_fit_step["fused_field_fwd"]
     k2["launches_per_fit_step"] = per_fit_step["fused_field_bwd"]
@@ -3432,6 +3748,11 @@ def main() -> int:
     k1["launches_input_target_exact"] = exact_eval["fused_field_fwd"]
     k2["launches_input_target_exact"] = exact_eval["fused_field_bwd"]
     k2["launches"] = training["phase_gm"]["launches"]["fused_field_bwd"]
+    # K1 and K2 per rank in one distributed step (the default loss stack)
+    for k, counter in ((k1, "fused_field_fwd"), (k2, "fused_field_bwd")):
+        k["launches_per_rank_distributed_step"] = {
+            layout: [r.get(counter, 0) for r in res["passes"]["default"]["launches_per_rank"]]
+            for layout, res in distributed["layouts"].items()}
     k6["launches"] = training["pallas"]["launches"]["shuffle_blur_bwd"]
     k8["launches"] = training["fused"]["launches"]["fused_upsampler_bwd"]
     # K3 and K4 timed at the training shape: their launches on the dual training path

@@ -18,6 +18,9 @@ CUDA card unless the caller passes ``device="cpu"``.
                                    cameras
 * ``gazenerf_tpu_torch.train``   — offsets, per-group Adam, the trainer,
                                    checkpoints
+* ``gazenerf_tpu_torch.parallel`` — multi-process training over
+                                   ``torch.distributed``: the mesh, the
+                                   batch and ray split, the collectives
 * ``gazenerf_tpu_torch.cli``     — the training entry point
 * ``gazenerf_tpu_torch.viewer``  — the browser viewer over the no-grad render
 * ``gazenerf_tpu_torch.utils``   — weight bridge to and from the JAX package,
@@ -31,6 +34,7 @@ from gazenerf_tpu_torch.config import (
     DataConfig,
     LossConfig,
     ModelConfig,
+    ParallelConfig,
     TrainConfig,
     small_test_config,
     small_train_config,
@@ -45,6 +49,7 @@ __all__ = [
     "DataConfig",
     "LossConfig",
     "ModelConfig",
+    "ParallelConfig",
     "TrainConfig",
     "small_test_config",
     "small_train_config",

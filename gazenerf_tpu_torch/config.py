@@ -4,8 +4,8 @@ Field-for-field copies of the JAX package's ``ModelConfig``, ``LossConfig``,
 ``TrainConfig`` and ``DataConfig`` (same names, same defaults), so
 ``LossConfig(**dataclasses.asdict(jax_cfg.loss))`` builds the same section
 here; :class:`Config` groups them, and its JSON form is the JAX package's
-(a JAX checkpoint's ``config.json`` loads).  The port runs on one card: a
-``parallel`` section loads only when it asks for one device.
+(a JAX checkpoint's ``config.json`` loads), with its ``parallel`` section
+(:class:`ParallelConfig`, the layout of the training processes).
 
 Fields that select TPU kernel variants (``pallas_*``) keep their names so
 that a JAX config loads unchanged; :class:`~gazenerf_tpu_torch.models.
@@ -208,8 +208,20 @@ class DataConfig:
     frames_per_subject: int = 900
 
 
-# the JAX package's mesh layout: the port runs on one card
-_ONE_DEVICE = {"data_parallel": 1, "ray_parallel": 1}
+@dataclasses.dataclass(frozen=True)
+class ParallelConfig:
+    """The layout of a multi-process training run (``parallel/mesh.py``):
+    ``data_parallel`` x ``ray_parallel`` processes, one device each, the
+    batch rows split over the first axis and each image's rays over the
+    second.  ``shard_offsets`` is the JAX package's row-sharding of the
+    offset tables over the data axis; the port runs one process per device,
+    where JAX replicates them too, so it keeps them replicated."""
+
+    data_axis: str = "data"
+    ray_axis: str = "ray"
+    data_parallel: int = 1
+    ray_parallel: int = 1
+    shard_offsets: bool = True
 
 
 @dataclasses.dataclass(frozen=True)
@@ -218,27 +230,21 @@ class Config:
     loss: LossConfig = dataclasses.field(default_factory=LossConfig)
     train: TrainConfig = dataclasses.field(default_factory=TrainConfig)
     data: DataConfig = dataclasses.field(default_factory=DataConfig)
+    parallel: ParallelConfig = dataclasses.field(default_factory=ParallelConfig)
 
     def to_json(self) -> str:
         return json.dumps(dataclasses.asdict(self), indent=2, sort_keys=True)
 
     @classmethod
     def from_json(cls, s: str) -> "Config":
-        """A config from its JSON form, the port's or the JAX package's (whose
-        ``parallel`` section must ask for one device)."""
+        """A config from its JSON form, the port's or the JAX package's."""
         d = json.loads(s)
-        par = d.get("parallel", {})
-        mesh = {k: par.get(k, 1) for k in _ONE_DEVICE}
-        if mesh != _ONE_DEVICE:
-            raise NotImplementedError(
-                f"parallel {mesh}: the port runs on one device (more devices: ROADMAP Queue 1 "
-                f"item 7)"
-            )
         return cls(
             model=ModelConfig(**d.get("model", {})),
             loss=LossConfig(**d.get("loss", {})),
             train=TrainConfig(**d.get("train", {})),
             data=DataConfig(**d.get("data", {})),
+            parallel=ParallelConfig(**d.get("parallel", {})),
         )
 
     def replace(self, **sections: Any) -> "Config":

@@ -25,11 +25,14 @@ from gazenerf_tpu_torch.models.vgg import normalize_imagenet
 from gazenerf_tpu_torch.ops.image import resize_bilinear
 
 
-def masked_mean(err: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+def masked_mean(err: torch.Tensor, mask: torch.Tensor,
+                denom: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Mean of ``err`` over the pixels where ``mask`` is 1 (the mask
-    broadcast over channels)."""
+    broadcast over channels): the sum over the mask over ``denom``, the
+    mask's sum clamped at 1 unless given."""
     mask3 = torch.broadcast_to(mask, err.shape)
-    denom = torch.clamp(mask3.sum(), min=1.0)
+    if denom is None:
+        denom = torch.clamp(mask3.sum(), min=1.0)
     return (err * mask3).sum() / denom
 
 
@@ -113,6 +116,7 @@ def compute_losses(
     opt_code_dict: Optional[Dict] = None,
     delta_cam: Optional[Dict] = None,
     step: int = 0,
+    mask_denominators: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
 ) -> Dict[str, torch.Tensor]:
     """The data and regulariser losses; ``total_loss`` is the training
     target.  ``vgg_capture_fn(x)`` returns the captured VGG16 features of a
@@ -120,7 +124,12 @@ def compute_losses(
     estimator's ``(gaze, head)`` of one; ``disc_fn(x)`` the discriminator's
     logits of a ``[N, 224, 224, 3]`` batch in [0, 1].  The angular term is
     scaled by ``angular_scale`` and ``eye_loss_importance`` (the config's
-    unless given); the generator term by :func:`gan_warmup` of ``step``."""
+    unless given); the generator term by :func:`gan_warmup` of ``step``.
+    ``mask_denominators`` maps the four region masks' sums (head, face,
+    eyes, non-head; stacked, each over the channels) to their masked means'
+    denominators, where those are not the batch's own
+    (``parallel/sharding.mask_denominators``: the whole batch's, when this
+    batch holds some of its rows)."""
     eye_imp = cfg.eye_loss_importance if eye_loss_importance is None else eye_loss_importance
     cd = pred["coarse_dict"] if "coarse_dict" in pred else pred
     res_img = cd["merge_img"]
@@ -134,12 +143,18 @@ def compute_losses(
         d = a - b
         return d.abs() if cfg.use_l1_loss else d * d
 
+    denom = dict.fromkeys(masks)
+    if mask_denominators is not None:
+        sums = torch.stack([torch.broadcast_to(masks[k], gt_rgb.shape).sum() for k in denom])
+        denom = dict(zip(denom, mask_denominators(sums).unbind(0)))
+
     losses: Dict[str, torch.Tensor] = {}
     losses["bg_loss"] = ((bg_img - bg_value) ** 2).mean()
-    losses["head_loss"] = masked_mean(pix_err(res_img, gt_rgb), masks["head"])
-    losses["face_loss"] = masked_mean(pix_err(res_face, gt_rgb), masks["face"])
-    losses["eyes_loss"] = masked_mean(pix_err(res_eyes, gt_rgb), masks["eyes"])
-    losses["nonhead_loss"] = masked_mean((res_img - bg_value) ** 2, masks["nonhead"])
+    losses["head_loss"] = masked_mean(pix_err(res_img, gt_rgb), masks["head"], denom["head"])
+    losses["face_loss"] = masked_mean(pix_err(res_face, gt_rgb), masks["face"], denom["face"])
+    losses["eyes_loss"] = masked_mean(pix_err(res_eyes, gt_rgb), masks["eyes"], denom["eyes"])
+    losses["nonhead_loss"] = masked_mean((res_img - bg_value) ** 2, masks["nonhead"],
+                                         denom["nonhead"])
 
     def prep(img):
         return resize_bilinear(normalize_imagenet(img), (224, 224))

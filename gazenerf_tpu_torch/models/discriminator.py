@@ -10,9 +10,11 @@ The batch normalisation is flax's ``nn.BatchNorm`` (momentum 0.9, epsilon
 1e-5), not ``torch.nn.BatchNorm2d``: in training it normalises by the
 biased batch variance ``E[x^2] - E[x]^2`` and moves the running variance
 toward that biased value (``0.9 * old + 0.1 * new``), where torch's moves
-it toward the unbiased one.  The running statistics are buffers
-(``norm{i}.running_mean`` / ``.running_var``) that a training forward
-updates in place.
+it toward the unbiased one.  On a data-parallel mesh a training forward
+takes the whole batch's statistics (``sync``:
+``parallel/sharding.batch_stats``), as JAX's SPMD step does.  The running
+statistics are buffers (``norm{i}.running_mean`` / ``.running_var``) that
+a training forward updates in place.
 """
 
 from __future__ import annotations
@@ -30,7 +32,8 @@ EPS = 1e-5
 class BatchNorm(nn.Module):
     """flax ``nn.BatchNorm`` over the channels of an NCHW tensor: the batch
     statistics in training (``E[x^2] - E[x]^2``, clamped at 0, as flax's
-    fast variance), the running ones otherwise."""
+    fast variance; ``sync`` maps the stacked ``[E[x], E[x^2]]`` of these
+    rows to the whole batch's), the running ones otherwise."""
 
     def __init__(self, channels: int):
         super().__init__()
@@ -39,10 +42,13 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(channels))
         self.register_buffer("running_var", torch.ones(channels))
 
-    def forward(self, x: torch.Tensor, train: bool) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool, sync=None) -> torch.Tensor:
         if train:
             mean = x.mean(dim=(0, 2, 3))
-            var = torch.clamp((x * x).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
+            mean_sq = (x * x).mean(dim=(0, 2, 3))
+            if sync is not None:
+                mean, mean_sq = sync(torch.stack([mean, mean_sq])).unbind(0)
+            var = torch.clamp(mean_sq - mean * mean, min=0.0)
             with torch.no_grad():
                 self.running_mean.mul_(MOMENTUM).add_((1.0 - MOMENTUM) * mean)
                 self.running_var.mul_(MOMENTUM).add_((1.0 - MOMENTUM) * var)
@@ -55,8 +61,9 @@ class BatchNorm(nn.Module):
 class PatchGAN(nn.Module):
     """``forward(x, train)``: ``x`` ``[B, H, W, 3]`` NHWC -> patch logits
     ``[B, H', W', 1]``, computed in the parameters' dtype (f32); ``train``
-    normalises by the batch's statistics and updates the running ones, else
-    it reads the running ones."""
+    normalises by the batch's statistics (the whole batch's through
+    ``sync``, see :class:`BatchNorm`) and updates the running ones, else it
+    reads the running ones."""
 
     def __init__(self, ndf: int = 64):
         super().__init__()
@@ -91,10 +98,10 @@ class PatchGAN(nn.Module):
                 bn.running_mean.zero_()
                 bn.running_var.fill_(1.0)
 
-    def forward(self, x: torch.Tensor, train: bool = True) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = True, sync=None) -> torch.Tensor:
         h = x.permute(0, 3, 1, 2).to(self.conv1.weight.dtype)
         h = F.leaky_relu(self.conv1(h), 0.2)
-        h = F.leaky_relu(self.norm1(self.conv2(h), train), 0.2)
-        h = F.leaky_relu(self.norm2(self.conv3(h), train), 0.2)
-        h = F.leaky_relu(self.norm3(self.conv4(h), train), 0.2)
+        h = F.leaky_relu(self.norm1(self.conv2(h), train, sync), 0.2)
+        h = F.leaky_relu(self.norm2(self.conv3(h), train, sync), 0.2)
+        h = F.leaky_relu(self.norm3(self.conv4(h), train, sync), 0.2)
         return self.conv5(h).permute(0, 2, 3, 1)

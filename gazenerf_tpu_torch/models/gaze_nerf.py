@@ -35,7 +35,12 @@ dual-branch kernels, in checkpointed ray chunks (``ray_chunk``), with the
 hierarchical sampler's fine pass (``hier_sampling``: ``fine_dict``) and
 with the renderer passes stacked along the batch (``batch_renderer_passes``,
 ``batch_fg_passes``); a ray shape the fused field kernels do not take
-raises ``NotImplementedError``, naming ROADMAP Queue 2b, mode 6.  ``pallas_interpret``,
+raises ``NotImplementedError``, naming ROADMAP Queue 2b, mode 6.  On a
+training mesh (``mesh``, ``parallel/mesh.py``) the model marches its
+process's rays of each image and gathers the fields' features and
+background alphas over the ray group before the featmaps merge
+(``parallel/sharding.py``); the kernels then run the process's ray count,
+which the same check holds, naming the ray split.  ``pallas_interpret``,
 ``pallas_tile_rays``, ``pallas_bwd_tile_rays`` and ``pallas_vmem_mb`` are
 the TPU kernels' interpreter switch and tiling and memory knobs: accepted,
 and of no effect in the port.
@@ -59,6 +64,7 @@ from gazenerf_tpu_torch.ops.embedding import positional_encoding
 from gazenerf_tpu_torch.ops.integrate import Integrated, integrate_rays
 from gazenerf_tpu_torch.ops.rays import SampleSet, sample_coarse, sample_fine
 from gazenerf_tpu_torch.ops.rotation import rotate_feature_planes
+from gazenerf_tpu_torch.parallel import sharding
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float64": torch.float64}
 
@@ -97,7 +103,7 @@ def stash_form(cfg: ModelConfig) -> ff.StashForm:
                         kernel_setting(cfg, "pallas_stash_dtype"))
 
 
-def check_ray_shapes(cfg: ModelConfig) -> None:
+def check_ray_shapes(cfg: ModelConfig, ray_parallel: int = 1) -> None:
     """Raise ``NotImplementedError``, naming the setting and the ROADMAP
     item, on a ray shape the fused field kernels
     do not take yet, in the coarse pass (per chunk when :func:`chunked`) or
@@ -105,16 +111,28 @@ def check_ray_shapes(cfg: ModelConfig) -> None:
     divide the backward's 64-point tile nor are a multiple of it up to
     ``MAX_SAMPLES``, or rays that do not fill the kernels' CTAs and tiles.
     Off the fused path (f32 fields, or ``include_vd``, whose fields run
-    eagerly) every shape runs."""
+    eagerly) every shape runs.  With the rays split over ``ray_parallel``
+    processes the kernels run each process's ``R / ray_parallel`` rays: a
+    split that does not divide the rays, or whose share the kernels do not
+    take, raises ``ValueError`` naming ``--rp``."""
+    R = cfg.num_rays
+    if ray_parallel < 1 or R % ray_parallel:
+        raise ValueError(f"--rp {ray_parallel} (ray_parallel) does not divide the {R} rays of "
+                         f"a {cfg.featmap_size}^2 feature map")
     if not (cfg.use_pallas and cfg.compute_dtype == "bfloat16") or cfg.include_vd:
         return
-    R = cfg.num_rays
+    R //= ray_parallel
     shapes = [("num_sample_coarse", cfg.ray_chunk if chunked(cfg, R) else R,
                cfg.num_sample_coarse)]
     if cfg.hier_sampling:
         shapes.append(("num_sample_fine", R, cfg.num_sample_coarse + cfg.num_sample_fine))
     for name, R, S in shapes:
         if (not ff.takes_samples(S) or R % ff.cta_rays(S) or (R * S) % BWD_TILE_POINTS):
+            if ray_parallel > 1 and ff.takes_samples(S):
+                raise ValueError(
+                    f"--rp {ray_parallel} (ray_parallel) leaves each process {R} rays of {S} "
+                    f"samples, which do not fill the fused field kernels' CTAs and tiles "
+                    f"({ff.cta_rays(S)} rays, {BWD_TILE_POINTS} points)")
             raise NotImplementedError(
                 f"{name}={getattr(cfg, name)!r} is not ported yet: the fused field kernels "
                 f"run {R} rays of {S} samples, and they take S dividing {ff.RAY_STEP} or a "
@@ -139,13 +157,17 @@ class GazeNeRF(nn.Module):
     """Full model.  Parameters are initialised from ``seed`` (xavier-uniform
     fields, lecun-normal renderer, zero biases, white background) on the CPU
     and then moved to ``device``; load trained or transplanted weights with
-    ``load_state_dict``."""
+    ``load_state_dict``.  On a training ``mesh`` it takes the process's
+    rays (``batch_xy`` holds them; the jitter is drawn for the global batch
+    and sliced) and gathers the features and background alphas over the
+    ray group; ``weights`` and ``depth`` stay the process's rays."""
 
-    def __init__(self, cfg: ModelConfig, device=None, seed: int = 0):
+    def __init__(self, cfg: ModelConfig, device=None, seed: int = 0, mesh=None):
         super().__init__()
-        check_ray_shapes(cfg)
+        check_ray_shapes(cfg, mesh.ray_parallel if mesh is not None else 1)
         device = resolve_device(device)
         self.cfg = cfg
+        self.mesh = mesh
         if (self.fused and not self.dual and not cfg.include_vd
                 and kernel_setting(cfg, "pallas_stash_acts")):
             ff.stash_quant_tags(stash_form(cfg))  # int8 needs pallas_stash_every=1
@@ -220,6 +242,12 @@ class GazeNeRF(nn.Module):
             return None
         cfg = self.cfg
         return positional_encoding(pts, cfg.vp_n_freqs, cfg.include_input_vp)
+
+    @property
+    def gathers(self) -> bool:
+        """Whether the model marches a part of each image's rays and gathers
+        the fields' features over its ray group: on a mesh that splits rays."""
+        return self.mesh is not None and self.mesh.ray_parallel > 1
 
     @property
     def dual(self) -> bool:
@@ -360,6 +388,10 @@ class GazeNeRF(nn.Module):
         if train and generator is None and (t_rand is None or cfg.hier_sampling):
             raise ValueError("train=True draws jitter: pass a generator (with hier_sampling "
                              "the fine pass draws from it) or t_rand")
+        if train and t_rand is None and self.mesh is not None:
+            t_rand = sharding.draw_uniform(
+                self.mesh, generator, (B, batch_xy.shape[1], cfg.num_sample_coarse + 1),
+                torch.promote_types(Rmats.dtype, inv_inmats.dtype), batch_xy.device)
         samples = sample_coarse(
             batch_xy, Rmats, Tvecs.reshape(B, 3), inv_inmats,
             num_samples=cfg.num_sample_coarse,
@@ -373,6 +405,13 @@ class GazeNeRF(nn.Module):
         shape_ext_code = torch.cat([shape_code, gaze_code.reshape(B, 2)], dim=-1)
 
         face, eyes = self._render_both(embed, shape_ext_code, appea_code, samples, embed_vd)
+        weights = face.weights
+        if self.gathers:
+            # what the featmaps take, gathered in one collective; the
+            # weights and depths stay the process's rays
+            g = self._gather_rays(face.features, face.bg_alpha, eyes.features, eyes.bg_alpha)
+            face = face._replace(features=g[0], bg_alpha=g[1])
+            eyes = eyes._replace(features=g[2], bg_alpha=g[3])
 
         bg_featmap = self.neural_render.get_bg_featmap()
         merge_featmap_face = (
@@ -394,7 +433,18 @@ class GazeNeRF(nn.Module):
             "weights": face.weights,
             "depth": {"face": face.depth, "eyes": eyes.depth},
         }
-        return out, samples, shape_ext_code
+        return out, samples, shape_ext_code, weights
+
+    def _gather_rays(self, *ts: torch.Tensor):
+        """``[B, r, ...]`` per-ray tensors of the process's rays, gathered
+        over the ray group into ``[B, R, ...]`` in one collective (in the
+        first one's dtype; each keeps its gradient, if it has one)."""
+        B, r = ts[0].shape[:2]
+        cols = [t.reshape(B, r, -1).to(ts[0].dtype) for t in ts]
+        full = sharding.gather_rays(self.mesh, torch.cat(cols, dim=-1))
+        R = full.shape[1]
+        return [p.reshape((B, R) + t.shape[2:])
+                for p, t in zip(full.split([c.shape[-1] for c in cols], dim=-1), ts)]
 
     def _view_embedding(self, samples: SampleSet) -> Optional[torch.Tensor]:
         """The view-direction embedding the fields take with ``include_vd``."""
@@ -434,11 +484,12 @@ class GazeNeRF(nn.Module):
         Returns the JAX model's dict: ``coarse_dict`` (``merge_img``,
         ``merge_img_face``, ``merge_img_eyes``, ``bg_img``, NHWC),
         ``featmaps``, ``weights`` and ``depth``; with ``hier_sampling`` also
-        ``fine_dict`` (``merge_img``, ``bg_img``).
+        ``fine_dict`` (``merge_img``, ``bg_img``).  On a mesh that splits
+        rays, ``weights`` and ``depth`` hold the process's rays.
         """
         cfg = self.cfg
         B = batch_xy.shape[0]
-        out, samples, shape_ext_code = self._featmaps(
+        out, samples, shape_ext_code, weights = self._featmaps(
             batch_xy, shape_code, appea_code, gaze_code, Rmats, Tvecs, inv_inmats,
             train, generator, t_rand,
         )
@@ -466,7 +517,7 @@ class GazeNeRF(nn.Module):
             "bg_img": bg_img,
         }
         if cfg.hier_sampling:
-            out["fine_dict"] = self._fine_pass(out["weights"], samples, shape_ext_code,
+            out["fine_dict"] = self._fine_pass(weights, samples, shape_ext_code,
                                                appea_code, bg_featmap, bg_img,
                                                generator if train else None)
         return out
@@ -477,15 +528,23 @@ class GazeNeRF(nn.Module):
         inverse-CDF samples from the face branch's coarse weights, the fine
         field over the ``S_c + num_sample_fine`` samples (the fused kernels
         without the stash: no loss reads ``fine_dict``, so the stash would
-        hold what no backward reads), one more renderer pass."""
+        hold what no backward reads), one more renderer pass.  On a mesh
+        it samples the process's rays (their draws sliced from the global
+        batch's) and gathers the fine field's outputs."""
         cfg = self.cfg
-        B = weights.shape[0]
+        B, r = weights.shape[:2]
         Fs = cfg.featmap_size
-        fine = sample_fine(weights, samples, cfg.num_sample_fine, generator=generator)
+        u = None
+        if self.mesh is not None and generator is not None:
+            u = sharding.draw_uniform(self.mesh, generator, (B, r, cfg.num_sample_fine + 1),
+                                      weights.dtype, weights.device)
+        fine = sample_fine(weights, samples, cfg.num_sample_fine, generator=generator, u=u)
         out = self._render_branch(self.fine_fg_CD_predictor,
                                   self._embedding(fine.pts, single_branch=True), shape_ext_code,
                                   appea_code, fine.zvals, fine.z_dists,
                                   self._view_embedding(fine), stash_acts=False, pts=fine.pts)
+        if self.gathers:
+            out = Integrated(*self._gather_rays(out.features, out.bg_alpha), None, None)
         fine_merge = (out.features.reshape(B, Fs, Fs, cfg.featmap_nc)
                       + out.bg_alpha.reshape(B, Fs, Fs, 1) * bg_featmap)
         return {"merge_img": self.neural_render(fine_merge), "bg_img": bg_img}

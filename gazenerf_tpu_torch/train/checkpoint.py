@@ -10,6 +10,11 @@ parameters, BatchNorm statistics and Adam state (``TrainState``'s
 ``disc_params``, ``disc_batch_stats`` and ``disc_opt_state`` in JAX).  Restoring it into a trainer of the same config
 continues the run where it stopped, to the bit.
 
+In a multi-process run (a trainer on a ``mesh``) the state is the same on
+every process, the offset tables included (JAX's multi-process path
+replicates them too): process 0 writes the checkpoint between two barriers,
+and every process restores the same file.
+
 A JAX checkpoint's ``state`` is an orbax directory, which the port cannot
 read without JAX: restore it with JAX and copy it over with
 ``utils/transplant.load_train_state_from_jax``.
@@ -31,8 +36,21 @@ _CONFIG_FILE = "config.json"
 
 def save_checkpoint(directory: str, trainer, cfg: Config, epoch: int) -> str:
     """Write ``<directory>/epoch_<epoch + 1>/{state, config.json}``; returns
-    the checkpoint's path."""
+    the checkpoint's path.  On a mesh process 0 writes it, between two
+    barriers of every process."""
     path = os.path.abspath(os.path.join(directory, f"epoch_{epoch + 1}"))
+    mesh = getattr(trainer, "mesh", None)
+    if mesh is None:
+        _write(path, trainer, cfg, epoch)
+        return path
+    mesh.barrier()
+    if mesh.rank == 0:
+        _write(path, trainer, cfg, epoch)
+    mesh.barrier()  # no process reads it before it is whole
+    return path
+
+
+def _write(path: str, trainer, cfg: Config, epoch: int) -> None:
     os.makedirs(path, exist_ok=True)
     state = {
         "model": trainer.model.state_dict(),
@@ -52,7 +70,6 @@ def save_checkpoint(directory: str, trainer, cfg: Config, epoch: int) -> str:
     os.replace(tmp, os.path.join(path, _STATE))  # a reader never sees half a file
     with open(os.path.join(path, _CONFIG_FILE), "w") as f:
         json.dump({"config": json.loads(cfg.to_json()), "epoch": epoch}, f, indent=2)
-    return path
 
 
 def latest_checkpoint(directory: str) -> Optional[str]:

@@ -20,7 +20,10 @@ step's order:
 
 Losses stay on the device; :meth:`Trainer.train_epoch` reads them once per
 epoch (and once per dispatch when it logs to wandb, with the image strip
-every ``log_images_every`` dispatches).  With ``steps_per_dispatch = K >
+every ``log_images_every`` dispatches).  On a ``mesh`` (``parallel/``)
+each of its processes runs its rows and rays of the step, and the step's
+collectives make them compute the single-device step on the global batch
+(``parallel/sharding.py``).  With ``steps_per_dispatch = K >
 1`` it stacks K loader batches into one copy to the card and runs their K
 steps from it, the remainder one batch at a time: the numbers are K = 1's.
 With ``is_gradual_loss`` the eye importance is ``eye_loss_importance + 30 *
@@ -60,6 +63,7 @@ from gazenerf_tpu_torch.models.vgg import (
 from gazenerf_tpu_torch.ops.image import resize_bilinear
 from gazenerf_tpu_torch.ops.rays import pixel_grid
 from gazenerf_tpu_torch.ops.rotation import euler_to_rotation
+from gazenerf_tpu_torch.parallel import sharding
 from gazenerf_tpu_torch.train.state import make_disc_optimizer, make_offsets, make_optimizer
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -195,22 +199,29 @@ def _inputs(cfg: Config, batch, offsets, expr_fix, xy_grid):
 
 def discriminator_step(disc: PatchGAN, disc_optimizer: torch.optim.Optimizer,
                        merge_img: torch.Tensor, gt: torch.Tensor,
-                       head_mask: torch.Tensor) -> torch.Tensor:
+                       head_mask: torch.Tensor, mesh=None) -> torch.Tensor:
     """One PatchGAN update: the detached prediction (fake) and the target
     filled with 1.0 off the head (real), both resized to 224, through the
     discriminator in training mode, real first; its loss's backward and its
     Adam step.  Returns the loss, detached.  The discriminator's parameters
     take gradients only here: they are frozen again on the way out, so the
-    generator's backward through it leaves them none."""
+    generator's backward through it leaves them none.  On a ``mesh`` its
+    BatchNorm takes the whole batch's statistics and its gradients are
+    reduced as the generator's (``parallel/sharding.py``)."""
     fake = resize_bilinear(merge_img.detach(), (224, 224))
     real = resize_bilinear(torch.where(torch.broadcast_to(head_mask < 0.5, gt.shape), 1.0, gt),
                            (224, 224))
+    sync = None if mesh is None else (lambda st: sharding.batch_stats(mesh, st))  # noqa: E731
     disc.requires_grad_(True)
     try:
         disc_optimizer.zero_grad(set_to_none=True)
-        real_logits = disc(real, train=True)
-        d_loss = discriminator_loss(real_logits, disc(fake, train=True))
-        d_loss.backward()
+        real_logits = disc(real, train=True, sync=sync)
+        d_loss = discriminator_loss(real_logits, disc(fake, train=True, sync=sync))
+        if mesh is None:
+            d_loss.backward()
+        else:
+            (d_loss * sharding.loss_scale(mesh)).backward()
+            sharding.reduce_gradients(mesh, disc.parameters())
         disc_optimizer.step()
     finally:
         disc.requires_grad_(False)
@@ -227,6 +238,7 @@ def make_train_step(
     offsets,
     disc: Optional[PatchGAN] = None,
     disc_optimizer: Optional[torch.optim.Optimizer] = None,
+    mesh=None,
 ):
     """The training step ``step(batch, generator=None, t_rand=None,
     update=True, eye_imp=None, step_count=0) -> losses``: ``batch`` holds
@@ -236,10 +248,20 @@ def make_train_step(
     ``update=False`` it stops after the backward (the network's and the
     offsets' gradients are left in ``.grad``); the discriminator (with
     ``disc``) is updated all the same, as the generator term reads the
-    updated one.  The losses are detached device scalars."""
+    updated one.  The losses are detached device scalars.
+
+    On a ``mesh`` ``batch`` holds the process's rows, ``t_rand`` (if given)
+    the global batch's draws, and the step runs the process's rays; the
+    losses are the global batch's and the gradients left in ``.grad`` are
+    reduced over the processes (``parallel/sharding.py``)."""
     m = cfg.model
     device = next(model.parameters()).device
     xy_grid = pixel_grid(m.featmap_size, device=device)
+    denominators = None
+    if mesh is not None:
+        xy_grid = xy_grid[sharding.ray_slice(mesh, m.num_rays)]
+        denominators = lambda sums: sharding.mask_denominators(mesh, sums)  # noqa: E731
+    params = [*model.parameters(), *offsets.values()]
     expr = torch.as_tensor(np.asarray(expr_fix, np.float32), device=device)
     bg_value = 1.0 if m.bg_type == "white" else 0.0
     gan = disc is not None and cfg.loss.use_patch_gan_loss
@@ -248,11 +270,13 @@ def make_train_step(
         batch = decode_uint8_batch(batch)
         args, opt_code_dict, delta_cam = _inputs(cfg, batch, offsets, expr, xy_grid)
         gt, hm = batch["image"], batch["head_mask"][..., None]
+        if mesh is not None and t_rand is not None:
+            t_rand = sharding.local_block(mesh, t_rand)
         pred = model(*args, train=True, generator=generator, t_rand=t_rand)
         disc_fn = d_loss = None
         if gan:
             d_loss = discriminator_step(disc, disc_optimizer, pred["coarse_dict"]["merge_img"],
-                                        gt, hm)
+                                        gt, hm, mesh)
             disc_fn = lambda img: disc(img, train=False)  # noqa: E731
         losses = compute_losses(
             cfg.loss, pred, gt, hm,
@@ -266,11 +290,21 @@ def make_train_step(
             opt_code_dict=opt_code_dict,
             delta_cam=delta_cam,
             step=step_count,
+            mask_denominators=denominators,
         )
         if d_loss is not None:
             losses["disc_patch_gan_loss"] = d_loss
         optimizer.zero_grad(set_to_none=True)
-        losses["total_loss"].backward()
+        if mesh is None:
+            losses["total_loss"].backward()
+        else:
+            (losses["total_loss"] * sharding.loss_scale(mesh)).backward()
+            # the logged losses: the mean over the processes is the global
+            # batch's, reduced in the gradients' collective
+            dt = losses["total_loss"].dtype
+            vec = torch.stack([v.detach().to(dt) for v in losses.values()])
+            vec = sharding.reduce_gradients(mesh, params, extra=vec) / mesh.size
+            losses = {k: x.to(v.dtype) for (k, v), x in zip(losses.items(), vec.unbind(0))}
         if update:
             optimizer.step()
             scheduler.step()
@@ -279,12 +313,15 @@ def make_train_step(
     return step
 
 
-def make_eval_step(cfg: Config, model: GazeNeRF, expr_fix: np.ndarray, offsets):
+def make_eval_step(cfg: Config, model: GazeNeRF, expr_fix: np.ndarray, offsets, mesh=None):
     """Forward render (no jitter, no gradient) and per-region L2 metrics:
-    ``eval(batch) -> (metrics, coarse_dict)``."""
+    ``eval(batch) -> (metrics, coarse_dict)``; on a ``mesh``, of the
+    process's rows (the model marches its rays and gathers them)."""
     m = cfg.model
     device = next(model.parameters()).device
     xy_grid = pixel_grid(m.featmap_size, device=device)
+    if mesh is not None:
+        xy_grid = xy_grid[sharding.ray_slice(mesh, m.num_rays)]
     expr = torch.as_tensor(np.asarray(expr_fix, np.float32), device=device)
 
     @torch.no_grad()
@@ -320,7 +357,10 @@ class Trainer:
     ``use_patch_gan_loss`` it owns the PatchGAN (``disc``, its parameters
     and BatchNorm statistics, random from ``seed + 2``) and its Adam
     (``disc_optimizer``).  Runs on the CUDA card unless ``device`` says
-    otherwise."""
+    otherwise.  With a ``mesh`` (``parallel/mesh.make_mesh``) it is one
+    process of a multi-process run, on the mesh's device unless ``device``
+    is given: its batches hold the process's rows, its state is replicated
+    (the offset tables too) and every process's step updates it alike."""
 
     def __init__(
         self,
@@ -330,11 +370,15 @@ class Trainer:
         expr_fix: Optional[np.ndarray] = None,
         seed: Optional[int] = None,
         device=None,
+        mesh=None,
     ):
         self.cfg = cfg
+        self.mesh = mesh
+        if device is None and mesh is not None:
+            device = mesh.device
         self.device = resolve_device(device)
         seed = cfg.train.seed if seed is None else seed
-        self.model = GazeNeRF(cfg.model, device=self.device, seed=seed)
+        self.model = GazeNeRF(cfg.model, device=self.device, seed=seed, mesh=mesh)
         self.frozen = FrozenNets(cfg, self.device, seed=seed + 1)
         self.offsets = make_offsets(train_len, self.device)
         groups = {"net": list(self.model.parameters()),
@@ -355,9 +399,9 @@ class Trainer:
         self.step = 0
         self._step = make_train_step(
             cfg, self.model, self.optimizer, self.scheduler, self.frozen,
-            self.expr_fix, self.offsets, self.disc, self.disc_optimizer,
+            self.expr_fix, self.offsets, self.disc, self.disc_optimizer, mesh,
         )
-        self.eval_step = make_eval_step(cfg, self.model, self.expr_fix, self.offsets)
+        self.eval_step = make_eval_step(cfg, self.model, self.expr_fix, self.offsets, mesh)
         self.history = []
 
     def to_device(self, batch) -> Dict[str, torch.Tensor]:
@@ -397,7 +441,9 @@ class Trainer:
         """One step on a numpy (or tensor) batch; the jitter comes from the
         trainer's generator unless ``t_rand`` is given; ``eye_imp`` as
         :meth:`eye_importance` gives it.  Returns the losses as device
-        scalars (no host sync)."""
+        scalars (no host sync).  On a mesh ``batch`` holds the process's
+        rows and ``t_rand`` the global batch's draws; the losses are the
+        global batch's."""
         losses = self._step(self.to_device(batch), generator=self.generator,
                             t_rand=t_rand, update=update, eye_imp=eye_imp,
                             step_count=self.step)
@@ -426,8 +472,9 @@ class Trainer:
         of its last step, every ``log_images_every`` dispatches the image
         strip of an eval render of its last batch, and at the end the
         epoch's mean loss and, with ``is_gradual_loss``, the eye
-        importance.  The summary also gives the seconds the loop waited for
-        its batches."""
+        importance (the strip not on a mesh that splits the rays: its
+        render would wait for processes that do not log).  The summary also
+        gives the seconds the loop waited for its batches."""
         from gazenerf_tpu_torch.utils.logging import log_all_images, log_losses
 
         t0 = time.time()
@@ -437,6 +484,9 @@ class Trainer:
         K = max(1, self.cfg.train.steps_per_dispatch)
         log_every = max(1, self.cfg.train.log_every // K)
         eye_imp = self.eye_importance(epoch)
+        # the image strip's render gathers over the ray group, which the
+        # processes without wandb do not join: with rp > 1 it is left out
+        solo_render = self.mesh is None or self.mesh.ray_parallel == 1
         groups = stack_batches(batches, K) if K > 1 else ((b, 1) for b in batches)
         dispatches = iter(device_prefetch(groups, self.device))
         while True:
@@ -458,7 +508,7 @@ class Trainer:
                 wandb.log({"batch_loss": float(batch_loss.mean())})
                 if (n // K) % log_every == 0:
                     log_losses(wandb, step_losses[-1], self.cfg.loss, epoch=epoch)
-                if log_images_every and (n // K) % log_images_every == 0:
+                if log_images_every and (n // K) % log_images_every == 0 and solo_render:
                     _, cd = self.eval_step(last_b)
                     log_all_images(wandb, last_b["image"], cd)
             n += n_in

@@ -118,16 +118,18 @@ def test_stored_offset_size_wins(tmp_path, batches):
 def test_config_json_is_the_jax_packages():
     """A JAX config's JSON form loads with the same sections, and the
     port's JSON form loads in the JAX package; a parallel section of more
-    than one device is refused, naming the ROADMAP item."""
+    than one device (``data_parallel=2``) round-trips too."""
     jcfg = jax_config.Config(data=jax_config.DataConfig(img_dir="x", num_workers=3))
     cfg = Config.from_json(jcfg.to_json())
-    for section in ("model", "loss", "train", "data"):
+    for section in ("model", "loss", "train", "data", "parallel"):
         assert dataclasses.asdict(getattr(cfg, section)) == \
             dataclasses.asdict(getattr(jcfg, section)), section
     assert jax_config.Config.from_json(cfg.to_json()) == jcfg
-    two = jcfg.replace(parallel=jax_config.ParallelConfig(data_parallel=2))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        Config.from_json(two.to_json())
+    two = jcfg.replace(parallel=jax_config.ParallelConfig(data_parallel=2, shard_offsets=False))
+    cfg = Config.from_json(two.to_json())
+    assert dataclasses.asdict(cfg.parallel) == dataclasses.asdict(two.parallel)
+    assert cfg.parallel.data_parallel == 2
+    assert jax_config.Config.from_json(cfg.to_json()) == two
 
 
 def test_jax_checkpoint_restores_through_the_transplant(tmp_path):

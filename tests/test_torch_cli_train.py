@@ -98,7 +98,19 @@ def test_cli_trains_checkpoints_and_resumes(data, capsys):
         assert key in val[-1], val[-1]
 
 
-@pytest.mark.parametrize("flags", [["--dp", "2"], ["--rp", "2"], ["--num_processes", "2"]])
-def test_cli_runs_on_one_device(data, flags):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+_TWO = ["--num_processes", "2", "--process_id", "0", "--coordinator", "localhost:1"]
+
+
+@pytest.mark.parametrize("flags,match", [
+    (["--dp", "2"], r"\(--dp\) 2 x ray_parallel \(--rp\) 1 = 2 processes, but --num_processes "
+                    "runs 1"),
+    (["--rp", "3"] + _TWO, r"\(--rp\) 3 does not divide the 2 processes"),
+    (["--batch_size", "3", "--dp", "2"] + _TWO, "--batch_size 3 is not divisible by --dp 2"),
+], ids=["flags0", "flags1", "flags2"])
+def test_cli_runs_on_one_device(data, flags, match):
+    """One process runs one device, and multi-process flags that do not fit
+    together raise ``ValueError`` naming them, before any process connects
+    (the coordinator's address is never dialled): ``--dp 2`` in one
+    process, ``--rp 3`` against two processes, ``--batch_size 3 --dp 2``."""
+    with pytest.raises(ValueError, match=match):
         _run(str(data / "train"), str(data / "ck1"), flags)

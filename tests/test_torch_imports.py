@@ -35,7 +35,8 @@ print(len(names), bad, missing)
 
 # the modules of the slices: the render, the training step, the renderer's
 # kernel modes, the dual-branch field path, the training CLI from files, and
-# fitting and evaluation with their CLIs and metric nets
+# fitting and evaluation with their CLIs and metric nets, and multi-process
+# training
 EXPECTED = [
     "gazenerf_tpu_torch.cli.common",
     "gazenerf_tpu_torch.cli.evaluate",
@@ -65,6 +66,9 @@ EXPECTED = [
     "gazenerf_tpu_torch.models.resnet",
     "gazenerf_tpu_torch.models.seeding",
     "gazenerf_tpu_torch.models.vgg",
+    "gazenerf_tpu_torch.parallel.dryrun",
+    "gazenerf_tpu_torch.parallel.mesh",
+    "gazenerf_tpu_torch.parallel.sharding",
     "gazenerf_tpu_torch.preprocess.normalize",
     "gazenerf_tpu_torch.train.checkpoint",
     "gazenerf_tpu_torch.train.fitting",
@@ -85,12 +89,49 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert out[1].strip() == "[] []"
 
 
+_BLOCKED = """
+import sys
+for blocked in ("jax", "jaxlib", "flax", "gazenerf_tpu"):
+    sys.modules[blocked] = None  # importing any of them raises ImportError
+from gazenerf_tpu_torch.parallel import dryrun, mesh, sharding
+from gazenerf_tpu_torch.cli import train
+m = mesh.make_mesh(device="cpu")
+print(m.shape, sharding.ray_slice(m, 4096))
+"""
+
+
+def test_parallel_modules_import_with_jax_blocked():
+    """The multi-process modules and the training CLI import, and a
+    one-process mesh builds, where JAX and the JAX package cannot be
+    imported at all."""
+    out = subprocess.run([sys.executable, "-c", _BLOCKED], cwd=REPO, capture_output=True,
+                         text=True, timeout=120, check=True).stdout
+    assert out.strip() == "{'data': 1, 'ray': 1} slice(0, 4096, None)"
+
+
 @pytest.mark.parametrize("entry", [GazeNeRF, ViewerApp])
 def test_entry_points_need_a_card_unless_asked_for_the_cpu(monkeypatch, entry):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         entry(small_test_config())
     assert entry(small_test_config(), device="cpu") is not None
+
+
+def test_dryrun_needs_a_card_unless_asked_for_the_cpu(monkeypatch):
+    """The multi-process dry run runs on the cards by default: without one
+    it raises before any process starts, from the function and from its
+    command line.  ``tests/test_torch_parallel.py`` runs it with
+    ``device="cpu"``."""
+    from gazenerf_tpu_torch.parallel import dryrun
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(dryrun, "launch", lambda *a, **k: pytest.fail("a process started"))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        dryrun.dryrun(2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        dryrun.main(["2"])
+    with pytest.raises(ValueError, match="device='cpu'"):
+        dryrun.dryrun(2, device="cuda")
 
 
 def test_trainer_needs_a_card_unless_asked_for_the_cpu(monkeypatch):
