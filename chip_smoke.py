@@ -149,16 +149,25 @@ Phases (each raises on failure, so any failed phase exits non-zero):
    MobileFaceNet) loaded from seeded checkpoints through the CLI's
    loaders, each net's output on the card against the CPU's and their
    times (``phase_metric_nets``), and the demo render loops written and
-   parsed as GIFs (``phase_eval``).
+   parsed as GIFs (``phase_eval``);
+10. preprocess: the offline data factory (``preprocess/``, ``nl3dmm/``),
+   no kernel of the port on its path (launch counts read around it, 0
+   each): the seeded BiSeNet and U-Net at 512^2 card against CPU,
+   ``process_frame`` on an ETH-XGaze and a Columbia raw frame card against
+   CPU with both nets, the full-width NL-3DMM fit (34,650 vertices, 69,296
+   triangles, 128^2) at 2 + 2 steps (B=2) card against CPU, and the full
+   50 + 200 step fit at B=18 with its step times, peak memory and the
+   rasterizer's and the sort's device ms (``phase_preprocess``).
 
 Prints ``k2_profile``, ``dw``, ``k8_profile``, ``f32_block_profile``,
 ``k4_profile``, ``k2_stash_profile``, ``deep_case``, ``deep_dual_case``,
 ``k2_deep_profile``, ``stash_form_case``, ``stash_form_points_case``,
 ``stash_forms``, ``points_case``, ``k2_points_profile``, ``serving``,
 ``training``, ``deep_training``, ``hier``, ``hier_fuse_embed``, ``cli``,
-``distributed``, ``k2_fit_case``, ``eval`` and ``kernels`` JSON lines, the run's wall time,
-the ``nvidia-smi`` line and, last, the device JSON line.  Exits non-zero without
-a result when no CUDA card is present.  Imports nothing of JAX.
+``distributed``, ``k2_fit_case``, ``eval``, ``preprocess`` and ``kernels`` JSON
+lines, the run's wall time, the ``nvidia-smi`` line and, last, the device
+JSON line.  Exits non-zero without a result when no CUDA card is present.
+Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -3530,6 +3539,263 @@ def phase_metric_nets(seed, ctx, pairs, dev):
     }
 
 
+# the offline data factory's phase: the segmentation nets' logits card
+# against CPU (TF32 off), relative L2; the full-width NL-3DMM fit at 2 + 2
+# steps (B=2) card against CPU: each step's loss, relative, and the codes
+# and cameras, relative L2 (the slack is the normals' atomic scatter-add)
+PRE_NET_REL_L2 = 1e-5
+PRE_FIT_LOSS_RTOL = 1e-4
+PRE_FIT_REL_L2 = 1e-3
+# the full-width case (SURVEY.md: the decoder 179 -> 1024 -> 3 x 34,650;
+# a closed mesh of V vertices has 2 V - 4 triangles), the CLI's fit size,
+# one ETH-XGaze capture of 18 cameras, upstream's 50 + 200 steps
+PRE_BASIS = (34650, 69296)
+PRE_FIT_SIZE = 128
+PRE_FIT_B = 18
+# the masks card against CPU: a label flips only where the top two logits
+# lie within the nets' card-vs-CPU error, at most this share of the pixels
+PRE_MASK_SHARE = 1e-3
+
+
+def _fit_case(fitter, B, seed):
+    """A reachable fit target for ``fitter``: frames rendered from seeded
+    codes (small identity, expression and texture codes, the ambient light
+    plus a little SH) and camera offsets about the driver's base camera
+    (``(0, 0, 12)``, the normalized focal 1600 scaled to the fit's size),
+    and their projected landmarks.  Returns ``fit``'s arguments (numpy)."""
+    import numpy as np
+    import torch
+
+    from gazenerf_tpu_torch.nl3dmm.face_model import init_illu_code
+
+    rng = np.random.default_rng(seed)
+    S = fitter.cfg.image_size
+    f = 1600.0 * S / 512
+    inmat = np.tile(np.array([[f, 0, S / 2], [0, f, S / 2], [0, 0, 1]], np.float32), (B, 1, 1))
+    base_R = np.tile(np.diag([1.0, -1.0, -1.0]).astype(np.float32), (B, 1, 1))
+    base_T = np.tile(np.array([0, 0, 12.0], np.float32), (B, 1))
+    code = np.concatenate([rng.normal(0, 0.3, (B, 279)),
+                           init_illu_code(B).numpy() + rng.normal(0, 0.05, (B, 27))], 1)
+    dev = fitter.device
+    cams = {"base_w2c_R": torch.as_tensor(base_R, device=dev),
+            "base_w2c_T": torch.as_tensor(base_T, device=dev),
+            "inmat": torch.as_tensor(inmat, device=dev),
+            "delta_euler": torch.as_tensor(rng.normal(0, 0.05, (B, 3)), dtype=torch.float32,
+                                           device=dev),
+            "delta_tvec": torch.as_tensor(rng.normal(0, 0.1, (B, 3)), dtype=torch.float32,
+                                          device=dev)}
+    with torch.no_grad():
+        img, _, lm, _ = fitter._render(torch.as_tensor(code, dtype=torch.float32, device=dev),
+                                       cams)
+    return img.cpu().numpy(), lm.cpu().numpy(), base_R, base_T, inmat
+
+
+def phase_preprocess(seed, card):
+    """The offline data factory on the card (``preprocess/``, ``nl3dmm/``),
+    no kernel of the port on its path.  Checks, each raising:
+
+    1. the seeded BiSeNet and U-Net (``models/seeding``) at 512^2, card
+       against CPU: logits within ``PRE_NET_REL_L2``; their ms by CUDA
+       events and their kernels' device ms under ``torch.profiler``;
+    2. ``process_frame`` on two synthetic frames on the card against the
+       CPU, with both nets: an ETH-XGaze camera 03 frame (1200 x 1800,
+       undistorted and turned 180 degrees, the CSV pose) and a Columbia raw
+       frame (3456 x 5184, cropped and area-resized): the face patch within
+       the warp's bound (1 level on 1e-3 of the pixels), the masks within
+       ``PRE_MASK_SHARE``, every other field equal; ms per frame;
+    3. the full-width NL-3DMM fit (``PRE_BASIS``, 128^2, 16-px tiles, 64
+       triangles a tile) at 2 + 2 steps, B=2, card against CPU on the same
+       seeded decoder and target: losses within ``PRE_FIT_LOSS_RTOL``,
+       codes and cameras within ``PRE_FIT_REL_L2``;
+    4. the full fit, B=18, 50 + 200 steps: finite losses, the last below
+       the first; host ms per step and peak allocated GB of that fit;
+       device ms per step and busy share (device ms over wall ms) of a
+       2 + 3 step fit under ``torch.profiler``; then the
+       rasterizer's forward and backward, the binning's stable sort and a
+       fit step's top kernels, device time at B=18.
+
+    No h5py on the card's machine: the subject writer does not run here."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from gazenerf_tpu_torch.cli.preprocess import DEFAULT_FACE_MODEL
+    from gazenerf_tpu_torch.models.seeding import seed_frozen_net_
+    from gazenerf_tpu_torch.nl3dmm.face_model import random_basis
+    from gazenerf_tpu_torch.nl3dmm.fitting import FitConfig, NL3DMMFitter
+    from gazenerf_tpu_torch.nl3dmm.rasterizer import (
+        RasterSettings,
+        project_vertices,
+        render_mesh,
+        tile_areas,
+    )
+    from gazenerf_tpu_torch.preprocess import driver, masks
+    from gazenerf_tpu_torch.preprocess.bisenet import BiSeNet
+    from gazenerf_tpu_torch.preprocess.landmarks import LandmarkDetector
+    from gazenerf_tpu_torch.preprocess.unet import UNet
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    out = {"card": card}
+    g = torch.Generator().manual_seed(seed)
+
+    # 1. the segmentation nets at 512^2
+    nets = {"bisenet": seed_frozen_net_(BiSeNet(), g).eval(),
+            "unet": seed_frozen_net_(UNet(), g).eval()}
+    x = torch.rand(1, 3, 512, 512, generator=g)
+    xd = x.to(dev)
+    out["nets"] = {}
+    for name, net in nets.items():
+        card_net = copy.deepcopy(net).to(dev)
+        with torch.no_grad():
+            want = net(x)
+            got = card_net(xd).cpu()
+            # events span the host's launches too; the profile sums the
+            # kernels' own device time
+            ms = cuda_ms(lambda: card_net(xd), iters=5)
+            dev_ms = device_profile(lambda: card_net(xd))["device_ms"]
+        err = rel_l2(got, want)
+        out["nets"][name] = {"card_vs_cpu_rel_l2": err, "event_ms_512": ms,
+                             "device_ms_512": dev_ms}
+        print(f"preprocess {name}: logits card vs CPU rel L2 {err:.3e} "
+              f"(limit {PRE_NET_REL_L2}), {ms:.3f} ms by events, {dev_ms} device ms at 512^2")
+        check(err <= PRE_NET_REL_L2, f"{name}: card vs CPU logits rel L2 {err:.3e}")
+    sds = {k: v.state_dict() for k, v in nets.items()}
+
+    # 2. process_frame, card against CPU
+    rng = np.random.default_rng(seed)
+
+    def frame(h, w):
+        yy, xx = np.mgrid[:h, :w]
+        img = np.stack([(xx // 3 + yy // 5) % 256, (yy // 2) % 256, ((xx - yy) // 4) % 256], -1)
+        return (img * 0.7 + rng.random((h, w, 3)) * 76).astype(np.uint8)
+
+    K_x = np.array([[1800.0, 0, 900.0], [0, 1800.0, 600.0], [0, 0, 1.0]])
+    frames = {
+        "xgaze_cam03": (frame(1200, 1800), K_x, dict(
+            cam_index=3, dist_coeffs=np.array([[-0.05], [0.02], [0.001], [-0.001], [0.0]]),
+            undistort=True, rotate180=True, gaze_vector=np.array([0.05, -0.02, -0.99]),
+            head_pose=(np.array([0.03, -0.02, 0.03]), np.array([5.0, -3.0, 600.0])))),
+        "columbia_raw": (frame(3456, 5184), np.array([[800.0, 0, 256.0], [0, 800.0, 256.0],
+                                                      [0, 0, 1.0]]), dict(
+            dataset="columbia", columbia_crop=True,
+            pitchyaw_head_direct=np.array([0.1, -0.05], np.float32),
+            head_pose=(np.array([0.0, 0.1, 0.0]), np.array([0.0, 0.0, 700.0])))),
+    }
+    out["process_frame"] = {}
+    for where in ("cpu", "cuda"):
+        bm = masks.BiSeNetMasker(sds["bisenet"], device=where)
+        um = masks.UNetEyeMasker(sds["unet"], device=where)
+        for name, (img, K, kw) in frames.items():
+            if where == "cuda":  # a warm call, then the timed one
+                driver.process_frame(img, K, DEFAULT_FACE_MODEL, LandmarkDetector(where),
+                                     masker=bm, eye_masker=um, device=where, **kw)
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            row = driver.process_frame(img, K, DEFAULT_FACE_MODEL, LandmarkDetector(where),
+                                       masker=bm, eye_masker=um, device=where, **kw)
+            ms = (time.perf_counter() - t0) * 1e3
+            out["process_frame"].setdefault(name, {})[where] = (row, ms)
+    for name, res in out["process_frame"].items():
+        (cpu_row, cpu_ms), (card_row, card_ms) = res["cpu"], res["cuda"]
+        d = np.abs(card_row["face_patch"].astype(int) - cpu_row["face_patch"].astype(int))
+        flips = {k: int((card_row[k] != cpu_row[k]).sum())
+                 for k in ("head_mask", "left_eye_mask", "right_eye_mask")}
+        line = {"ms_cpu": cpu_ms, "ms_card": card_ms, "face_patch_max_diff": int(d.max()),
+                "face_patch_diff_share": float((d > 0).mean()), "mask_pixels_differing": flips}
+        out["process_frame"][name] = line
+        print(f"preprocess process_frame {name}: {json.dumps(line)}")
+        check(d.max() <= 1 and (d > 0).mean() <= 1e-3, f"{name}: face patch card vs CPU {line}")
+        for k, n in flips.items():
+            check(n <= PRE_MASK_SHARE * card_row[k].size, f"{name}: {k} card vs CPU {n} pixels")
+        for k, v in cpu_row.items():
+            if k not in ("face_patch", "head_mask", "left_eye_mask", "right_eye_mask"):
+                check(np.array_equal(card_row[k], v), f"{name}: {k} differs card vs CPU")
+    del nets, sds
+
+    # 3. the full-width fit, 2 + 2 steps at B=2, card against CPU
+    t0 = time.perf_counter()
+    basis = random_basis(*PRE_BASIS)
+    out["basis_s"] = time.perf_counter() - t0
+    check(tuple(basis.triangles.shape) == (PRE_BASIS[1], 3), "the basis' triangle count")
+    raster = RasterSettings(image_size=PRE_FIT_SIZE)
+    short = FitConfig(image_size=PRE_FIT_SIZE, stage1_steps=2, stage2_steps=2)
+    card_fit = NL3DMMFitter(basis, short, raster, device="cuda")
+    cpu_fit = NL3DMMFitter(basis, short, raster, decoder_params=card_fit.decoder.state_dict(),
+                           device="cpu")
+    case = _fit_case(card_fit, 2, seed)
+    got, want = card_fit.fit(*case), cpu_fit.fit(*case)
+    losses = np.concatenate([got["stage1_losses"], got["stage2_losses"]])
+    cpu_losses = np.concatenate([want["stage1_losses"], want["stage2_losses"]])
+    loss_rel = float(np.max(np.abs(losses - cpu_losses) / np.abs(cpu_losses)))
+    errs = {k: rel_l2(torch.as_tensor(got[k]), torch.as_tensor(want[k]))
+            for k in ("code", "w2c_Rmat", "w2c_Tvec", "c2w_Tvec")}
+    out["fit_card_vs_cpu"] = {"losses": losses.tolist(), "loss_max_rel": loss_rel,
+                              "rel_l2": errs}
+    print(f"preprocess fit 2+2 card vs CPU: loss {loss_rel:.3e} (limit {PRE_FIT_LOSS_RTOL}), "
+          f"{errs} (limit {PRE_FIT_REL_L2})")
+    check(loss_rel <= PRE_FIT_LOSS_RTOL, f"fit losses card vs CPU {loss_rel:.3e}")
+    for k, e in errs.items():
+        check(e <= PRE_FIT_REL_L2, f"fit {k} card vs CPU rel L2 {e:.3e}")
+    del cpu_fit
+
+    # 4. the full fit at B=18 on the card
+    fit = card_fit
+    case = _fit_case(fit, PRE_FIT_B, seed + 1)
+    fit.cfg = FitConfig(image_size=PRE_FIT_SIZE, stage1_steps=2, stage2_steps=3)
+    fit.fit(*case)  # warm
+    prof = device_profile(lambda: fit.fit(*case), top=10)
+    fit.cfg = FitConfig(image_size=PRE_FIT_SIZE)
+    steps = fit.cfg.stage1_steps + fit.cfg.stage2_steps
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = fit.fit(*case)
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3 / steps
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    curve = np.concatenate([res["stage1_losses"], res["stage2_losses"]])
+    check(curve.shape == (steps,) and np.isfinite(curve).all(), "full fit: a loss is not finite")
+    check(curve[-1] < curve[0], f"full fit: the loss did not fall ({curve[0]} -> {curve[-1]})")
+    # device ms and busy share from the profiled 2 + 3 step fit alone (its
+    # own wall time, the profiler's overhead included)
+    measured = prof["device_ms"] != "not measured"
+    dev_ms = prof["device_ms"] / 5 if measured else "not measured"
+    out["fit"] = {
+        "B": PRE_FIT_B, "steps": steps, "vertices": PRE_BASIS[0], "triangles": PRE_BASIS[1],
+        "image": PRE_FIT_SIZE, "host_ms_per_step": host_ms, "device_ms_per_step": dev_ms,
+        "profiled_wall_ms_per_step": prof["wall_ms"] / 5,
+        "busy_share": prof["device_ms"] / prof["wall_ms"] if measured else "not measured",
+        "peak_allocated_gb": peak_gb, "peak_allocated_gb_per_frame": peak_gb / PRE_FIT_B,
+        "loss_first": float(curve[0]), "loss_stage1_last": float(res["stage1_losses"][-1]),
+        "loss_last": float(curve[-1]), "profile_2_plus_3_steps": prof}
+    print(f"preprocess fit B={PRE_FIT_B}, {steps} steps: {host_ms:.3f} host ms a step, "
+          f"{dev_ms} device ms, busy {out['fit']['busy_share']}, peak {peak_gb:.3f} GB; loss {curve[0]:.4f} -> {curve[-1]:.4f}")
+
+    # the rasterizer's forward and backward, the stable sort, at B=18
+    s = fit.raster
+    with torch.no_grad():
+        verts = fit.decoder(torch.zeros(PRE_FIT_B, 179, device=dev))
+    Rm, T, K = (torch.as_tensor(a, device=dev) for a in case[2:])
+    v = verts.clone().requires_grad_()
+    c = torch.full_like(verts, 153.0).requires_grad_()
+    tris = fit.basis.triangles
+    fwd_ms = cuda_ms(lambda: render_mesh(v, c, tris, Rm, T, K, s, bg_color=255.0), iters=5)
+    img, alpha = render_mesh(v, c, tris, Rm, T, K, s, bg_color=255.0)
+    loss = img.mean() + alpha.mean()
+    bwd_ms = cuda_ms(lambda: torch.autograd.grad(loss, [v, c], retain_graph=True), iters=5)
+    area = tile_areas(project_vertices(verts, Rm, T, K), tris, s)
+    sort_ms = cuda_ms(lambda: torch.argsort(-area, dim=-1, stable=True), iters=5)
+    out["parts_device_ms"] = {"rasterizer_forward": fwd_ms, "rasterizer_backward": bwd_ms,
+                              "stable_sort": sort_ms, "sort_shape": list(area.shape)}
+    print(f"preprocess parts (B={PRE_FIT_B}): {json.dumps(out['parts_device_ms'])}")
+    del card_fit, fit, img, alpha, loss, area, v, c
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3742,6 +4008,14 @@ def main() -> int:
     lap("distributed")
     # 9. eval: fitting, gaze optimization, protocols, render loops
     per_fit_step, exact_eval = phase_eval(args.seed, args.fit_steps, smi)
+    lap("eval")
+    # 10. the offline data factory: the segmentation nets, process_frame and
+    # the NL-3DMM fit on the card; no kernel of the port lies on its path
+    reset_launch_counts()
+    preprocess = phase_preprocess(args.seed, smi)
+    preprocess_launches = launch_counts()
+    print(json.dumps({"preprocess": preprocess}))
+    lap("preprocess")
     k1["launches_per_fit_step"] = per_fit_step["fused_field_fwd"]
     k2["launches_per_fit_step"] = per_fit_step["fused_field_bwd"]
     # the input-target protocol with exact FID and the identity pipeline (2 pairs)
@@ -3801,6 +4075,14 @@ def main() -> int:
             k[f"stash_{name}"]["launches_given_points"] = (run["launches"][counter] if run
                                                            else 0)
 
+    # the offline data factory's path launches none of them
+    for k, counters in ((k1, ("fused_field_fwd",)), (k2, ("fused_field_bwd",)),
+                        (k5, ("shuffle_blur_fwd",)), (k6, ("shuffle_blur_bwd",)),
+                        (k7, ("fused_upsampler_fwd", "fused_upsampler_fwd_f32")),
+                        (k8, ("fused_upsampler_bwd", "fused_upsampler_bwd_f32")),
+                        (k3, ("fused_dual_fwd",)), (k4, ("fused_dual_bwd",))):
+        k["launches_preprocess"] = sum(preprocess_launches[c] for c in counters)
+        check(k["launches_preprocess"] == 0, f"{k['name']} launched on the preprocessing path")
     print(json.dumps({"kernels": [k1, k2, k5, k6, k7, k8, k3, k4]}))
     print(f"chip_smoke wall time: {time.perf_counter() - t_start:.1f} s")
     print(smi)

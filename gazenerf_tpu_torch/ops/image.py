@@ -11,7 +11,11 @@
   :func:`upsample2x_blur` the same on NHWC tensors (``renderer_rgb_cf``
   off);
 * :func:`resize_bilinear` — NHWC bilinear resize (the perceptual loss's
-  224x224 input).
+  224x224 input);
+* :func:`resize_nearest` and :func:`resize_bilinear_align_corners` — the
+  face parser's resizes (BiSeNet's context path and logits), with the JAX
+  package's f32 source indices and weights (``F.interpolate``'s index
+  arithmetic differs at some sizes).
 
 The blur is the 3x3 binomial ``[1,2,1] x [1,2,1] / 16`` with a reflect
 boundary (kornia ``filter2d`` semantics, as upstream).  The phase stencils
@@ -166,3 +170,41 @@ def resize_bilinear(x: torch.Tensor, out_hw) -> torch.Tensor:
         align_corners=False, antialias=False,
     )
     return y.permute(0, 2, 3, 1)
+
+
+def resize_nearest(x: torch.Tensor, out_hw) -> torch.Tensor:
+    """Nearest-neighbour resize of ``[B, C, H, W]``: source index
+    ``int(i * f32(in / out))``."""
+    H, W = x.shape[2:]
+    oh, ow = out_hw
+    f32 = torch.float32
+    hi = (torch.arange(oh, dtype=f32, device=x.device) * np.float32(H / oh)).to(torch.int64)
+    wi = (torch.arange(ow, dtype=f32, device=x.device) * np.float32(W / ow)).to(torch.int64)
+    return x.index_select(2, hi).index_select(3, wi)
+
+
+def resize_bilinear_align_corners(x: torch.Tensor, out_hw) -> torch.Tensor:
+    """Bilinear resize with ``align_corners=True`` of ``[B, C, H, W]``:
+    source ``i * f32((in - 1) / (out - 1))`` in f32, the taps
+    ``top * (1 - wy) + bottom * wy`` as the JAX package computes them."""
+    H, W = x.shape[2:]
+    oh, ow = out_hw
+    dev = x.device
+
+    def coords(n_in, n_out):
+        if n_out == 1:
+            return torch.zeros(1, dtype=torch.float32, device=dev)
+        return torch.arange(n_out, dtype=torch.float32, device=dev) * np.float32(
+            (n_in - 1) / (n_out - 1))
+
+    ys, xs = coords(H, oh), coords(W, ow)
+    y0 = torch.floor(ys).to(torch.int64).clamp(0, H - 1)
+    y1 = (y0 + 1).clamp(0, H - 1)
+    x0 = torch.floor(xs).to(torch.int64).clamp(0, W - 1)
+    x1 = (x0 + 1).clamp(0, W - 1)
+    wy = (ys - y0.to(torch.float32)).to(x.dtype).reshape(oh, 1)
+    wx = (xs - x0.to(torch.float32)).to(x.dtype)
+    r0, r1 = x.index_select(2, y0), x.index_select(2, y1)
+    top = r0.index_select(3, x0) * (1 - wx) + r0.index_select(3, x1) * wx
+    bot = r1.index_select(3, x0) * (1 - wx) + r1.index_select(3, x1) * wx
+    return top * (1 - wy) + bot * wy

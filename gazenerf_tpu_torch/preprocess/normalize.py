@@ -33,7 +33,17 @@ gives the evaluation protocols (``eval/protocols.make_eval_normalizer``):
   ``VResizeLinear`` (equal to cv2's pixels at every size the tests meet,
   the exact halving included, where OpenCV averages 2x2 blocks).
 
-The pose is host work in numpy (a few dozen 6x6 solves); the warp runs
+The offline data factory's raw-image fixes and helpers (the rest of the JAX
+module) give cv2's pixels too: :func:`undistort` (``cv2.undistort``: maps
+in fixed point, the float64 source position rounded to 1/32 pixel, 15-bit
+bilinear weights), :class:`Undistorter` (``initUndistortRectifyMap(...,
+CV_32FC1)`` then ``remap``, whose f32 maps OpenCV 5 samples with
+:func:`warp_affine`'s lerps), :func:`rotation_matrix_2d`
+(``getRotationMatrix2D``), :func:`resize_area_u8` (INTER_AREA); and the
+gaze helpers :func:`normalize_gaze_vector`, :func:`vector_to_pitchyaw`,
+:func:`gaze_to_head_coordinates`, :func:`normalized_head_pose`.
+
+The pose is host work in numpy (a few dozen 6x6 solves); the warps run
 where the image lies.
 """
 
@@ -229,9 +239,7 @@ def warp_perspective(img: torch.Tensor, M: np.ndarray, dsize: Tuple[int, int]) -
     ``(x, y)`` reads the source at ``M^-1 (x, y, 1)``, computed in f32; the
     four neighbours are weighted in f32 and the sum rounded half to even.
     ``dsize`` is ``(width, height)``."""
-    if img.dtype != torch.uint8 or img.dim() != 3:
-        raise ValueError(f"warp_perspective takes a uint8 [H, W, C] image, got {img.dtype} "
-                         f"{tuple(img.shape)}")
+    _check_u8(img, "warp_perspective")
     H, W, _ = img.shape
     w_out, h_out = dsize
     f32 = torch.float32
@@ -265,31 +273,13 @@ def _fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     return (a.double() * b.double() + c.double()).float()
 
 
-def warp_affine(img: torch.Tensor, M: np.ndarray, dsize: Tuple[int, int]) -> torch.Tensor:
-    """``cv2.warpAffine(img, M, dsize)`` for a uint8 ``[H, W, C]`` tensor
-    (bilinear, border 0), on the tensor's device: the inverse of the ``[2,
-    3]`` map as ``cv2.invertAffineTransform`` computes it in float64, then
-    f32; destination pixel ``(x, y)`` reads the source at ``fma(m00, x, m01 y
-    + m02)``, ``fma(m10, x, m11 y + m12)``; the four neighbours (0 outside
-    the image) are lerped along x, then y, each step ``fma(p1 - p0, a,
-    p0)``; the result rounded half to even.  ``dsize`` is ``(width,
-    height)``."""
-    if img.dtype != torch.uint8 or img.dim() != 3:
-        raise ValueError(f"warp_affine takes a uint8 [H, W, C] image, got {img.dtype} "
-                         f"{tuple(img.shape)}")
+def _lerp_taps_u8(img: torch.Tensor, X: torch.Tensor, Y: torch.Tensor) -> torch.Tensor:
+    """The bilinear sampler of OpenCV 5's uint8 warps at f32 source
+    positions ``X``, ``Y``: the four neighbours (0 outside the image) lerped
+    along x, then y, each step ``fma(p1 - p0, a, p0)``, the result rounded
+    half to even."""
     H, W, _ = img.shape
-    w_out, h_out = dsize
-    f32, dev = torch.float32, img.device
-    A = np.asarray(M, np.float64)
-    det = A[0, 0] * A[1, 1] - A[0, 1] * A[1, 0]
-    det = 1.0 / det if det != 0.0 else 0.0
-    a11, a22, a12, a21 = A[1, 1] * det, A[0, 0] * det, -A[0, 1] * det, -A[1, 0] * det
-    m = torch.tensor([[a11, a12, -a11 * A[0, 2] - a12 * A[1, 2]],
-                      [a21, a22, -a21 * A[0, 2] - a22 * A[1, 2]]], dtype=f32, device=dev)
-    xs = torch.arange(w_out, dtype=f32, device=dev)[None, :]
-    ys = torch.arange(h_out, dtype=f32, device=dev)[:, None]
-    X = _fma_f32(m[0, 0], xs, m[0, 1] * ys + m[0, 2])
-    Y = _fma_f32(m[1, 0], xs, m[1, 1] * ys + m[1, 2])
+    f32 = torch.float32
     x0, y0 = torch.floor(X), torch.floor(Y)
     ax, ay = (X - x0)[..., None], (Y - y0)[..., None]
     x0, y0 = x0.to(torch.int64), y0.to(torch.int64)
@@ -303,6 +293,151 @@ def warp_affine(img: torch.Tensor, M: np.ndarray, dsize: Tuple[int, int]) -> tor
     t0 = _fma_f32(p01 - p00, ax, p00)
     t1 = _fma_f32(p11 - p10, ax, p10)
     return torch.round(_fma_f32(t1 - t0, ay, t0)).clamp(0, 255).to(torch.uint8)
+
+
+def _check_u8(img: torch.Tensor, what: str) -> None:
+    if img.dtype != torch.uint8 or img.dim() != 3:
+        raise ValueError(f"{what} takes a uint8 [H, W, C] image, got {img.dtype} "
+                         f"{tuple(img.shape)}")
+
+
+def warp_affine(img: torch.Tensor, M: np.ndarray, dsize: Tuple[int, int]) -> torch.Tensor:
+    """``cv2.warpAffine(img, M, dsize)`` for a uint8 ``[H, W, C]`` tensor
+    (bilinear, border 0), on the tensor's device: the inverse of the ``[2,
+    3]`` map as ``cv2.invertAffineTransform`` computes it in float64, then
+    f32; destination pixel ``(x, y)`` reads the source at ``fma(m00, x, m01 y
+    + m02)``, ``fma(m10, x, m11 y + m12)``; the four neighbours (0 outside
+    the image) are lerped along x, then y, each step ``fma(p1 - p0, a,
+    p0)``; the result rounded half to even.  ``dsize`` is ``(width,
+    height)``."""
+    _check_u8(img, "warp_affine")
+    w_out, h_out = dsize
+    f32, dev = torch.float32, img.device
+    A = np.asarray(M, np.float64)
+    det = A[0, 0] * A[1, 1] - A[0, 1] * A[1, 0]
+    det = 1.0 / det if det != 0.0 else 0.0
+    a11, a22, a12, a21 = A[1, 1] * det, A[0, 0] * det, -A[0, 1] * det, -A[1, 0] * det
+    m = torch.tensor([[a11, a12, -a11 * A[0, 2] - a12 * A[1, 2]],
+                      [a21, a22, -a21 * A[0, 2] - a22 * A[1, 2]]], dtype=f32, device=dev)
+    xs = torch.arange(w_out, dtype=f32, device=dev)[None, :]
+    ys = torch.arange(h_out, dtype=f32, device=dev)[:, None]
+    X = _fma_f32(m[0, 0], xs, m[0, 1] * ys + m[0, 2])
+    Y = _fma_f32(m[1, 0], xs, m[1, 1] * ys + m[1, 2])
+    return _lerp_taps_u8(img, X, Y)
+
+
+def rotation_matrix_2d(center: Tuple[float, float], angle: float, scale: float) -> np.ndarray:
+    """``cv2.getRotationMatrix2D``: the ``[2, 3]`` map turning the image by
+    ``angle`` degrees about ``center`` (counter-clockwise as shown) and
+    scaling it.  At 180 degrees it maps ``x`` to ``2 cx - x``: about the
+    centre ``(w / 2, h / 2)`` that is ``w - x``, one pixel off a flip, so
+    ``warp_affine`` leaves a black first row and column, as OpenCV does."""
+    a = np.deg2rad(angle)
+    alpha, beta = np.cos(a) * scale, np.sin(a) * scale
+    cx, cy = center
+    return np.array([[alpha, beta, (1 - alpha) * cx - beta * cy],
+                     [-beta, alpha, beta * cx + (1 - alpha) * cy]])
+
+
+def remap_u8(img: torch.Tensor, map_x: torch.Tensor, map_y: torch.Tensor) -> torch.Tensor:
+    """``cv2.remap(img, map_x, map_y, INTER_LINEAR)`` with f32 maps
+    (``CV_32FC1``, border 0) for a uint8 ``[H, W, C]`` tensor: OpenCV 5
+    samples such maps with the f32 lerps of :func:`warp_affine`."""
+    _check_u8(img, "remap_u8")
+    dev = img.device
+    return _lerp_taps_u8(img, torch.as_tensor(map_x, dtype=torch.float32, device=dev),
+                         torch.as_tensor(map_y, dtype=torch.float32, device=dev))
+
+
+def _remap_tab() -> np.ndarray:
+    """OpenCV's bilinear table for fixed-point maps (``initInterTab2D``):
+    per 1/32 fraction ``(fy, fx)`` the four weights ``(1 - fy, fy) x (1 -
+    fx, fx)`` in f32, each scaled by 2^15 and rounded, the largest (or
+    smallest) moved so that they sum to 2^15; ``[32, 32, 4]``."""
+    a = np.arange(32, dtype=np.float32) * np.float32(1.0 / 32)
+    lin = np.stack([np.float32(1) - a, a], axis=1)  # [32, 2]
+    w = (lin[:, None, :, None] * lin[None, :, None, :]).reshape(32, 32, 4)
+    it = np.rint(w * np.float32(32768)).astype(np.int64)
+    diff = it.sum(-1) - 32768
+    for i, j in zip(*np.nonzero(diff)):
+        k = np.argmax(it[i, j]) if diff[i, j] < 0 else np.argmin(it[i, j])
+        it[i, j, k] -= diff[i, j]
+    return it
+
+
+def _remap_fixed_u8(img: torch.Tensor, X: np.ndarray, Y: np.ndarray) -> torch.Tensor:
+    """``cv2.remap`` through fixed-point maps (``CV_16SC2``), uint8: the
+    source position ``(X, Y)`` (float64) rounded to 1/32 pixel, the four
+    neighbours (0 outside) weighted by :func:`_remap_tab` and the sum
+    ``(s + 2^14) >> 15``."""
+    H, W, _ = img.shape
+    dev = img.device
+    xi = torch.as_tensor(np.rint(np.asarray(X) * 32.0).astype(np.int64), device=dev)
+    yi = torch.as_tensor(np.rint(np.asarray(Y) * 32.0).astype(np.int64), device=dev)
+    w = torch.as_tensor(_remap_tab(), device=dev)[yi & 31, xi & 31]
+    x0, y0 = xi >> 5, yi >> 5
+    acc = torch.zeros(tuple(xi.shape) + (img.shape[2],), dtype=torch.int64, device=dev)
+    for k, (dy, dx) in enumerate(((0, 0), (0, 1), (1, 0), (1, 1))):
+        xx, yy = x0 + dx, y0 + dy
+        inside = (xx >= 0) & (xx < W) & (yy >= 0) & (yy < H)
+        acc += img[yy.clamp(0, H - 1), xx.clamp(0, W - 1)].to(torch.int64) * (
+            w[..., k] * inside)[..., None]
+    return ((acc + (1 << 14)) >> 15).clamp(0, 255).to(torch.uint8)
+
+
+def undistort_map(camera_matrix: np.ndarray, dist_coeffs, size: Tuple[int, int]):
+    """``cv2.initUndistortRectifyMap(K, dist, None, K, size, ...)``'s source
+    positions in float64: ``(map_x, map_y)``, each ``[h, w]`` for ``size =
+    (w, h)``; OpenCV rounds them to f32 for ``CV_32FC1`` and to 1/32 pixel
+    for ``CV_16SC2``."""
+    K = np.asarray(camera_matrix, np.float64)
+    k1, k2, p1, p2, k3, k4, k5, k6 = _dist8(dist_coeffs)
+    w, h = size
+    ir = np.linalg.inv(K)
+    j = np.arange(w, dtype=np.float64)[None, :]
+    i = np.arange(h, dtype=np.float64)[:, None]
+    z = j * ir[2, 0] + (i * ir[2, 1] + ir[2, 2])
+    x = (j * ir[0, 0] + (i * ir[0, 1] + ir[0, 2])) / z
+    y = (j * ir[1, 0] + (i * ir[1, 1] + ir[1, 2])) / z
+    x2, y2 = x * x, y * y
+    r2, xy2 = x2 + y2, 2 * x * y
+    kr = (1 + ((k3 * r2 + k2) * r2 + k1) * r2) / (1 + ((k6 * r2 + k5) * r2 + k4) * r2)
+    xd = x * kr + p1 * xy2 + p2 * (r2 + 2 * x2)
+    yd = y * kr + p1 * (r2 + 2 * y2) + p2 * xy2
+    return K[0, 0] * xd + K[0, 2], K[1, 1] * yd + K[1, 2]
+
+
+def undistort(img: torch.Tensor, camera_matrix: np.ndarray, dist_coeffs) -> torch.Tensor:
+    """``cv2.undistort(img, K, dist)`` for a uint8 ``[H, W, C]`` tensor:
+    OpenCV builds fixed-point maps (``CV_16SC2``) and remaps through them
+    (:func:`_remap_fixed_u8`)."""
+    _check_u8(img, "undistort")
+    H, W, _ = img.shape
+    return _remap_fixed_u8(img, *undistort_map(camera_matrix, dist_coeffs, (W, H)))
+
+
+class Undistorter:
+    """Cached-map undistortion (upstream ``data_process.py``): the maps of
+    ``cv2.initUndistortRectifyMap(..., CV_32FC1)`` for one camera and image
+    size, kept on the image's device, and ``cv2.remap`` through them
+    (:func:`remap_u8`)."""
+
+    def __init__(self):
+        self._maps = None
+        self._key = None
+
+    def __call__(self, img: torch.Tensor, camera_matrix, dist_coeffs) -> torch.Tensor:
+        _check_u8(img, "Undistorter")
+        K = np.asarray(camera_matrix, np.float64)
+        key = (K.tobytes(), np.asarray(dist_coeffs, np.float64).tobytes(), tuple(img.shape),
+               str(img.device))
+        if key != self._key:
+            H, W, _ = img.shape
+            mx, my = undistort_map(K, dist_coeffs, (W, H))
+            self._maps = tuple(torch.as_tensor(m.astype(np.float32), device=img.device)
+                               for m in (mx, my))
+            self._key = key
+        return remap_u8(img, *self._maps)
 
 
 def normalize_face(
@@ -346,27 +481,37 @@ def _linear_taps(n_src: int, n_dst: int):
     return s, f - s.astype(np.float32)
 
 
+def _area_up_taps(n_src: int, n_dst: int):
+    """INTER_AREA's taps where it enlarges an axis (cv2 then runs its
+    linear resize with these): ``s = floor(d * scale)``, ``f = (d + 1) -
+    (s + 1) / scale`` rounded to f32, 0 where not positive, else its
+    fractional part."""
+    inv = n_dst / n_src
+    scale = 1.0 / inv
+    d = np.arange(n_dst)
+    s = np.floor(d * scale).astype(np.int64)
+    f = ((d + 1) - (s + 1) * inv).astype(np.float32)
+    f = np.where(f <= 0, np.float32(0), f - np.floor(f)).astype(np.float32)
+    return s, f
+
+
 def _coefs(f: np.ndarray) -> np.ndarray:
     """The two 11-bit weights ``(1 - f, f) * 2048``, rounded half to even as
     ``saturate_cast<short>`` rounds, ``[2, n]``."""
     return np.rint(np.stack([np.float32(1) - f, f]) * np.float32(2048)).astype(np.int32)
 
 
-def resize_linear_u8(img: torch.Tensor, dsize: Tuple[int, int]) -> torch.Tensor:
-    """``cv2.resize(img, dsize)`` (INTER_LINEAR) for a uint8 ``[H, W, C]``
-    tensor, on its device.  ``dsize`` is ``(width, height)``.  Columns: the
-    source index clamped to the image with its weight moved to the edge
-    pixel; a pass in integers with weights ``round(2048 (1 - f))`` and
-    ``round(2048 f)``.  Rows: both source rows clamped, the weights kept,
-    and each product taken as ``(b * (r >> 4)) >> 16`` before ``(sum + 2) >>
-    2``."""
-    if img.dtype != torch.uint8 or img.dim() != 3:
-        raise ValueError(f"resize_linear_u8 takes a uint8 [H, W, C] image, got {img.dtype} "
-                         f"{tuple(img.shape)}")
+def _resize_fixed_u8(img: torch.Tensor, taps_x, taps_y) -> torch.Tensor:
+    """cv2's fixed-point two-pass resize of a uint8 image given each axis'
+    source indices and fractions.  Columns: the source index clamped to the
+    image with its weight moved to the edge pixel; a pass in integers with
+    weights ``round(2048 (1 - f))`` and ``round(2048 f)``.  Rows: both
+    source rows clamped, the weights kept, and each product taken as ``(b *
+    (r >> 4)) >> 16`` before ``(sum + 2) >> 2``."""
     H, W, _ = img.shape
-    w_out, h_out = dsize
     dev = img.device
-    sx, fx = _linear_taps(W, w_out)
+    sx, fx = taps_x
+    fx = fx.copy()
     edge = (sx < 0) | (sx >= W - 1)
     fx[edge] = 0
     sx = np.clip(sx, 0, W - 1)
@@ -374,9 +519,126 @@ def resize_linear_u8(img: torch.Tensor, dsize: Tuple[int, int]) -> torch.Tensor:
     src = img.to(torch.int32)
     rows = (src[:, torch.as_tensor(sx, device=dev)] * a[0]
             + src[:, torch.as_tensor(np.minimum(sx + 1, W - 1), device=dev)] * a[1])
-    sy, fy = _linear_taps(H, h_out)
+    sy, fy = taps_y
     b = torch.as_tensor(_coefs(fy), device=dev)[:, :, None, None]
     r0 = rows[torch.as_tensor(np.clip(sy, 0, H - 1), device=dev)] >> 4
     r1 = rows[torch.as_tensor(np.clip(sy + 1, 0, H - 1), device=dev)] >> 4
     out = (((b[0] * r0) >> 16) + ((b[1] * r1) >> 16) + 2) >> 2
     return out.clamp(0, 255).to(torch.uint8)
+
+
+def resize_linear_u8(img: torch.Tensor, dsize: Tuple[int, int]) -> torch.Tensor:
+    """``cv2.resize(img, dsize)`` (INTER_LINEAR) for a uint8 ``[H, W, C]``
+    tensor, on its device (:func:`_resize_fixed_u8` with the taps
+    ``(d + 0.5) * scale - 0.5``).  ``dsize`` is ``(width, height)``."""
+    _check_u8(img, "resize_linear_u8")
+    H, W, _ = img.shape
+    w_out, h_out = dsize
+    return _resize_fixed_u8(img, _linear_taps(W, w_out), _linear_taps(H, h_out))
+
+
+def _area_table(n_src: int, n_dst: int):
+    """``computeResizeAreaTab``: per destination pixel the source pixels its
+    cell covers and their f32 weights (the covered share of each over the
+    cell's width), laid out ``[k, n_dst]`` for the k-th term of each
+    (weight 0 where a pixel has fewer terms)."""
+    scale = n_src / n_dst
+    terms = []
+    for d in range(n_dst):
+        f1 = d * scale
+        f2 = f1 + scale
+        cell = min(scale, n_src - f1)
+        s1, s2 = int(np.ceil(f1)), int(np.floor(f2))
+        s2 = min(s2, n_src - 1)
+        s1 = min(s1, s2)
+        t = []
+        if s1 - f1 > 1e-3:
+            t.append((s1 - 1, (s1 - f1) / cell))
+        t += [(s, 1.0 / cell) for s in range(s1, s2)]
+        if f2 - s2 > 1e-3:
+            t.append((s2, min(min(f2 - s2, 1.0), cell) / cell))
+        terms.append(t)
+    n = max(len(t) for t in terms)
+    idx = np.zeros((n, n_dst), np.int64)
+    wgt = np.zeros((n, n_dst), np.float32)
+    for d, t in enumerate(terms):
+        for k, (s, a) in enumerate(t):
+            idx[k, d], wgt[k, d] = s, a
+    return idx, wgt
+
+
+def resize_area_u8(img: torch.Tensor, dsize: Tuple[int, int]) -> torch.Tensor:
+    """``cv2.resize(img, dsize, interpolation=INTER_AREA)`` for a uint8
+    ``[H, W, C]`` tensor, on its device.  Enlarging either axis: the linear
+    resize with :func:`_area_up_taps`.  Shrinking both by whole factors:
+    the block sums, ``(s + 2) >> 2`` for 2 x 2 blocks and else ``s`` times
+    the f32 ``1 / area`` rounded half to even.  Otherwise OpenCV's area
+    filter: each row's terms summed in f32 in OpenCV's order (``buf +=
+    src * alpha``), then the rows' (``sum += beta * buf``), rounded half to
+    even."""
+    _check_u8(img, "resize_area_u8")
+    H, W, C = img.shape
+    w_out, h_out = dsize
+    sx, sy = W / w_out, H / h_out
+    if sx < 1 or sy < 1:
+        return _resize_fixed_u8(img, _area_up_taps(W, w_out), _area_up_taps(H, h_out))
+    ix, iy = int(round(sx)), int(round(sy))
+    if abs(sx - ix) < np.finfo(np.float64).eps and abs(sy - iy) < np.finfo(np.float64).eps:
+        s = img[: h_out * iy, : w_out * ix].to(torch.int64).reshape(h_out, iy, w_out, ix, C)
+        s = s.sum((1, 3))
+        if (ix, iy) == (2, 2):
+            return ((s + 2) >> 2).to(torch.uint8)
+        out = s.to(torch.float32) * torch.tensor(np.float32(1.0 / (ix * iy)))
+        return torch.round(out).clamp(0, 255).to(torch.uint8)
+    dev = img.device
+    src = img.to(torch.float32)
+    xi, xw = (torch.as_tensor(t, device=dev) for t in _area_table(W, w_out))
+    buf = torch.zeros((H, w_out, C), dtype=torch.float32, device=dev)
+    for k in range(xi.shape[0]):
+        buf = buf + src[:, xi[k]] * xw[k][None, :, None]
+    yi, yw = (torch.as_tensor(t, device=dev) for t in _area_table(H, h_out))
+    out = buf[yi[0]] * yw[0][:, None, None]
+    for k in range(1, yi.shape[0]):
+        out = out + buf[yi[k]] * yw[k][:, None, None]
+    return torch.round(out).clamp(0, 255).to(torch.uint8)
+
+
+# (focal_norm, distance_norm) of the virtual camera per dataset at
+# preprocessing time (upstream pre_processing/data_process.py: ETH-XGaze
+# 1600, MPIIFaceGaze 1400, Columbia 1600, GazeCapture 1200, all at 680)
+NORMALIZATION_PRESETS = {
+    "eth_xgaze": (1600.0, 680.0),
+    "mpii_face_gaze": (1400.0, 680.0),
+    "columbia": (1600.0, 680.0),
+    "gaze_capture": (1200.0, 680.0),
+}
+
+
+def normalize_gaze_vector(gaze_vec: np.ndarray, R: np.ndarray) -> np.ndarray:
+    """A gaze vector rotated into the normalized camera and made unit."""
+    g = np.asarray(R) @ np.asarray(gaze_vec, np.float64).reshape(3, 1)
+    return (g / np.linalg.norm(g)).reshape(3)
+
+
+def vector_to_pitchyaw(v: np.ndarray) -> np.ndarray:
+    """A 3D gaze vector -> ``(pitch, yaw)`` f32: ``asin(y)``, ``atan2(x, z)``
+    of the unit vector."""
+    v = np.asarray(v, np.float64).reshape(3)
+    v = v / np.linalg.norm(v)
+    return np.array([np.arcsin(v[1]), np.arctan2(v[0], v[2])], np.float32)
+
+
+def gaze_to_head_coordinates(gaze_pitchyaw: np.ndarray, head_rotation: np.ndarray) -> np.ndarray:
+    """A camera-frame gaze ``(pitch, yaw)`` -> the head frame's: its f32
+    vector turned by the inverse head rotation."""
+    from gazenerf_tpu_torch.eval.metrics import pitchyaw_to_vector
+
+    py = torch.as_tensor(np.asarray(gaze_pitchyaw, np.float32)[None])
+    return vector_to_pitchyaw(np.asarray(head_rotation).T @ pitchyaw_to_vector(py)[0].numpy())
+
+
+def normalized_head_pose(R_norm: np.ndarray, hR: np.ndarray) -> np.ndarray:
+    """``(pitch, yaw)`` f32 of the head in the normalized camera: of the z
+    column of ``R_norm @ hR``."""
+    z = (np.asarray(R_norm) @ np.asarray(hR))[:, 2]
+    return np.array([np.arcsin(z[1]), np.arctan2(z[0], z[2])], np.float32)

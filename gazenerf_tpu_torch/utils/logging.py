@@ -63,6 +63,16 @@ def to_uint8(img) -> np.ndarray:
     return (img * 255.0).clip(0, 255).astype(np.uint8)
 
 
+def side_by_side(*imgs) -> np.ndarray:
+    """Images ``[H, W, 3]`` (floats in [0, 1] or uint8) side by side as one
+    uint8 strip, the shorter padded with white at the bottom (visual QA;
+    upstream ``draw_res_img``)."""
+    arrs = [to_uint8(i) for i in imgs]
+    h = max(a.shape[0] for a in arrs)
+    padded = [np.pad(a, ((0, h - a.shape[0]), (0, 0), (0, 0)), constant_values=255) for a in arrs]
+    return np.concatenate(padded, axis=1)
+
+
 def log_images(wandb, tag: str, images: Dict[str, Any], step: Optional[int] = None) -> None:
     """Each image under ``{tag}/{name}`` in one ``wandb.log``."""
     if wandb is None:

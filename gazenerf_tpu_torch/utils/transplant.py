@@ -14,7 +14,10 @@ parameters and offset tables.  :func:`inception_params_from_jax`,
 :func:`retinaface_params_from_jax`, :func:`pfld_params_from_jax` and
 :func:`mobilefacenet_params_from_jax` carry the metric nets across (the
 inverses of the JAX package's ``*_from_torch``), into the upstream layouts
-the port's modules load strictly.
+the port's modules load strictly.  :func:`unet_params_from_jax`,
+:func:`bisenet_params_from_jax` and :func:`geometry_decoder_params_from_jax`
+carry the preprocessing nets across (BiSeNet without the auxiliary heads,
+which the JAX net lacks).
 
 The numpy converters are a copy of the JAX package's ``utils/transplant``
 (the port imports nothing from that package); flax stores a Dense kernel
@@ -337,6 +340,79 @@ def mobilefacenet_params_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]
     out["linear.weight"] = _f32(np.asarray(params["linear"]["kernel"]).T)
     out.update(_bn_from_jax(params["bn"], stats["bn"], "bn"))
     return out
+
+
+def unet_params_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX ``UNet`` variables -> the port's ``UNet`` ``state_dict``.  The
+    JAX transposed-conv kernel ``[kh, kw, in, out]`` is stored spatially
+    flipped (``lax.conv_transpose`` correlates with the mirrored kernel):
+    flipped back into torch's ``[in, out, kh, kw]``."""
+    params, stats = variables["params"], variables["batch_stats"]
+    out: Dict[str, torch.Tensor] = {}
+
+    def double(p, st, prefix):
+        for i in (1, 2):
+            out[f"{prefix}.conv{i}.0.weight"] = _conv_from_jax(p[f"conv{i}"]["kernel"])
+            out[f"{prefix}.conv{i}.0.bias"] = _f32(p[f"conv{i}"]["bias"])
+            out.update(_bn_from_jax(p[f"bn{i}"], st[f"bn{i}"], f"{prefix}.conv{i}.1"))
+
+    for name in ("conv1", "conv2", "conv3", "conv4", "center"):
+        double(params[name], stats[name], name)
+    for name in ("up_concat4", "up_concat3", "up_concat2", "up_concat1"):
+        k = np.asarray(params[name]["up"]["kernel"], np.float32)[::-1, ::-1]
+        out[f"{name}.up.weight"] = torch.from_numpy(np.ascontiguousarray(k.transpose(2, 3, 0, 1)))
+        out[f"{name}.up.bias"] = _f32(params[name]["up"]["bias"])
+        double(params[name]["conv"], stats[name]["conv"], f"{name}.conv")
+    out["final.weight"] = _conv_from_jax(params["final"]["kernel"])
+    out["final.bias"] = _f32(params["final"]["bias"])
+    return out
+
+
+def bisenet_params_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX ``BiSeNet`` variables -> the port's ``BiSeNet`` ``state_dict`` in
+    upstream's names (``resnet/layer2_0/downsample_conv`` ->
+    ``cp.resnet.layer2.0.downsample.0``, ``arm16`` -> ``cp.arm16``, ``head``
+    -> ``conv_out``); the auxiliary heads are not in the JAX net."""
+    params, stats = variables["params"], variables["batch_stats"]
+    out: Dict[str, torch.Tensor] = {}
+
+    def torch_path(path):
+        if path[0] == "resnet":
+            rest = []
+            for part in path[1:]:
+                if part.startswith("layer"):
+                    rest += part.split("_")
+                elif part.startswith("downsample_"):
+                    rest += ["downsample", "0" if part.endswith("conv") else "1"]
+                else:
+                    rest.append(part)
+            return ["cp", "resnet"] + rest
+        if path[0] == "head":
+            return ["conv_out"] + list(path[1:])
+        if path[0] == "ffm":
+            return list(path)
+        return ["cp"] + list(path)
+
+    def walk(p, st, path):
+        if "kernel" in p:
+            out[".".join(torch_path(path) + ["weight"])] = _conv_from_jax(p["kernel"])
+            return
+        if "scale" in p:
+            out.update(_bn_from_jax(p, st, ".".join(torch_path(path))))
+            return
+        for k in p:
+            walk(p[k], st.get(k, {}) if st else {}, path + [k])
+
+    walk(params, stats, [])
+    return out
+
+
+def geometry_decoder_params_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """The JAX ``GeometryDecoder``'s ``{w1, b1, w2, b2}`` (dense kernels
+    ``[in, out]``) -> the port's ``GeometryDecoder`` ``state_dict``
+    (upstream's ``geo_fc2`` and ``geo_fc3`` Linears, ``[out, in]``)."""
+    return {"geo_fc2.weight": _f32(np.asarray(params["w1"]).T), "geo_fc2.bias": _f32(params["b1"]),
+            "geo_fc3.weight": _f32(np.asarray(params["w2"]).T), "geo_fc3.bias": _f32(params["b2"])}
 
 
 def load_train_state_from_jax(trainer, state, n_blocks: int) -> None:

@@ -36,11 +36,12 @@ print(len(names), bad, missing)
 # the modules of the slices: the render, the training step, the renderer's
 # kernel modes, the dual-branch field path, the training CLI from files, and
 # fitting and evaluation with their CLIs and metric nets, and multi-process
-# training
+# training, and the offline data factory
 EXPECTED = [
     "gazenerf_tpu_torch.cli.common",
     "gazenerf_tpu_torch.cli.evaluate",
     "gazenerf_tpu_torch.cli.evaluate_metrics",
+    "gazenerf_tpu_torch.cli.preprocess",
     "gazenerf_tpu_torch.cli.train",
     "gazenerf_tpu_torch.cli.visualize",
     "gazenerf_tpu_torch.data.cameras",
@@ -66,10 +67,20 @@ EXPECTED = [
     "gazenerf_tpu_torch.models.resnet",
     "gazenerf_tpu_torch.models.seeding",
     "gazenerf_tpu_torch.models.vgg",
+    "gazenerf_tpu_torch.nl3dmm.face_model",
+    "gazenerf_tpu_torch.nl3dmm.fitting",
+    "gazenerf_tpu_torch.nl3dmm.loss",
+    "gazenerf_tpu_torch.nl3dmm.rasterizer",
     "gazenerf_tpu_torch.parallel.dryrun",
     "gazenerf_tpu_torch.parallel.mesh",
     "gazenerf_tpu_torch.parallel.sharding",
+    "gazenerf_tpu_torch.preprocess.bisenet",
+    "gazenerf_tpu_torch.preprocess.driver",
+    "gazenerf_tpu_torch.preprocess.enumerate",
+    "gazenerf_tpu_torch.preprocess.landmarks",
+    "gazenerf_tpu_torch.preprocess.masks",
     "gazenerf_tpu_torch.preprocess.normalize",
+    "gazenerf_tpu_torch.preprocess.unet",
     "gazenerf_tpu_torch.train.checkpoint",
     "gazenerf_tpu_torch.train.fitting",
     "gazenerf_tpu_torch.train.state",
@@ -85,7 +96,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         [sys.executable, "-c", f"EXPECTED = {EXPECTED!r}\n" + _IMPORT_ALL], cwd=REPO,
         capture_output=True, text=True, timeout=120, check=True,
     ).stdout.split(maxsplit=1)
-    assert int(out[0]) >= 48  # every submodule was imported
+    assert int(out[0]) >= 59  # every submodule was imported
     assert out[1].strip() == "[] []"
 
 
@@ -139,3 +150,63 @@ def test_trainer_needs_a_card_unless_asked_for_the_cpu(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         Trainer(small_train_config(), train_len=2, steps_per_epoch=1)
     assert Trainer(small_train_config(), train_len=2, steps_per_epoch=1, device="cpu") is not None
+
+
+_BLOCKED_PREPROCESS = """
+import sys
+for blocked in ("jax", "jaxlib", "flax", "gazenerf_tpu", "cv2", "imageio", "PIL"):
+    sys.modules[blocked] = None  # importing any of them raises ImportError
+import numpy as np
+from gazenerf_tpu_torch.cli import preprocess
+from gazenerf_tpu_torch.nl3dmm import face_model, fitting, loss, rasterizer
+from gazenerf_tpu_torch.preprocess import bisenet, driver, enumerate, landmarks, masks, unet
+head = masks.landmark_masks(landmarks.synthetic_landmarks((20, 20, 100, 110)), 128)[0]
+print(face_model.random_basis(128, 200).triangles.shape[0], int(head.max()))
+"""
+
+
+def test_preprocessing_modules_import_with_jax_and_cv2_blocked():
+    """The data factory's modules import, and its OpenCV-free pieces run,
+    where JAX, the JAX package, OpenCV, imageio and PIL cannot be imported
+    at all."""
+    out = subprocess.run([sys.executable, "-c", _BLOCKED_PREPROCESS], cwd=REPO,
+                         capture_output=True, text=True, timeout=120, check=True).stdout
+    assert out.strip() == "200 255"
+
+
+def _fitter(device=None):
+    from gazenerf_tpu_torch.nl3dmm.face_model import random_basis
+    from gazenerf_tpu_torch.nl3dmm.fitting import FitConfig, NL3DMMFitter
+
+    return NL3DMMFitter(random_basis(128, 200), FitConfig(image_size=16), device=device)
+
+
+def _bisenet(device=None):
+    from gazenerf_tpu_torch.preprocess.masks import BiSeNetMasker
+
+    return BiSeNetMasker(device=device)
+
+
+def _unet(device=None):
+    from gazenerf_tpu_torch.preprocess.masks import UNetEyeMasker
+
+    return UNetEyeMasker(device=device)
+
+
+@pytest.mark.parametrize("entry", [_fitter, _bisenet, _unet])
+def test_preprocessing_entry_points_need_a_card_unless_asked_for_the_cpu(monkeypatch, entry):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        entry()
+    assert entry(device="cpu").device == torch.device("cpu")
+
+
+def test_preprocess_cli_needs_a_card_unless_asked_for_the_cpu(monkeypatch, tmp_path):
+    from gazenerf_tpu_torch.cli import preprocess
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        preprocess.main(["--frames_dir", str(tmp_path), "--out", str(tmp_path / "s.h5")])
+    # with --device cpu it runs (and stops at the empty frame folder)
+    assert preprocess.main(["--frames_dir", str(tmp_path), "--out", str(tmp_path / "s.h5"),
+                            "--device", "cpu"]) == 1
