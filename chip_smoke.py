@@ -157,16 +157,23 @@ Phases (each raises on failure, so any failed phase exits non-zero):
    CPU with both nets, the full-width NL-3DMM fit (34,650 vertices, 69,296
    triangles, 128^2) at 2 + 2 steps (B=2) card against CPU, and the full
    50 + 200 step fit at B=18 with its step times, peak memory and the
-   rasterizer's and the sort's device ms (``phase_preprocess``).
+   rasterizer's and the sort's device ms (``phase_preprocess``);
+11. jpeg: JPEG frames (``kernels/jpeg.py``, ``csrc/jpeg_decode.cu``): the
+   committed fixtures decoded on the card against ``cv2.imread``'s pixels
+   and the CPU's plain path, two 6000 x 4000 frames stacked from the
+   committed strips (4:2:0 and 4:2:2) with their coefficients against the
+   plain decoder's and their pixels against the plain pixel stage on the
+   card and cv2's digests, ``read_frame`` on both with one ``jpeg_pixels``
+   launch a frame, and the times of its parts (``phase_jpeg``).
 
 Prints ``k2_profile``, ``dw``, ``k8_profile``, ``f32_block_profile``,
 ``k4_profile``, ``k2_stash_profile``, ``deep_case``, ``deep_dual_case``,
 ``k2_deep_profile``, ``stash_form_case``, ``stash_form_points_case``,
 ``stash_forms``, ``points_case``, ``k2_points_profile``, ``serving``,
 ``training``, ``deep_training``, ``hier``, ``hier_fuse_embed``, ``cli``,
-``distributed``, ``k2_fit_case``, ``eval``, ``preprocess`` and ``kernels`` JSON
-lines, the run's wall time, the ``nvidia-smi`` line and, last, the device
-JSON line.  Exits non-zero without a result when no CUDA card is present.
+``distributed``, ``k2_fit_case``, ``eval``, ``preprocess``, ``jpeg`` and
+``kernels`` JSON lines, the run's wall time, the ``nvidia-smi`` line and,
+last, the device JSON line.  Exits non-zero without a result when no CUDA card is present.
 Imports nothing of JAX.
 """
 
@@ -258,7 +265,7 @@ GRADUAL_EPOCH = 2
 # the kernels' counters, in the order of the ``kernels`` line
 KERNELS = ("fused_field_fwd", "fused_field_bwd", "shuffle_blur_fwd", "shuffle_blur_bwd",
            "fused_upsampler_fwd", "fused_upsampler_bwd", "fused_dual_fwd", "fused_dual_bwd",
-           "fused_upsampler_fwd_f32", "fused_upsampler_bwd_f32")
+           "fused_upsampler_fwd_f32", "fused_upsampler_bwd_f32", "jpeg_pixels")
 
 # whole image with the kernel vs with its plain version: the bf16 image
 # bound of the JAX package's fused-vs-XLA model test
@@ -486,16 +493,17 @@ def kernel_modules():
     from gazenerf_tpu_torch.kernels import fused_field2_bwd as ffb2
     from gazenerf_tpu_torch.kernels import fused_field_bwd as ffb
     from gazenerf_tpu_torch.kernels import fused_upsampler as fu
+    from gazenerf_tpu_torch.kernels import jpeg as kj
     from gazenerf_tpu_torch.kernels import shuffle_blur as sb
 
-    return ff, ffb, sb, fu, ff2, ffb2
+    return ff, ffb, sb, fu, ff2, ffb2, kj
 
 
 # each counter of the ``kernels`` line: (module index in kernel_modules(), name)
 _COUNTERS = ((0, "launch_count"), (1, "launch_count"), (2, "launch_count_fwd"),
              (2, "launch_count_bwd"), (3, "launch_count_fwd"), (3, "launch_count_bwd"),
              (4, "launch_count"), (5, "launch_count"), (3, "launch_count_fwd_f32"),
-             (3, "launch_count_bwd_f32"))
+             (3, "launch_count_bwd_f32"), (6, "launch_count"))
 
 
 def launch_counts():
@@ -3796,6 +3804,150 @@ def phase_preprocess(seed, card):
     return out
 
 
+# the JPEG pixel kernel ports no Pallas kernel: the JAX package reads its
+# frames with cv2.imread
+JPEG_REPLACES = "none: gazenerf_tpu/preprocess/driver.py:238 (cv2.imread, libjpeg-turbo)"
+# integer operations of the JPEG pixel stage, counted from jpeg_decode.cu's
+# code: per 8 x 8 block the dequantization (64 products) and 16 one-pass
+# IDCTs of ~44 adds, products and shifts each plus the clamps; per output
+# pixel and component the upsampling (~10) and per pixel the colour
+# conversion (~20).  They run on the CUDA cores, held to the f32 rate
+JPEG_OPS_PER_BLOCK = 64 + 16 * 44 + 64 * 3
+JPEG_OPS_PER_PIXEL = 3 * 10 + 20
+
+
+def jpeg_bound(hdr):
+    """The least time of the pixel stage on one frame: the coefficients
+    (int16) read once and the BGR frame written once, against its integer
+    operations at the CUDA cores' rate -> (ms, "bytes" or "operations")."""
+    t_bytes = (hdr.n_blocks * 64 * 2 + hdr.width * hdr.height * 3) / PEAK_BYTES_PER_S
+    t_ops = (hdr.n_blocks * JPEG_OPS_PER_BLOCK
+             + hdr.width * hdr.height * JPEG_OPS_PER_PIXEL) / PEAK_F32_FLOPS
+    return bound((t_ops,), t_bytes)
+
+
+def phase_jpeg(card, iters):
+    """JPEG frames on the card (``kernels/jpeg.py``: the native entropy
+    decoder in host C++ and the ``jpeg_pixels`` kernel, both in
+    ``csrc/jpeg_decode.cu``).  Checks, each raising:
+
+    1. every committed fixture (``tests/data/jpeg``) decoded on the card
+       equals ``cv2.imread``'s committed pixels and the CPU's plain path,
+       bit for bit;
+    2. each full-width strip stacked to ETH-XGaze's 6000 x 4000
+       (``checks.stack_jpeg_strip``: 250 strips of 6000 x 16 at 4:2:0, 500
+       of 6000 x 8 at 4:2:2, quality 90, a restart segment each): the native
+       decoder's coefficients equal the plain Python decoder's for the strip
+       alone in every segment; the kernel's frame equals the plain pixel
+       stage run on the card on the same coefficients, and ``cv2.imread``'s
+       digest of the frame (``strips.json``);
+    3. the main path, counts set to 0 just before: ``read_frame`` of each
+       24 MP file on the card, one ``jpeg_pixels`` launch a frame, its pixels
+       those of 2.
+
+    Times at full size (the strips carry restart markers; a file without
+    them runs the same decoder loop with no marker to handle): the entropy
+    decoder (host clock, median of 3), the upload of the pinned
+    coefficients, the kernel (CUDA events), the copy of the frame back to
+    pageable host memory, the whole ``read_frame`` (host clock, median of
+    3) and frames a second; the plain pixel stage on the card."""
+    import hashlib
+    import os
+    import statistics
+    import tempfile
+
+    import torch
+
+    from gazenerf_tpu_torch.kernels import checks
+    from gazenerf_tpu_torch.kernels import jpeg as kj
+    from gazenerf_tpu_torch.preprocess.driver import read_frame
+    from gazenerf_tpu_torch.utils import jpeg as J
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    out = {"card": card, "fixtures": checks.jpeg_fixture_names(), "frames": {}}
+    for name in out["fixtures"]:
+        fails = checks.jpeg_fixture_failures(name, dev)
+        check(not fails, f"jpeg fixture: {fails}")
+    print(f"jpeg: {len(out['fixtures'])} fixtures equal cv2's pixels and the plain path")
+    with open(checks.JPEG_FIXTURES / "strips.json") as f:
+        digests = json.load(f)
+    frames = {}
+    for name in sorted(checks.JPEG_STRIP_REPEATS):
+        strip, frame = checks.jpeg_stacked_frame(name)
+        hdr = J.parse_header(frame)
+        host = torch.empty((hdr.n_blocks, 64), dtype=torch.int16, pin_memory=True)
+        entropy = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            warn = kj.entropy_decode(frame, hdr, host)
+            entropy.append(1e3 * (time.perf_counter() - t0))
+        check(warn == 0, f"jpeg {name}: the native decoder warns {warn}")
+        fails = checks.jpeg_coefficient_failures(strip, frame, host)
+        check(not fails, f"jpeg {name}: coefficients {fails}")
+        coef = torch.empty(host.shape, dtype=host.dtype, device=dev)
+        upload_ms = cuda_ms(lambda: coef.copy_(host, non_blocking=True), iters=5)
+        got = kj.jpeg_pixels(coef, hdr)
+        want = J.pixels_reference(coef, hdr)
+        err = int((got.int() - want.int()).abs().max())
+        check(err <= checks.JPEG_MAX_ABS_ERR,
+              f"jpeg {name}: the kernel against the plain pixel stage, max abs err {err}")
+        del want
+        got_host = got.cpu().numpy()
+        digest = hashlib.sha256(got_host.tobytes()).hexdigest()
+        check(digest == digests[name]["stacked"]["sha256_bgr"],
+              f"jpeg {name}: the 24 MP frame is not cv2.imread's")
+        ms = cuda_ms(lambda: kj.jpeg_pixels(coef, hdr), iters)
+        plain_ms = cuda_ms(lambda: J.pixels_reference(coef, hdr), 2, warmup=1)
+        copy_back_ms = cuda_ms(lambda: got.cpu(), iters=5)
+        bound_ms, bound_by = jpeg_bound(hdr)
+        frames[name] = (frame, got_host)
+        out["frames"][name] = {
+            "shape": [hdr.height, hdr.width, 3], "file_bytes": len(frame),
+            "coefficient_bytes": hdr.n_blocks * 128, "entropy_ms": statistics.median(entropy),
+            "entropy_ms_runs": entropy, "upload_ms": upload_ms, "kernel_ms": ms,
+            "copy_back_ms": copy_back_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "max_abs_err": float(err), "equals_cv2_digest": True}
+        print(f"jpeg {name} (6000 x 4000): entropy {statistics.median(entropy):.2f} ms (host), "
+              f"upload {upload_ms:.3f}, kernel {ms:.4f} (bound {bound_ms:.4f}, {bound_by}), "
+              f"copy back {copy_back_ms:.3f}, plain {plain_ms:.3f}")
+        del coef, got, host
+        torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = {}
+        for name, (frame, _) in frames.items():
+            paths[name] = os.path.join(tmp, f"{name}.jpg")
+            with open(paths[name], "wb") as f:
+                f.write(frame)
+        reset_launch_counts()  # counts from here on are the main path's
+        for name, path in paths.items():
+            img = read_frame(path, dev)
+            check(img is not None and (img == frames[name][1]).all(),
+                  f"jpeg {name}: read_frame's pixels")
+        counts = launch_counts()
+        launches = counts.pop("jpeg_pixels")
+        check(launches == len(paths), f"jpeg: read_frame launched jpeg_pixels {launches} times "
+                                      f"for {len(paths)} frames")
+        check(not any(counts.values()), f"jpeg: read_frame launched {counts}")
+        out["launches"] = launches
+        out["launches_per_frame"] = launches / len(paths)
+        for name, path in paths.items():
+            runs = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                read_frame(path, dev)
+                runs.append(1e3 * (time.perf_counter() - t0))
+            line = out["frames"][name]
+            line["read_frame_ms"] = statistics.median(runs)
+            line["read_frame_ms_runs"] = runs
+            line["frames_per_s"] = 1e3 / line["read_frame_ms"]
+            print(f"jpeg {name}: read_frame {line['read_frame_ms']:.1f} ms, "
+                  f"{line['frames_per_s']:.2f} frames/s")
+    del frames
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4016,6 +4168,11 @@ def main() -> int:
     preprocess_launches = launch_counts()
     print(json.dumps({"preprocess": preprocess}))
     lap("preprocess")
+    # 11. JPEG frames: the fixtures against cv2, 6000 x 4000 frames stacked
+    # from the strips, read_frame's parts and its launches
+    jpeg = phase_jpeg(smi, args.iters)
+    print(json.dumps({"jpeg": jpeg}))
+    lap("jpeg")
     k1["launches_per_fit_step"] = per_fit_step["fused_field_fwd"]
     k2["launches_per_fit_step"] = per_fit_step["fused_field_bwd"]
     # the input-target protocol with exact FID and the identity pipeline (2 pairs)
@@ -4083,7 +4240,19 @@ def main() -> int:
                         (k3, ("fused_dual_fwd",)), (k4, ("fused_dual_bwd",))):
         k["launches_preprocess"] = sum(preprocess_launches[c] for c in counters)
         check(k["launches_preprocess"] == 0, f"{k['name']} launched on the preprocessing path")
-    print(json.dumps({"kernels": [k1, k2, k5, k6, k7, k8, k3, k4]}))
+    # the port's own kernel (no Pallas counterpart): the pixel stage of a
+    # 6000 x 4000 frame at 4:2:0, and at 4:2:2 beside it
+    frame = jpeg["frames"]["strip420_6000x16"]
+    kjpeg = kernel_entry("jpeg_pixels", "jpeg_decode.cu", JPEG_REPLACES, frame["max_abs_err"],
+                         frame["kernel_ms"], frame["plain_ms"], frame["bound_ms"],
+                         frame["bound_by"])
+    frame = jpeg["frames"]["strip422_6000x8"]
+    kjpeg["s422"] = mode_record("jpeg_pixels", "4:2:2", frame["max_abs_err"], frame["kernel_ms"],
+                                frame["plain_ms"], frame["bound_ms"], frame["bound_by"])
+    kjpeg["launches"] = jpeg["launches"]
+    kjpeg["launches_per_frame"] = jpeg["launches_per_frame"]
+    kjpeg["launches_preprocess"] = preprocess_launches["jpeg_pixels"]
+    print(json.dumps({"kernels": [k1, k2, k5, k6, k7, k8, k3, k4, kjpeg]}))
     print(f"chip_smoke wall time: {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({

@@ -3,10 +3,10 @@ factory's command line, the port of the JAX package's ``cli/preprocess.py``
 (upstream ``dataset_pre_processing.py``): the raw frames of one subject,
 normalized, with landmarks, masks and the NL-3DMM fit, into the training
 h5.  The same flags as the JAX CLI, and ``--device`` (``cuda``, the
-default, or ``cpu``): the frames' image work and the fit run there.  Frames
-are read as PNG (``preprocess/driver.read_frame``); a JPEG frame raises
-``NotImplementedError`` (ROADMAP Queue 1 item 8).  Writing the h5 needs
-h5py.
+default, or ``cpu``): the frames' decoding and image work and the fit run
+there.  Frames are read as ``cv2.imread`` reads them
+(``preprocess/driver.read_frame``: baseline JPEG, PNG, BMP).  Writing the
+h5 needs h5py.
 """
 
 from __future__ import annotations
@@ -184,7 +184,7 @@ def main(argv=None) -> int:
             return 1
         from gazenerf_tpu_torch.preprocess.driver import read_frame
 
-        probe = read_frame(frames[0])
+        probe = read_frame(frames[0], device)
         if probe is None:
             logger.error("unreadable frame %s", frames[0])
             return 1

@@ -95,6 +95,7 @@ def every_kernel() -> Dict[str, Mapping[str, int]]:
         fused_field2_bwd,
         fused_field_bwd,
         fused_upsampler,
+        jpeg,
         shuffle_blur,
     )
 
@@ -108,6 +109,7 @@ def every_kernel() -> Dict[str, Mapping[str, int]]:
         fused_upsampler.KERNEL_BWD: fused_upsampler.DEFINES,
         fused_upsampler.KERNEL_F32: fused_upsampler.DEFINES,
         field_dw.KERNEL: field_dw.DEFINES,
+        jpeg.KERNEL: jpeg.DEFINES,
     }
 
 

@@ -37,12 +37,17 @@ against their plain versions (K2's summing its weight gradients in the
 kernel's chunks), K2 against the unrounded gradient, K1 writing the stash
 and K2 reading it (the density masks of kernel and plain version equal at
 every point), K3 against K1 per branch and K4 against K2 per branch.
+JPEG frames (``kernels/jpeg.py``) are held to the bit: the pixel kernel
+against its plain version and ``cv2.imread``'s committed pixels, the native
+entropy decoder's coefficients against the plain decoder's.
 """
 
 from __future__ import annotations
 
 import collections
 import contextlib
+import struct
+from pathlib import Path
 from typing import Dict, List, Tuple
 
 import torch
@@ -52,8 +57,11 @@ from gazenerf_tpu_torch.kernels import fused_field2 as ff2
 from gazenerf_tpu_torch.kernels import fused_field2_bwd as ffb2
 from gazenerf_tpu_torch.kernels import fused_field_bwd as ffb
 from gazenerf_tpu_torch.kernels import fused_upsampler as fu
+from gazenerf_tpu_torch.kernels import jpeg as kj
 from gazenerf_tpu_torch.kernels import shuffle_blur as sb
 from gazenerf_tpu_torch.models.mlp_nerf import NeRFFieldMLP
+from gazenerf_tpu_torch.utils import jpeg as J
+from gazenerf_tpu_torch.utils.png import decode_png
 
 # K2's cases: (hidden, samples per ray, rays per batch), two batches
 K2_CASES = {
@@ -1291,3 +1299,84 @@ def points_form_failures(case, args, cot, form, chunks=None) -> Tuple[Dict, List
         line[f"k2_dens_vpu_{dens_vpu}"] = r
         del got, plain
     return line, fails
+
+
+# ---------------- JPEG frames (kernels/jpeg.py) ------------------------------
+# The pixel stage (``jpeg_pixels``) is held to its plain version to the bit,
+# and the native entropy decoder's coefficients and warnings equal the plain
+# decoder's; both decode the committed fixtures to ``cv2.imread``'s pixels
+# (``tools/make_jpeg_fixtures.py``).
+
+JPEG_FIXTURES = Path(__file__).resolve().parents[2] / "tests" / "data" / "jpeg"
+JPEG_MAX_ABS_ERR = 0  # integer arithmetic: the kernel gives the plain version's bits
+# the strips stacked to ETH-XGaze's 6000 x 4000 frames: name -> repeats
+JPEG_STRIP_REPEATS = {"strip420_6000x16": 250, "strip422_6000x8": 500}
+
+
+def jpeg_fixture_names() -> List[str]:
+    """The small fixtures: each ``<name>.jpg`` with cv2's pixels in
+    ``<name>.png`` beside it."""
+    return sorted(p.stem for p in JPEG_FIXTURES.glob("*.png"))
+
+
+def stack_jpeg_strip(data: bytes, repeats: int) -> bytes:
+    """A one-MCU-row strip whose restart interval is that row -> the frame
+    ``repeats`` strips tall: the strip's one restart segment ``repeats``
+    times, RST0-7 in turn between them, the height written into SOF0.  Each
+    segment decodes alone (the DC predictions restart), so its coefficients
+    are the strip's."""
+    hdr = J.parse_header(data)
+    if hdr is None or hdr.mcus_y != 1 or hdr.restart_interval != hdr.mcus_x:
+        raise ValueError("not a one-MCU-row strip with a restart interval of that row")
+    pos, sof = 2, None
+    while data[pos + 1] != J.SOS:
+        if data[pos + 1] in (J.SOF0, J.SOF1):
+            sof = pos
+        pos += 2 + struct.unpack_from(">H", data, pos + 2)[0]
+    end = data.rindex(b"\xff\xd9")
+    segment = data[hdr.scan_start:end]
+    head = (data[:sof + 5] + struct.pack(">H", hdr.height * repeats)
+            + data[sof + 7:hdr.scan_start])
+    rst = [bytes([0xFF, J.RST0 + k % 8]) for k in range(repeats - 1)] + [b""]
+    return head + b"".join(segment + r for r in rst) + b"\xff\xd9"
+
+
+def jpeg_fixture_failures(name: str, device) -> List[str]:
+    """A committed fixture decoded on ``device`` (``decode_jpeg``) against
+    ``cv2.imread``'s committed pixels and the CPU's plain path, bit for bit."""
+    data = (JPEG_FIXTURES / f"{name}.jpg").read_bytes()
+    rgb = torch.from_numpy(decode_png((JPEG_FIXTURES / f"{name}.png").read_bytes()))
+    want = rgb.flip(-1)
+    got = kj.decode_jpeg(data, device).cpu()
+    fails = []
+    plain = kj.decode_jpeg(data, "cpu")
+    for what, ref in (("cv2's pixels", want), ("the CPU's plain path", plain)):
+        if got.shape != ref.shape or not torch.equal(got, ref):
+            n = int((got != ref).sum()) if got.shape == ref.shape else "shape"
+            fails.append(f"{name}: against {what}: {n} values differ")
+    return fails
+
+
+def jpeg_stacked_frame(name: str, repeats: int = 0) -> Tuple[bytes, bytes]:
+    """A committed strip and the frame stacked from it (``repeats`` strips,
+    by default ``JPEG_STRIP_REPEATS``: 6000 x 4000)."""
+    strip = (JPEG_FIXTURES / f"{name}.jpg").read_bytes()
+    return strip, stack_jpeg_strip(strip, repeats or JPEG_STRIP_REPEATS[name])
+
+
+def jpeg_coefficient_failures(strip: bytes, frame: bytes, coef: torch.Tensor) -> List[str]:
+    """``coef``, the native decoder's coefficients of ``frame`` (stacked
+    from ``strip``), against the plain decoder's of the strip alone, for
+    every restart segment (one MCU row of every component)."""
+    one, big = J.parse_header(strip), J.parse_header(frame)
+    plain, warn = J.entropy_decode_reference(strip, one)
+    plain = torch.from_numpy(plain)
+    repeats = big.mcus_y // one.mcus_y
+    fails = [] if warn == 0 else [f"the strip decodes with warnings {warn}"]
+    for k, (c1, cb) in enumerate(zip(one.components, big.components)):
+        row = plain[c1.offset:c1.offset + c1.blocks_w * c1.blocks_h]
+        tall = coef[cb.offset:cb.offset + cb.blocks_w * cb.blocks_h].view(repeats, *row.shape)
+        bad = (tall != row).flatten(1).any(1)
+        if bad.any():
+            fails.append(f"component {k}: {int(bad.sum())} of {repeats} segments differ")
+    return fails

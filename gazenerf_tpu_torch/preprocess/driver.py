@@ -11,10 +11,11 @@ three, and the rows written in the schema the trainer reads
 The JAX package calls OpenCV for the image work; the port runs its own
 counterparts (``preprocess/normalize.py``: ``undistort``, ``warp_affine``
 with ``rotation_matrix_2d``, ``resize_area_u8``, ``resize_linear_u8``,
-``normalize_face``) on the given device, reads PNG frames with
-:func:`read_frame` and writes PNGs with ``utils/png.encode_png``.  h5py is
-imported where it is installed; :class:`SubjectWriter` and
-:func:`qa_renders_from_h5` need it.
+``normalize_face``) on the given device, reads frames with
+:func:`read_frame` (baseline JPEG through ``kernels/jpeg.decode_jpeg``, on
+the card by default; PNG and BMP on the host) and writes PNGs with
+``utils/png.encode_png``.  h5py is imported where it is installed;
+:class:`SubjectWriter` and :func:`qa_renders_from_h5` need it.
 """
 
 from __future__ import annotations
@@ -44,6 +45,8 @@ from gazenerf_tpu_torch.preprocess.normalize import (
     vector_to_pitchyaw,
     warp_affine,
 )
+from gazenerf_tpu_torch.kernels.jpeg import decode_jpeg
+from gazenerf_tpu_torch.utils.bmp import decode_bmp
 from gazenerf_tpu_torch.utils.png import decode_png, encode_png
 
 try:
@@ -56,29 +59,37 @@ logger = logging.getLogger(__name__)
 # the 6-point face model's rows (4 eye corners, 2 mouth corners) as iBUG-68
 # indices
 FACE_MODEL_LM68 = [36, 39, 42, 45, 48, 54]
-JPEG_ITEM = "ROADMAP Queue 1 item 8"
 
 
-def read_frame(path: str) -> Optional[np.ndarray]:
-    """``cv2.imread(path)`` for PNG frames: BGR uint8 ``[H, W, 3]`` (grey
-    replicated, alpha dropped), or None where the file is missing, corrupt or
-    truncated.  JPEG (and any other format), and PNGs that ``decode_png``
-    does not read (16-bit, palette, interlaced), raise
-    ``NotImplementedError`` naming the file: the port has no decoder for
-    them yet."""
+def read_frame(path: str, device=None) -> Optional[np.ndarray]:
+    """``cv2.imread(path)``: BGR uint8 ``[H, W, 3]`` on the host (grey
+    replicated, alpha dropped, a JPEG's EXIF orientation applied), or None
+    where the file is missing, corrupt or cut inside its headers.  JPEG goes
+    through ``decode_jpeg`` on ``device`` (the card unless told otherwise),
+    PNG through ``decode_png`` and BMP through ``decode_bmp``.  What those do
+    not read (progressive, 12-bit, CMYK JPEG; 16-bit, palette, interlaced
+    PNG; RLE or bit-field BMP), and any other format, raises
+    ``NotImplementedError`` naming the file."""
     ext = os.path.splitext(path)[1].lower()
-    if ext in (".jpg", ".jpeg"):
-        raise NotImplementedError(
-            f"{path}: JPEG frames cannot be read yet ({JPEG_ITEM}); convert them to PNG")
-    if ext != ".png":
-        raise NotImplementedError(f"{path}: only PNG frames can be read")
+    if ext not in (".jpg", ".jpeg", ".png", ".bmp"):
+        raise NotImplementedError(f"{path}: only JPEG, PNG and BMP frames can be read")
     try:
         with open(path, "rb") as f:
-            img = decode_png(f.read())
-    except (OSError, ValueError, zlib.error):
+            data = f.read()
+    except OSError:
         return None
+    try:
+        if ext in (".jpg", ".jpeg"):
+            img = decode_jpeg(data, device)
+            return None if img is None else img.cpu().numpy()
+        if ext == ".bmp":
+            return decode_bmp(data)
+        try:
+            img = decode_png(data)
+        except (ValueError, zlib.error):
+            return None
     except NotImplementedError as e:
-        raise NotImplementedError(f"{path}: {e}; convert it to 8-bit PNG") from None
+        raise NotImplementedError(f"{path}: {e}") from None
     if img.ndim == 2:
         return np.repeat(img[..., None], 3, axis=-1)
     return np.ascontiguousarray(img[..., 2::-1])
@@ -252,7 +263,7 @@ def process_subject_records(records, out_path: str, face_model_3d: np.ndarray, f
     writer = SubjectWriter(out_path, img_size)
     rows = []
     for rec in records:
-        img = read_frame(rec.image_path)
+        img = read_frame(rec.image_path, dev)
         if img is None:
             logger.warning("unreadable frame %s; skipping", rec.image_path)
             continue

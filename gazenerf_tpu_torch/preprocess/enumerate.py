@@ -1,9 +1,8 @@
 """Raw-dataset layouts for the offline data factory, the port of the JAX
 package's ``preprocess/enumerate.py``: upstream's per-dataset enumeration
 (``dataset_pre_processing.py:80-445``, ``pre_processing/data_process.py:
-107-192``) into :class:`FrameRecord` rows.  The layouts only list files, so
-JPEG frames are enumerated (reading one is another matter: see
-``preprocess/driver.read_frame``).
+107-192``) into :class:`FrameRecord` rows.  The layouts only list files;
+``preprocess/driver.read_frame`` reads them (JPEG, PNG, BMP).
 
 ETH-XGaze layout::
 

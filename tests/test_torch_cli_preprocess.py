@@ -2,7 +2,9 @@
 package's CLI: an ETH-XGaze layout of PNG frames (distorted cameras, an
 upside-down one, the CSV head poses) through both, with the same NL-3DMM
 basis and decoder checkpoint, and the two h5 files compared field by
-field; the QA panels re-rendered from the h5; a JPEG frame refused.
+field; the QA panels re-rendered from the h5; the same on JPEG frames
+(``.JPG``, as ETH-XGaze ships them) without the fit, and a progressive JPEG
+frame refused.
 
 The frame fields are equal (the warp to the virtual camera within its
 bound, 1 level on 1e-3 of the pixels, ``tests/test_torch_normalize.py``).  The fit's fields are compared loosely: 50
@@ -34,10 +36,11 @@ CODE_REL_L2, ROT_REL_L2, TVEC_REL_L2 = 0.1, 0.025, 0.03  # the 250-step fit
 WARP_MAX_LEVELS, WARP_MAX_SHARE = 1, 1e-3
 
 
-def _layout(root):
-    """One frame from cameras 3 (upside down) and 7 at 240 x 240, distorted
-    calibrations for all 18 cameras, a CSV row per image; and the decoder
-    checkpoint (JAX's seeded draw in upstream's names)."""
+def _layout(root, ext=".png"):
+    """One frame from cameras 3 (upside down) and 7 at 240 x 240 (written by
+    ``cv2.imwrite`` as ``ext``), distorted calibrations for all 18 cameras, a
+    CSV row per image; and the decoder checkpoint (JAX's seeded draw in
+    upstream's names)."""
     rng = np.random.default_rng(0)
     subj, calib = os.path.join(root, "subject0000"), os.path.join(root, "calib")
     os.makedirs(os.path.join(subj, "frame0000"))
@@ -52,7 +55,7 @@ def _layout(root):
     for c in (3, 7):
         img = np.stack([(xx * 3 + yy + 40 * c) % 256, (yy * 2) % 256, ((xx - yy) * 5) % 256], -1)
         img = (img * 0.7 + rng.random(img.shape) * 76).astype(np.uint8)
-        name = f"frame0000_cam{c:02d}.png"
+        name = f"frame0000_cam{c:02d}{ext}"
         cv2.imwrite(os.path.join(subj, "frame0000", name), img)
         rows.append(["frame0000", name, "0.1", "-0.2", "0.05", "-0.02", "-0.99", str(0.01 * c),
                      "-0.02", "0.03", "5.0", "-3.0", "580.0"])
@@ -144,11 +147,30 @@ def test_cli_h5_matches_jax_field_by_field(tmp_path):
 
 
 def test_cli_refuses_jpeg_frames(tmp_path):
-    """The flat layout lists ``.png`` and ``.jpg`` frames; reading a JPEG
-    raises ``NotImplementedError`` naming the file and the ROADMAP item."""
-    frames = tmp_path / "frames"
-    frames.mkdir()
-    cv2.imwrite(str(frames / "0001.jpg"), np.zeros((32, 32, 3), np.uint8))
-    with pytest.raises(NotImplementedError, match="0001.jpg.*ROADMAP Queue 1 item 8"):
-        main(["--frames_dir", str(frames), "--out", str(tmp_path / "s.h5"), "--device", "cpu",
-              "--fit", "false"])
+    """ETH-XGaze's layout with JPEG frames (``cv2.imwrite``'s 4:2:0 at
+    quality 95, named ``.JPG``): both CLIs without the fit write the same h5
+    field by field (the port reads the frames on the CPU to ``cv2.imread``'s
+    pixels); a progressive frame, which the port does not read yet, raises
+    naming the file and its ROADMAP item."""
+    args = _layout(str(tmp_path), ".JPG") + ["--fit", "false"]
+    port, jax_h5 = str(tmp_path / "port.h5"), str(tmp_path / "jax.h5")
+    assert main(args + ["--out", port, "--device", "cpu"]) == 0
+    assert jax_main(args + ["--out", jax_h5]) == 0
+    with h5py.File(port) as g, h5py.File(jax_h5) as w:
+        assert set(g) == set(w) and len(w["face_patch"]) == 2
+        for key in w:
+            a, b = g[key][:], w[key][:]
+            assert a.dtype == b.dtype and a.shape == b.shape, key
+            if key == "face_patch":
+                d = np.abs(a.astype(int) - b.astype(int))
+                assert d.max() <= WARP_MAX_LEVELS and (d > 0).mean() <= WARP_MAX_SHARE
+            elif key in ("pitchyaw_head", "face_head_pose", "facial_landmarks"):
+                np.testing.assert_allclose(a, b, rtol=0, atol=1e-4, err_msg=key)
+            else:
+                np.testing.assert_array_equal(a, b, err_msg=key)
+    frame = tmp_path / "subject0000" / "frame0000" / "frame0000_cam03.JPG"
+    img = cv2.imread(str(frame))
+    cv2.imwrite(str(frame), img, [cv2.IMWRITE_JPEG_PROGRESSIVE, 1])
+    with pytest.raises(NotImplementedError,
+                       match="frame0000_cam03.JPG: progressive.*ROADMAP Queue 1 item 9"):
+        main(args + ["--out", str(tmp_path / "s.h5"), "--device", "cpu"])

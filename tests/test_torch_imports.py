@@ -36,7 +36,7 @@ print(len(names), bad, missing)
 # the modules of the slices: the render, the training step, the renderer's
 # kernel modes, the dual-branch field path, the training CLI from files, and
 # fitting and evaluation with their CLIs and metric nets, and multi-process
-# training, and the offline data factory
+# training, and the offline data factory with its JPEG and BMP readers
 EXPECTED = [
     "gazenerf_tpu_torch.cli.common",
     "gazenerf_tpu_torch.cli.evaluate",
@@ -58,6 +58,7 @@ EXPECTED = [
     "gazenerf_tpu_torch.kernels.fused_field2_bwd",
     "gazenerf_tpu_torch.kernels.fused_field_bwd",
     "gazenerf_tpu_torch.kernels.fused_upsampler",
+    "gazenerf_tpu_torch.kernels.jpeg",
     "gazenerf_tpu_torch.kernels.shuffle_blur",
     "gazenerf_tpu_torch.losses.gazenerf_loss",
     "gazenerf_tpu_torch.models.face_alignment",
@@ -85,7 +86,9 @@ EXPECTED = [
     "gazenerf_tpu_torch.train.fitting",
     "gazenerf_tpu_torch.train.state",
     "gazenerf_tpu_torch.train.trainer",
+    "gazenerf_tpu_torch.utils.bmp",
     "gazenerf_tpu_torch.utils.gif",
+    "gazenerf_tpu_torch.utils.jpeg",
     "gazenerf_tpu_torch.utils.logging",
     "gazenerf_tpu_torch.viewer.server",
 ]
@@ -96,7 +99,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         [sys.executable, "-c", f"EXPECTED = {EXPECTED!r}\n" + _IMPORT_ALL], cwd=REPO,
         capture_output=True, text=True, timeout=120, check=True,
     ).stdout.split(maxsplit=1)
-    assert int(out[0]) >= 59  # every submodule was imported
+    assert int(out[0]) >= 62  # every submodule was imported
     assert out[1].strip() == "[] []"
 
 

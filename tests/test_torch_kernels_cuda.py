@@ -1312,3 +1312,39 @@ def test_deep_training_step_on_card(card, stash):
     for k, v in losses.items():
         assert torch.isfinite(v), k
         torch.testing.assert_close(v, plain[k], rtol=1e-3, atol=1e-6, msg=k)
+
+
+@pytest.mark.parametrize("name", checks.jpeg_fixture_names())
+def test_jpeg_fixture_on_card_is_cv2_and_plain(card, name):
+    """Each committed JPEG fixture decoded on the card (the native entropy
+    decoder and one ``jpeg_pixels`` launch) equals ``cv2.imread``'s
+    committed pixels and the CPU's plain path, bit for bit."""
+    from gazenerf_tpu_torch.kernels import jpeg as kj
+
+    before = kj.launch_count
+    fails = checks.jpeg_fixture_failures(name, card)
+    torch.cuda.synchronize()
+    assert kj.launch_count == before + 1
+    assert not fails, fails
+
+
+@pytest.mark.parametrize("name", sorted(checks.JPEG_STRIP_REPEATS))
+def test_jpeg_stacked_strip_on_card(card, name):
+    """A full-width strip stacked to 6000 x 320 or 6000 x 400 rows: the
+    native decoder's coefficients equal the plain decoder's for every
+    restart segment, and the kernel's frame the plain pixel stage's on the
+    card, to the bit."""
+    from gazenerf_tpu_torch.kernels import jpeg as kj
+    from gazenerf_tpu_torch.utils import jpeg as J
+
+    strip, frame = checks.jpeg_stacked_frame(name, 50 if "420" in name else 40)
+    hdr = J.parse_header(frame)
+    host = torch.empty((hdr.n_blocks, 64), dtype=torch.int16, pin_memory=True)
+    assert kj.entropy_decode(frame, hdr, host) == 0
+    fails = checks.jpeg_coefficient_failures(strip, frame, host)
+    assert not fails, fails
+    coef = host.to(card)
+    got = kj.jpeg_pixels(coef, hdr)
+    want = J.pixels_reference(coef, hdr)
+    torch.cuda.synchronize()
+    assert got.shape == (hdr.height, 6000, 3) and torch.equal(got, want)

@@ -84,18 +84,27 @@ def test_png_decoder_reads_what_cv2_writes(tmp_path, filt, channels):
 
 def test_read_frame_is_cv2_imread_and_refuses_jpeg(tmp_path):
     """``read_frame`` is ``cv2.imread`` (BGR, grey replicated, alpha
-    dropped) on PNGs; a JPEG frame raises naming the file and the ROADMAP
-    item; an unreadable file reads as None, as cv2 gives."""
+    dropped) on PNGs, and on JPEGs on the CPU (``kernels/jpeg.decode_jpeg``'s
+    plain path; every sampling factor, EXIF and damage in
+    ``tests/test_torch_jpeg.py``); a JPEG it does not read yet
+    (progressive) raises naming the file and the ROADMAP item; an
+    unreadable file reads as None, as cv2 gives."""
     rng = np.random.default_rng(0)
     for name, img in (("rgb.png", _image(rng, 20, 30)), ("grey.png", _image(rng, 20, 30)[..., 0]),
                       ("rgba.png", _image(rng, 20, 30, 3).repeat(2, -1)[..., :4])):
         p = str(tmp_path / name)
         cv2.imwrite(p, img)
         assert np.array_equal(D.read_frame(p), cv2.imread(p)), name
-    jpg = str(tmp_path / "frame0000_cam00.jpg")
-    cv2.imwrite(jpg, _image(rng, 20, 30))
-    with pytest.raises(NotImplementedError, match="frame0000_cam00.jpg.*ROADMAP Queue 1 item 8"):
-        D.read_frame(jpg)
+    for name, img in (("frame0000_cam00.jpg", _image(rng, 21, 30)),
+                      ("grey.jpeg", _image(rng, 21, 30)[..., 0])):
+        p = str(tmp_path / name)
+        cv2.imwrite(p, img)
+        assert np.array_equal(D.read_frame(p, device="cpu"), cv2.imread(p)), name
+    jpg = str(tmp_path / "frame0001_cam00.jpg")
+    cv2.imwrite(jpg, _image(rng, 20, 30), [cv2.IMWRITE_JPEG_PROGRESSIVE, 1])
+    with pytest.raises(NotImplementedError,
+                       match="frame0001_cam00.jpg: progressive.*ROADMAP Queue 1 item 9"):
+        D.read_frame(jpg, device="cpu")
     bad = str(tmp_path / "broken.png")
     open(bad, "wb").write(b"\x89PNG\r\n\x1a\nnot a png")
     assert D.read_frame(bad) is None and cv2.imread(bad) is None
